@@ -1,0 +1,262 @@
+"""JAX variables → the port's modules, and JAX-like random initialisation.
+
+A JAX run's variables travel as one ``.npz`` whose keys are the flattened
+variable paths joined by ``/`` (``params/swin/patch_embed/proj/kernel``,
+``batch_stats/fusion/img_proj/bn/mean`` …); ``flatten_variables`` builds
+that dict from any nested mapping of arrays, so exporting takes
+``np.savez(path, **flatten_variables(variables))`` in the JAX environment.
+``jax_variables_to_torch`` loads it into an ``EndToEndMVulD`` or into one of
+its towers (``SwinTransformerV2``, ``RobertaEncoder``,
+``MultiDefectAblation``), with the layout rules:
+
+  Dense ``kernel`` [in, out]       → ``weight`` [out, in]
+  Conv ``kernel`` HWIO             → ``weight`` OIHW
+  LayerNorm / BatchNorm ``scale``  → ``weight``
+  BatchNorm ``mean`` / ``var``     → ``running_mean`` / ``running_var``
+  Embed ``embedding``              → ``weight``
+  SwinV2 ``layers_{i}_scan/block{b}`` leaves [pairs, …] → blocks 2p + b
+
+and the module names of the reference torch models where the JAX
+converters name them (``attn.cpb_mlp.0``, ``encoder.layer.{i}.attention.
+self.query``, dgl GATConv's ``attn_l`` [1, H, D], Rs_GCN's ``W.0``/``W.1``).
+It raises on a key it leaves unused and on a port tensor it leaves unset.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Iterator, List, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Mapped = Iterator[Tuple[str, np.ndarray]]
+
+
+def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mapping of arrays → {"a/b/c": np.ndarray}."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_variables(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+_LEAF = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def _leaf(path: List[str], arr: np.ndarray) -> Mapped:
+    """Generic rule: join the path with '.', torch leaf name and layout."""
+    *mods, name = path
+    if name == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        name = "weight"
+    yield ".".join(mods + [_LEAF.get(name, name)]), arr
+
+
+def _prefixed(prefix: str, items: Mapped) -> Mapped:
+    for k, v in items:
+        yield prefix + k, v
+
+
+# ------------------------------------------------------------------ swin
+
+def _swin_block(path: List[str], arr: np.ndarray) -> Mapped:
+    if path == ["attn", "qkv_kernel"]:
+        yield "attn.qkv.weight", arr.T
+    elif path[:2] == ["attn", "cpb_fc1"]:
+        yield from _leaf(["attn", "cpb_mlp", "0", path[2]], arr)
+    elif path[:2] == ["attn", "cpb_fc2"]:
+        yield from _leaf(["attn", "cpb_mlp", "2", path[2]], arr)
+    else:
+        yield from _leaf(path, arr)
+
+
+def _swin(path: List[str], arr: np.ndarray) -> Mapped:
+    head = path[0]
+    m = re.fullmatch(r"layers_(\d+)_blocks_(\d+)", head)
+    if m:
+        yield from _prefixed(f"layers.{m[1]}.blocks.{m[2]}.",
+                             _swin_block(path[1:], arr))
+        return
+    m = re.fullmatch(r"layers_(\d+)_scan", head)
+    if m:
+        b = {"block0": 0, "block1": 1}[path[1]]
+        for p in range(arr.shape[0]):       # scan layout: leading pair axis
+            yield from _prefixed(f"layers.{m[1]}.blocks.{2 * p + b}.",
+                                 _swin_block(path[2:], arr[p]))
+        return
+    m = re.fullmatch(r"layers_(\d+)_downsample", head)
+    if m:
+        yield from _prefixed(f"layers.{m[1]}.downsample.", _leaf(path[1:], arr))
+        return
+    yield from _leaf(path, arr)
+
+
+# ------------------------------------------------------------------ roberta
+
+_ROBERTA_LAYER = {"attention_norm": ["attention", "output", "LayerNorm"],
+                  "intermediate": ["intermediate", "dense"],
+                  "mlp_output": ["output", "dense"],
+                  "output_norm": ["output", "LayerNorm"]}
+
+
+def _roberta(path: List[str], arr: np.ndarray) -> Mapped:
+    head = path[0]
+    if head == "embeddings_norm":
+        yield from _leaf(["embeddings", "LayerNorm"] + path[1:], arr)
+        return
+    if head.endswith("_embeddings"):
+        yield from _leaf(["embeddings"] + path, arr)
+        return
+    m = re.fullmatch(r"layer_(\d+)", head)
+    if not m:
+        raise KeyError(f"unknown RoBERTa variable {'/'.join(path)}")
+    sub = path[1]
+    if sub == "attention":
+        mods = (["attention", "output", "dense"] if path[2] == "output"
+                else ["attention", "self", path[2]])
+        rest = path[3:]
+    else:
+        mods, rest = _ROBERTA_LAYER[sub], path[2:]
+    yield from _prefixed(f"encoder.layer.{m[1]}.", _leaf(mods + rest, arr))
+
+
+# ------------------------------------------------------------------ fusion
+
+def _fusion(path: List[str], arr: np.ndarray) -> Mapped:
+    name = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if parent in ("gat", "gat2") and name in ("attn_l", "attn_r"):
+        yield ".".join(path), arr[None]                  # [H, D] → [1, H, D]
+        return
+    if parent in ("gat", "gat2") and name == "bias":
+        yield ".".join(path), arr.reshape(-1)            # [H, D] → [H·D]
+        return
+    rs = next((i for i, p in enumerate(path) if p.startswith("rs_gcn_")), None)
+    if rs is not None:
+        mods, sub = path[:rs + 1], path[rs + 1]
+        conv = {"g": "g", "theta": "theta", "phi": "phi", "W": "W.0"}
+        if sub in conv:                        # 1×1 Conv1d [out, in, 1]
+            w = arr.T[:, :, None] if name == "kernel" else arr
+            yield ".".join(mods + [conv[sub], "weight" if name == "kernel"
+                                   else name]), w
+        else:                                  # "bn" → W.1
+            yield from _leaf(mods + ["W", "1", name], arr)
+        return
+    yield from _leaf(path, arr)
+
+
+# ------------------------------------------------------------------ dispatch
+
+def _rules(model: nn.Module):
+    from mvuld_tpu_torch.models.e2e import EndToEndMVulD
+    from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
+    from mvuld_tpu_torch.models.roberta import RobertaEncoder
+    from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
+
+    if isinstance(model, SwinTransformerV2):
+        return _swin
+    if isinstance(model, RobertaEncoder):
+        return _roberta
+    if isinstance(model, MultiDefectAblation):
+        return _fusion
+    if isinstance(model, EndToEndMVulD):
+        towers = {"swin": _swin, "text_encoder": _roberta, "fusion": _fusion}
+
+        def e2e(path, arr):
+            if path[0] not in towers:
+                raise KeyError(f"unknown tower {path[0]!r}")
+            yield from _prefixed(path[0] + ".", towers[path[0]](path[1:], arr))
+        return e2e
+    raise TypeError(f"no JAX variable mapping for {type(model).__name__}")
+
+
+def jax_variables_to_torch(flat: Mapping[str, np.ndarray], model: nn.Module
+                           ) -> None:
+    """Load flattened JAX variables (``params/…`` and ``batch_stats/…``)
+    into ``model`` in place. Raises on an unused key, a shape mismatch, or a
+    port tensor left unset."""
+    rule = _rules(model)
+    target = model.state_dict()
+    loaded: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        coll, _, rest = key.partition("/")
+        if coll not in ("params", "batch_stats") or not rest:
+            raise KeyError(f"unused JAX variable {key!r} (not params/ or "
+                           f"batch_stats/)")
+        try:
+            mapped = list(rule(rest.split("/"), np.asarray(value)))
+        except (KeyError, IndexError) as e:
+            raise KeyError(f"unused JAX variable {key!r}: {e}") from None
+        for port_key, arr in mapped:
+            if port_key not in target:
+                raise KeyError(f"unused JAX variable {key!r} (maps to "
+                               f"{port_key!r}, not in {type(model).__name__})")
+            if tuple(arr.shape) != tuple(target[port_key].shape):
+                raise ValueError(f"{key!r} → {port_key!r}: shape "
+                                 f"{tuple(arr.shape)} != "
+                                 f"{tuple(target[port_key].shape)}")
+            loaded[port_key] = torch.as_tensor(np.ascontiguousarray(arr))
+    for k, v in target.items():
+        if k.endswith("num_batches_tracked"):
+            loaded.setdefault(k, torch.zeros_like(v))
+    unset = sorted(set(target) - set(loaded))
+    if unset:
+        raise KeyError(f"port tensors left unset by the JAX variables: "
+                       f"{unset[:8]}{' …' if len(unset) > 8 else ''}")
+    model.load_state_dict(loaded, strict=True)
+
+
+@torch.no_grad()
+def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn from ``generator`` with the JAX package's
+    initialisers: dense and conv kernels lecun-normal (truncated at two
+    standard deviations), biases 0, LayerNorm and BatchNorm scale 1 and
+    shift 0 (Rs-GCN's BN scale 0), running statistics 0 and 1, embeddings
+    normal with std 1/√features, GAT attention vectors xavier-normal,
+    ``logit_scale`` log 10."""
+    from mvuld_tpu_torch.models.graph_nets import DenseGATConv, RsGCN
+    from mvuld_tpu_torch.models.swin_v2 import WindowAttentionV2
+
+    def lecun(w: torch.Tensor, fan_in: int):
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        t = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+        w.copy_(t * std)
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            lecun(mod.weight, mod.weight[0].numel())
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm1d):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(torch.empty(mod.weight.shape).normal_(
+                0.0, 1.0 / math.sqrt(mod.weight.shape[1]), generator=generator))
+    for mod in model.modules():
+        if isinstance(mod, WindowAttentionV2):
+            mod.logit_scale.fill_(math.log(10.0))
+            if mod.q_bias is not None:
+                mod.q_bias.zero_()
+                mod.v_bias.zero_()
+        elif isinstance(mod, DenseGATConv):
+            H, D = mod.num_heads, mod.out_feats
+            std = math.sqrt(2.0 / (H + D))
+            for p in (mod.attn_l, mod.attn_r):
+                p.copy_(torch.empty(p.shape).normal_(0.0, std,
+                                                     generator=generator))
+            mod.bias.zero_()
+        elif isinstance(mod, RsGCN):
+            mod.W[1].weight.zero_()

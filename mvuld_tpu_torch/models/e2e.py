@@ -1,0 +1,83 @@
+"""End-to-end tri-modal model in PyTorch: UniXcoder (function + per-line),
+SwinV2 (rendered image) and the fusion head in one forward.
+
+Counterpart of ``mvuld_tpu/models/e2e.py``, forward only (serving).
+
+Inputs:
+  func_ids  [B, T]        whole-function token ids
+  node_ids  [B, N, Tn]    per-line token ids
+  image     [B, S, S, 3]  rendered graph (normalized, NHWC)
+  pos       [B, N, P], adj [B, N, N] bool, node_mask [B, N]
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
+from mvuld_tpu_torch.models.roberta import (RobertaConfig, RobertaEncoder,
+                                            masked_mean)
+from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2, SwinV2Config
+
+
+class EndToEndMVulD(nn.Module):
+    """``node_capacity``: packed-batch size for the per-line encoder. Valid
+    lines (node_mask > 0) are stable-sorted to the front — original order
+    preserved — into a [node_capacity, Tn] batch, encoded once, and
+    scattered back to [B, N, H]. Lines beyond capacity get a zero embedding.
+    ``None`` encodes every slot (the parity reference path)."""
+
+    def __init__(self, text_config: RobertaConfig, swin_config: SwinV2Config,
+                 hidden: int = 512, num_classes: int = 2, num_rs_gcn: int = 8,
+                 num_hidden: int = 8, max_nodes: int = 100, pos_dim: int = 4,
+                 use_pallas: bool = False, use_pallas_mlp: bool = False,
+                 window_resident: bool = False,
+                 node_capacity: Optional[int] = None):
+        super().__init__()
+        self.text_config, self.swin_config = text_config, swin_config
+        self.node_capacity = node_capacity
+        self.text_encoder = RobertaEncoder(text_config)
+        self.swin = SwinTransformerV2(swin_config, use_pallas=use_pallas,
+                                      use_pallas_mlp=use_pallas_mlp,
+                                      window_resident=window_resident)
+        self.fusion = MultiDefectAblation(
+            num_classes=num_classes, hidden=hidden,
+            img_dim=swin_config.num_features, text_dim=text_config.hidden_size,
+            num_rs_gcn=num_rs_gcn, num_hidden=num_hidden,
+            max_nodes=max_nodes, pos_dim=pos_dim)
+
+    def forward(self, func_ids, node_ids, image, pos, adj, node_mask):
+        pad = self.text_config.pad_token_id
+        encoder = self.text_encoder
+
+        # whole-function sentence embedding
+        fmask = (func_ids != pad).long()
+        text_emb = masked_mean(encoder(func_ids, fmask), fmask)   # [B, H]
+
+        # per-line node embeddings through the SAME encoder
+        B, N, Tn = node_ids.shape
+        flat = node_ids.reshape(B * N, Tn)
+        valid = node_mask.reshape(B * N) > 0
+        if self.node_capacity is not None and self.node_capacity < B * N:
+            P = self.node_capacity
+            # stable sort brings valid lines to the front in original order
+            order = torch.argsort((~valid).to(torch.int32), stable=True)
+            sel = order[:P]
+            took = valid[sel].float()
+            packed = flat[sel]                                    # [P, Tn]
+            pmask = (packed != pad).long()
+            pemb = masked_mean(encoder(packed, pmask), pmask) * took[:, None]
+            node_flat = torch.zeros((B * N, pemb.shape[-1]), dtype=pemb.dtype,
+                                    device=pemb.device)
+            node_flat[sel] = pemb
+            node_emb = node_flat.reshape(B, N, -1)
+        else:
+            nmask = (flat != pad).long()
+            node_emb = masked_mean(encoder(flat, nmask), nmask).reshape(B, N, -1)
+        node_emb = node_emb * node_mask[..., None]                # [B, N, H]
+
+        img_emb = self.swin(image)
+        return self.fusion(img_emb, text_emb, node_emb, pos, adj, node_mask)

@@ -1,0 +1,119 @@
+"""Dense masked graph layers in PyTorch: GAT, Rs-GCN and the readouts the
+production fusion head uses.
+
+Counterpart of ``mvuld_tpu/models/graph_nets.py`` over the same dense
+[B, N, ·] layout:
+
+  * ``DenseGATConv`` ≡ dgl.nn.GATConv (LeakyReLU(0.2) additive attention,
+    softmax over in-neighbors, per-head out = Σ α · (W h_src), bias); its
+    parameters carry dgl's names and shapes (``fc.weight``, ``attn_l``
+    [1, H, D], ``attn_r``, ``bias`` [H·D]);
+  * ``RsGCN`` ≡ mvuld/models/Rs_GCN.py:7-73 with the reference's module
+    names (1×1 ``Conv1d`` g/theta/phi, ``W`` = Conv1d + BatchNorm1d), run
+    channels-last;
+  * ``l2norm_nodes`` / ``mean_over_max_nodes`` with the reference's axis
+    conventions.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_INF = -1e9
+NEGATIVE_SLOPE = 0.2   # dgl GATConv's LeakyReLU slope
+
+
+class DenseGATConv(nn.Module):
+    """Graph attention over a dense boolean adjacency.
+
+    adj[b, i, j] = True means an edge i → j; attention for destination j is
+    normalized over its in-neighbors i (dgl.nn.GATConv convention). Output
+    shape [B, N, num_heads, out_feats].
+    """
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int = 4):
+        super().__init__()
+        self.out_feats, self.num_heads = out_feats, num_heads
+        self.fc = nn.Linear(in_feats, out_feats * num_heads, bias=False)
+        self.attn_l = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        self.bias = nn.Parameter(torch.zeros(num_heads * out_feats))
+        nn.init.xavier_normal_(self.attn_l)
+        nn.init.xavier_normal_(self.attn_r)
+
+    def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        B, N, _ = h.shape
+        H, D = self.num_heads, self.out_feats
+        z = self.fc(h).reshape(B, N, H, D)
+        el = torch.einsum("bnhd,hd->bnh", z, self.attn_l[0])   # source term
+        er = torch.einsum("bnhd,hd->bnh", z, self.attn_r[0])   # destination
+        # scores[b, h, i, j] for edge i → j
+        scores = (el.permute(0, 2, 1)[:, :, :, None]
+                  + er.permute(0, 2, 1)[:, :, None, :])
+        scores = F.leaky_relu(scores, NEGATIVE_SLOPE)
+        mask = adj.bool()[:, None, :, :]                       # [B, 1, N, N]
+        scores = torch.where(mask, scores, NEG_INF)
+        alpha = torch.softmax(scores, dim=2)                   # over in-neighbors i
+        alpha = torch.where(mask, alpha, 0.0)                  # rows with no edges → 0
+        out = torch.einsum("bhij,bihd->bjhd", alpha, z)
+        return out + self.bias.reshape(H, D)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """Eval-mode BatchNorm over ``bn``'s running statistics, features on
+    dim 1 (torch layout) — flax BatchNorm(use_running_average=True)."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+class RsGCN(nn.Module):
+    """Non-local relational reasoning block (reference: Rs_GCN.py:7-73).
+
+    Input/output layout is [B, N, C] (channels last); a 1×1 Conv1d over
+    [B, C, N] is a dense layer over the channel axis. Returns
+    (v_star, affinity).
+    """
+
+    def __init__(self, channels: int, inter_channels: int):
+        super().__init__()
+        C, Ci = channels, inter_channels
+        self.g = nn.Conv1d(C, Ci, 1)
+        self.theta = nn.Conv1d(C, Ci, 1)
+        self.phi = nn.Conv1d(C, Ci, 1)
+        self.W = nn.Sequential(nn.Conv1d(Ci, C, 1), nn.BatchNorm1d(C))
+        # zero-init BN scale → identity residual at initialization
+        nn.init.zeros_(self.W[1].weight)
+
+    @staticmethod
+    def _conv(x, conv: nn.Conv1d):
+        return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+    def forward(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, N, C = v.shape
+        g_v = self._conv(v, self.g)                                # [B,N,Ci]
+        theta = self._conv(v, self.theta)
+        phi = self._conv(v, self.phi)
+        # affinity over node pairs, divided by node count (Rs_GCN.py:66-68)
+        R = torch.einsum("bic,bjc->bij", theta, phi) / N
+        y = torch.einsum("bij,bjc->bic", R, g_v)                   # [B,N,Ci]
+        w_y = self._conv(y, self.W[0])
+        # torch BatchNorm1d over channels of [B, C, N]
+        w_y = batch_norm(w_y.reshape(B * N, C), self.W[1]).reshape(B, N, C)
+        return w_y + v, R
+
+
+def l2norm_nodes(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalize over the NODE axis (dim=1) — the reference's l2norm
+    (GraphModel.py:76-80) normalizes dim 1 of [B, N, D]."""
+    return x / torch.sqrt((x * x).sum(dim=1, keepdim=True) + eps)
+
+
+def mean_over_max_nodes(h: torch.Tensor) -> torch.Tensor:
+    """The production model's readout: plain mean over the padded node axis —
+    torch.mean(dim=1) divides by max_node regardless of validity
+    (GraphModel.py:204). Kept verbatim for parity."""
+    return h.mean(dim=1)

@@ -1,0 +1,417 @@
+"""Swin Transformer V2 in PyTorch — the image-modality backbone.
+
+Counterpart of ``mvuld_tpu/models/swin_v2.py`` (post-norm SwinV2; reference
+mvuld/models/swin_transformer_v2.py), forward only. Module and parameter
+names are the reference torch ones (``layers.{i}.blocks.{j}.attn.qkv``,
+``attn.cpb_mlp.0``, ``norm1`` …) so ``models/convert.py`` maps the JAX
+variables onto them one to one.
+
+Activations run in ``config.dtype`` (bf16 for serving) with fp32
+parameters, as in the JAX package: dense layers cast their input and weights
+to the compute dtype, LayerNorm takes its statistics in fp32 and returns the
+compute dtype, the attention softmax and the CPB bias stay fp32.
+
+``use_pallas`` selects the flat-layout attention kernel
+(``ops/window_attention.py``, K1) and ``use_pallas_mlp`` the fused MLP+LN
+kernel (``ops/fused_dense.py`` ``mlp_ln``, K3, stages with C ≤ 512), under
+the JAX package's flag names. Off, the blocks run the plain composition of
+the JAX XLA branch (exact softmax, q/k divided by max(‖·‖, 1e-12)).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
+from mvuld_tpu_torch.ops.window_attention import window_attention_flat
+
+LN_EPS = 1e-6   # flax nn.LayerNorm's default epsilon
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinV2Config:
+    img_size: int = 448
+    patch_size: int = 4
+    in_chans: int = 3
+    embed_dim: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 28
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    ape: bool = False
+    patch_norm: bool = True
+    pretrained_window_sizes: Tuple[int, ...] = (0, 0, 0, 0)
+    dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def from_cfg(cfg) -> "SwinV2Config":
+        s = cfg.MODEL.SWINV2
+        return SwinV2Config(
+            img_size=cfg.DATA.IMG_SIZE, patch_size=s.PATCH_SIZE,
+            in_chans=s.IN_CHANS, embed_dim=s.EMBED_DIM, depths=tuple(s.DEPTHS),
+            num_heads=tuple(s.NUM_HEADS), window_size=s.WINDOW_SIZE,
+            mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS, ape=s.APE, patch_norm=s.PATCH_NORM,
+            pretrained_window_sizes=tuple(s.PRETRAINED_WINDOW_SIZES),
+            dtype=(torch.bfloat16 if cfg.PARALLEL.DTYPE == "bfloat16"
+                   else torch.float32),
+        )
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+
+# --------------------------------------------------------------------------- #
+# static (host-side) geometry helpers
+# --------------------------------------------------------------------------- #
+
+@functools.lru_cache(maxsize=None)
+def relative_coords_table(window_size: int, pretrained_window_size: int = 0
+                          ) -> np.ndarray:
+    """Log-spaced continuous relative coordinates, [(2W-1)², 2] — the CPB
+    MLP's input (reference: swin_transformer_v2.py:96-115)."""
+    ws = window_size
+    h = np.arange(-(ws - 1), ws, dtype=np.float64)
+    w = np.arange(-(ws - 1), ws, dtype=np.float64)
+    table = np.stack(np.meshgrid(h, w, indexing="ij"), axis=-1)  # [2W-1,2W-1,2]
+    denom = (pretrained_window_size - 1) if pretrained_window_size > 0 else (ws - 1)
+    denom = max(denom, 1)
+    table = table / denom
+    table = table * 8
+    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8)
+    return table.reshape(-1, 2).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index(window_size: int) -> np.ndarray:
+    """[W², W²] index into the (2W-1)² bias table (reference: :117-127)."""
+    ws = window_size
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    coords = coords.reshape(2, -1)                      # [2, W²]
+    rel = coords[:, :, None] - coords[:, None, :]       # [2, W², W²]
+    rel = rel.transpose(1, 2, 0)                        # [W², W², 2]
+    rel = rel + (ws - 1)
+    idx = rel[..., 0] * (2 * ws - 1) + rel[..., 1]
+    return idx.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_window_mask(H: int, W: int, window: int, shift: int) -> Optional[np.ndarray]:
+    """Additive attention mask [nW, W², W²] for shifted windows
+    (reference: :233-252). None when shift == 0."""
+    if shift == 0:
+        return None
+    img_mask = np.zeros((H, W), np.int32)
+    cnt = 0
+    for h_sl in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+        for w_sl in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+            img_mask[h_sl, w_sl] = cnt
+            cnt += 1
+    mask = img_mask.reshape(H // window, window, W // window, window)
+    mask = mask.transpose(0, 2, 1, 3).reshape(-1, window * window)
+    attn_mask = mask[:, None, :] - mask[:, :, None]
+    return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, H, W, C] → [B·nW, window², C]."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // window, window, W // window, window, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, window * window, C)
+
+
+def window_reverse(x: torch.Tensor, window: int, H: int, W: int) -> torch.Tensor:
+    B = x.shape[0] // ((H // window) * (W // window))
+    C = x.shape[-1]
+    x = x.reshape(B, H // window, W // window, window, window, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+def linear(x, layer: nn.Linear, dtype):
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias in ``dtype``."""
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
+def layer_norm(x, ln: nn.LayerNorm, dtype):
+    """flax ``nn.LayerNorm(dtype=...)``: fp32 statistics, ``dtype`` out."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# modules
+# --------------------------------------------------------------------------- #
+
+class MlpBlock(nn.Module):
+    """fc1 → exact GELU → fc2 (reference Mlp; JAX MlpBlock)."""
+
+    def __init__(self, in_features: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x, dtype):
+        return linear(gelu(linear(x, self.fc1, dtype)), self.fc2, dtype)
+
+
+class WindowAttentionV2(nn.Module):
+    """SwinV2 cosine window attention with log-CPB continuous bias
+    (reference: swin_transformer_v2.py WindowAttention:60-196)."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 qkv_bias: bool = True, pretrained_window_size: int = 0,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.pretrained_window_size = pretrained_window_size
+        self.dtype, self.use_pallas = dtype, use_pallas
+        self.logit_scale = nn.Parameter(
+            torch.full((num_heads, 1, 1), math.log(10.0)))
+        self.cpb_mlp = nn.Sequential(nn.Linear(2, 512, bias=True),
+                                     nn.ReLU(inplace=True),
+                                     nn.Linear(512, num_heads, bias=False))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        if qkv_bias:
+            self.q_bias = nn.Parameter(torch.zeros(dim))
+            self.v_bias = nn.Parameter(torch.zeros(dim))
+        else:
+            self.q_bias = self.v_bias = None
+        self.proj = nn.Linear(dim, dim)
+        self.register_buffer(
+            "relative_coords_table",
+            torch.as_tensor(relative_coords_table(window_size,
+                                                  pretrained_window_size)),
+            persistent=False)
+        self.register_buffer(
+            "relative_position_index",
+            torch.as_tensor(relative_position_index(window_size),
+                            dtype=torch.long).reshape(-1),
+            persistent=False)
+
+    def relative_bias(self) -> torch.Tensor:
+        """[H, N, N] fp32: 16·sigmoid(cpb[relative_position_index]). The
+        gather runs on the compute-dtype table, as the JAX expansion does."""
+        N = self.window_size ** 2
+        cpb = self.cpb_mlp(self.relative_coords_table)        # [(2W-1)², H]
+        bias = cpb.to(self.dtype)[self.relative_position_index]
+        bias = bias.reshape(N, N, -1).permute(2, 0, 1)
+        return 16.0 * torch.sigmoid(bias.float())
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                shift: int = 0) -> torch.Tensor:
+        """x: [B, Hp, Wp, C] feature map (already shifted when applicable);
+        returns the same layout. The kernel path derives the shift mask
+        from ``shift``; the plain path adds ``mask``."""
+        B, Hp, Wp, C = x.shape
+        ws, H, dt = self.window_size, self.num_heads, self.dtype
+        hd = C // H
+        N = ws * ws
+        x_ = x.to(dt)
+        qkv_b = None
+        if self.q_bias is not None:
+            qkv_b = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
+                               self.v_bias]).to(dt)
+        scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
+        bias = self.relative_bias()
+
+        if self.use_pallas:
+            xw = window_partition(x_, ws)
+            qkv = F.linear(xw, self.qkv.weight.to(dt), qkv_b)   # [Bn, N, 3C]
+            out = window_attention_flat(qkv, bias, scale.reshape(H),
+                                        shift=shift, nWh=Hp // ws,
+                                        nWw=Wp // ws).to(dt)
+            out = window_reverse(out, ws, Hp, Wp)
+        else:
+            qkv = F.linear(x_, self.qkv.weight.to(dt), qkv_b)   # [B,Hp,Wp,3C]
+            qkvw = window_partition(qkv, ws)
+            Bn = qkvw.shape[0]
+            qkvw = qkvw.reshape(Bn, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            q, k, v = qkvw[0], qkvw[1], qkvw[2]             # [Bn, H, N, hd]
+            q = q / torch.clamp(torch.linalg.vector_norm(
+                q.float(), dim=-1, keepdim=True), min=1e-12).to(dt)
+            k = k / torch.clamp(torch.linalg.vector_norm(
+                k.float(), dim=-1, keepdim=True), min=1e-12).to(dt)
+            attn = (q @ k.transpose(-1, -2)).float()
+            attn = attn * scale + bias[None]
+            if mask is not None:
+                nW = mask.shape[0]
+                attn = attn.reshape(Bn // nW, nW, H, N, N) + mask[None, :, None]
+                attn = attn.reshape(Bn, H, N, N)
+            attn = torch.softmax(attn, dim=-1)
+            out = attn.to(dt) @ v
+            out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
+            out = window_reverse(out, ws, Hp, Wp)
+        return linear(out, self.proj, dt)
+
+
+class SwinBlockV2(nn.Module):
+    """Post-norm shifted-window block (reference: :198-330): residuals add
+    the NORMALIZED branch outputs (norm after attn/mlp — the V2 change).
+
+    The JAX package's ``window_resident`` option keeps activations in window
+    layout between blocks on the TPU; it gives the same numbers, and the
+    port always runs this spatial path."""
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 num_heads: int, window_size: int, shift_size: int,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 pretrained_window_size: int = 0,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 use_pallas_mlp: bool = False):
+        super().__init__()
+        Hr, Wr = input_resolution
+        # clamp the window to the resolution (reference: :216-219)
+        if min(Hr, Wr) <= window_size:
+            window_size, shift_size = min(Hr, Wr), 0
+        self.input_resolution = input_resolution
+        self.window_size, self.shift_size = window_size, shift_size
+        self.dtype, self.use_pallas_mlp = dtype, use_pallas_mlp
+        self.attn = WindowAttentionV2(dim, window_size, num_heads, qkv_bias,
+                                      pretrained_window_size, dtype,
+                                      use_pallas)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        # the plain path's explicit mask; the kernel derives it in-kernel
+        mask = (None if use_pallas
+                else shifted_window_mask(Hr, Wr, window_size, shift_size))
+        self.register_buffer(
+            "attn_mask", None if mask is None else torch.as_tensor(mask),
+            persistent=False)
+
+    def _mlp_half(self, x):
+        """x + LN(MLP(x)) — the post-norm second half of the block
+        (reference swin_transformer_v2.py:310-315)."""
+        C = x.shape[-1]
+        if self.use_pallas_mlp and C <= 512:
+            y = mlp_ln(x, self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
+                       self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
+                       self.norm2.weight, self.norm2.bias)
+        else:
+            y = layer_norm(self.mlp(x, self.dtype), self.norm2, self.dtype)
+        return x + y
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        Hr, Wr = self.input_resolution
+        shift = self.shift_size
+        B, L, C = x.shape
+        shortcut = x
+        x = x.reshape(B, Hr, Wr, C)
+        if shift > 0:
+            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        x = self.attn(x, self.attn_mask, shift=shift)
+        if shift > 0:
+            x = torch.roll(x, (shift, shift), dims=(1, 2))
+        x = layer_norm(x.reshape(B, L, C), self.norm1, self.dtype)
+        return self._mlp_half(shortcut + x)
+
+
+class PatchMerging(nn.Module):
+    """2×2 patch concat → Linear 4C→2C → norm (post-norm order, :333-364)."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_resolution, self.dtype = input_resolution, dtype
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = nn.LayerNorm(2 * dim, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        Hr, Wr = self.input_resolution
+        B, L, C = x.shape
+        x = x.reshape(B, Hr // 2, 2, Wr // 2, 2, C)
+        # torch order: x0=(0::2,0::2), x1=(1::2,0::2), x2=(0::2,1::2), x3=(1::2,1::2)
+        x = x.permute(0, 1, 3, 4, 2, 5)            # [B, H/2, W/2, wcol, hrow, C]
+        x = torch.cat([x[:, :, :, 0, 0], x[:, :, :, 0, 1],
+                       x[:, :, :, 1, 0], x[:, :, :, 1, 1]], dim=-1)
+        x = linear(x.reshape(B, L // 4, 4 * C), self.reduction, self.dtype)
+        return layer_norm(x, self.norm, self.dtype)
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, config: SwinV2Config):
+        super().__init__()
+        c = config
+        self.dtype = c.dtype
+        self.proj = nn.Conv2d(c.in_chans, c.embed_dim, c.patch_size,
+                              stride=c.patch_size)
+        self.norm = nn.LayerNorm(c.embed_dim, eps=LN_EPS) if c.patch_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NHWC [B, S, S, in_chans] → [B, (S/p)², embed_dim]."""
+        dt = self.dtype
+        x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.proj.weight.to(dt),
+                     self.proj.bias.to(dt), stride=self.proj.stride)
+        x = x.flatten(2).transpose(1, 2)
+        if self.norm is not None:
+            x = layer_norm(x, self.norm, dt)
+        return x
+
+
+class BasicLayer(nn.Module):
+    """One stage: its blocks and the optional downsample (reference
+    BasicLayer; the JAX package builds the same tree inline)."""
+
+    def __init__(self, blocks, downsample: Optional[nn.Module]):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.downsample = downsample
+
+    def forward(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return x if self.downsample is None else self.downsample(x)
+
+
+class SwinTransformerV2(nn.Module):
+    """The image tower: patch embedding, four stages and the final norm,
+    returning the mean-pooled embedding [B, num_features] (the JAX model
+    with ``return_features=True``, the reference's ``forward_features``).
+    The classification head and the dropout/DropPath rates arrive with the
+    training slices. ``window_resident`` is accepted for parity with the JAX
+    constructor and changes nothing here (see SwinBlockV2)."""
+
+    def __init__(self, config: SwinV2Config, use_pallas: bool = False,
+                 use_pallas_mlp: bool = False, window_resident: bool = False):
+        super().__init__()
+        c = self.config = config
+        self.patch_embed = PatchEmbed(c)
+        res = c.img_size // c.patch_size
+        self.absolute_pos_embed = (
+            nn.Parameter(torch.zeros(1, res * res, c.embed_dim)) if c.ape
+            else None)
+        layers = []
+        for i, depth in enumerate(c.depths):
+            dim = int(c.embed_dim * 2 ** i)
+            r = res // 2 ** i
+            blocks = [SwinBlockV2(
+                dim, (r, r), c.num_heads[i], c.window_size,
+                0 if j % 2 == 0 else c.window_size // 2, c.mlp_ratio,
+                c.qkv_bias, c.pretrained_window_sizes[i], c.dtype,
+                use_pallas, use_pallas_mlp) for j in range(depth)]
+            down = (PatchMerging((r, r), dim, c.dtype)
+                    if i < len(c.depths) - 1 else None)
+            layers.append(BasicLayer(blocks, down))
+        self.layers = nn.ModuleList(layers)
+        self.norm = nn.LayerNorm(c.num_features, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        x = self.patch_embed(x.to(c.dtype))
+        if self.absolute_pos_embed is not None:
+            x = x + self.absolute_pos_embed.to(c.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        return layer_norm(x, self.norm, c.dtype).mean(dim=1).float()

@@ -1,0 +1,77 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Each test skips when no CUDA device is present (decided in the ``dev``
+fixture, never at import). On the card (``tests/conftest.py`` imports JAX,
+which the GPU machine need not have):
+  python -m pytest --noconftest tests/test_torch_cuda.py -q
+Tolerances: fp32 attention 1e-4 (both compute in fp32, another summation
+order); bf16 outputs two bf16 ulps at the largest value (both round one
+fp32 result to bf16).
+"""
+
+import math
+
+import pytest
+import torch
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _bf16_tol(ref):
+    return 2.0 ** -6 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(16, 4, 0, 1), (32, 8, 4, 2), (18, 7, 3, 3)],
+                         ids=["ws4", "ws8_shift4", "ws7_ragged_shift3"])
+def test_window_attention_kernel_matches_plain(dev, geom, dtype):
+    from mvuld_tpu_torch.ops.window_attention import (
+        window_attention_flat, window_attention_flat_plain)
+    Bn, ws, shift, nW1 = geom
+    H, hd = 2, 32
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(Bn, ws * ws, 3 * H * hd, device=dev, generator=g
+                      ).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, ws * ws, ws * ws, device=dev,
+                                          generator=g))
+    ls = torch.full((H,), math.log(10.0), device=dev)
+    before = window_attention_flat.launches
+    got = window_attention_flat(qkv, bias, ls, shift, nW1, nW1)
+    want = window_attention_flat_plain(qkv, bias, ls, shift, nW1, nW1)
+    assert window_attention_flat.launches == before + 1
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else _bf16_tol(want)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("name", ["mlp_ln", "mlp_ln_res"])
+@pytest.mark.parametrize("M,C", [(37, 128), (100, 768)])
+def test_mlp_ln_kernels_match_plain(dev, name, M, C):
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(1)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    Hd = 4 * C
+    args = (r(M, C).bfloat16(), r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02),
+            r(Hd, C, sc=Hd ** -0.5), r(C, sc=0.02), 1 + r(C, sc=0.1),
+            r(C, sc=0.1))
+    res = name == "mlp_ln_res"
+    fn = getattr(fd, name)
+    before = fn.launches
+    got = fn(*args)
+    want = fd.mlp_ln_plain(*args, residual=res, eps=1e-5 if res else 1e-6)
+    assert fn.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+def test_mlp_ln_kernel_rejects_fp32(dev):
+    from mvuld_tpu_torch.ops.fused_dense import mlp_ln
+    x = torch.zeros(4, 16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mlp_ln(x, torch.zeros(16, 128), torch.zeros(128), torch.zeros(128, 16),
+               torch.zeros(16), torch.ones(16), torch.zeros(16))

@@ -1,0 +1,114 @@
+"""The port stands alone: it imports no JAX and nothing of ``mvuld_tpu``,
+and needs none of the host extras (PIL, yaml, pandas, tokenizers) to
+import. ``chip_smoke.py`` refuses to run without a CUDA device."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "orbax", "optax"}
+
+
+def _sources():
+    files = sorted((ROOT / "mvuld_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_and_no_jax_package(path):
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in FORBIDDEN_ROOTS, f"{path}: imports {mod}"
+        assert root != "mvuld_tpu", f"{path}: imports {mod}"
+
+
+def _run(code, cwd=ROOT, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_package_imports_with_jax_and_host_extras_blocked():
+    code = """
+import pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "pandas",
+             "tokenizers", "matplotlib"):
+    sys.modules[name] = None
+import mvuld_tpu_torch
+import mvuld_tpu_torch.train.predict
+for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
+    __import__(m.name)
+bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
+assert not bad, bad
+print("imported", sum(m.startswith("mvuld_tpu_torch") for m in sys.modules))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "imported" in r.stdout
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No CUDA device: a non-zero exit and no result line."""
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=240,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=240, env=env)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_cuda_device_without_a_card_raises(monkeypatch):
+    import torch
+
+    from mvuld_tpu_torch.train.predict import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises; the
+    plain version is taken only for CPU tensors (meta tensors stand in for
+    a device here)."""
+    import torch
+
+    from mvuld_tpu_torch.ops.fused_dense import mlp_ln, mlp_ln_res
+    from mvuld_tpu_torch.ops.window_attention import window_attention_flat
+    m = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        window_attention_flat(torch.zeros(4, 16, 48, device=m),
+                              torch.zeros(2, 16, 16, device=m),
+                              torch.zeros(2, device=m))
+    args = [torch.zeros(8, 16, device=m), torch.zeros(16, 128, device=m),
+            torch.zeros(128, device=m), torch.zeros(128, 16, device=m)] + \
+        [torch.zeros(16, device=m)] * 3
+    for fn in (mlp_ln, mlp_ln_res):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*args)
+    assert window_attention_flat.launches == 0
+    assert mlp_ln.launches == 0 and mlp_ln_res.launches == 0
