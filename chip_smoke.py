@@ -7,29 +7,43 @@ Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels of
      ``mvuld_tpu_torch/csrc`` with nvcc (all sources at once) and print the
      build seconds and ptxas's resource lines;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes one serving forward (bucket 16, bf16) gives it, and time the
-     kernel, the plain version and (attention only) one
-     ``scaled_dot_product_attention`` call as the library yardstick, beside
-     the bound computed from the shapes;
+  2. hold each kernel against its plain PyTorch version on the card and
+     time the kernel, the plain version and, where one exists, the one
+     PyTorch call that computes the same function (the library yardstick),
+     beside the bound computed from the shapes: the forward kernels K1,
+     K3, K4 (K1 with its row sums, K4 with and without its keep-mask) at
+     the shapes one bucket-16 forward gives them, the backward kernels K2,
+     K3b, K4b at the shapes one batch-16 training step gives them;
   3. serve 37 seeded requests at full width (SwinV2-Base-448 window 28,
      UniXcoder-base, the multi_defect_new_gcn head) through the kernels,
      counting each kernel's launches, then again through the plain layers,
-     and compare P(vul); profile one forward of each path (device time by
-     kernel, idle share);
-  4. print the kernels JSON line, the card line, and the result line last.
+     and compare P(vul); profile one forward of each path;
+  4. train: one epoch of three batch-16 AdamW steps through the trainer
+     CLI (``train_e2e.main``, kernels on, Swin stage 2 checkpointed) from a
+     seeded synthetic cache, counting every kernel's launches; then, with
+     one seeded generator per path, the first step's loss and gradients
+     through the kernels against the plain layers, both held against the
+     plain layers in fp32 (the bf16 plain path's own error sets the bound
+     of the tensors whose exact gradient cancels), timed steps of both
+     paths (ms/step, functions/s, peak memory) and a profile of one
+     kernel-path step;
+  5. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
-yaml, pandas or tokenizers (``serve`` takes the featurised arrays).
+yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
+trainer starts from a prebuilt cache and tokenizer.json).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -58,6 +72,36 @@ K3_SHAPES = [("stage1", 200704, 128, 2), ("stage2", 50176, 256, 2),
              ("stage3", 12544, 512, 18)]
 K4_SHAPES = [("function", BATCH * 512, 768, 12),
              ("lines", NODE_CAPACITY * 64, 768, 12)]
+# A batch-16 training step runs the same shapes, and each backward kernel
+# once per forward launch: K2 as K1, K3b as K3, K4b as K4.
+KEEP = 0.9               # RoBERTa dropout 0.1: K4/K4b's keep probability
+TRAIN_STEPS = 3          # timed steps per path, after one warm-up step
+LOSS_TOL = 2e-2          # |Δ loss| of the first step, kernels vs plain
+GRAD_TOL = 0.1           # per-tensor relative L2 of the first step's grads
+GRAD_NOISE = 3.0         # … against fp32, or this × the plain bf16 path's
+
+# the published 448 image config
+# (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
+# plus UniXcoder-base and the multi_defect_new_gcn head, as opts: the card
+# has no yaml
+MODEL_OPTS = ["MODEL.SWINV2.EMBED_DIM", 128, "MODEL.SWINV2.DEPTHS", [2, 2, 18, 2],
+              "MODEL.SWINV2.NUM_HEADS", [4, 8, 16, 32],
+              "MODEL.SWINV2.WINDOW_SIZE", 28,
+              "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", [12, 12, 12, 6],
+              "MODEL.DROP_PATH_RATE", 0.2, "MODEL.NUM_CLASSES", 2,
+              "DATA.IMG_SIZE", 448,
+              "MODEL.UNIXCODER.HIDDEN", 768, "MODEL.UNIXCODER.LAYERS", 12,
+              "MODEL.UNIXCODER.HEADS", 12, "MODEL.UNIXCODER.INTERMEDIATE", 3072,
+              "DATA.FUNC_TOKENS", 512, "DATA.NODE_TOKENS", 64,
+              "DATA.MAX_NODES", 100, "MODEL.MULTI.HIDDEN", 512,
+              "MODEL.MULTI.NUM_RS_GCN", 8, "PARALLEL.DTYPE", "bfloat16",
+              "TRAIN.FUSED_MLP", True]
+# the JAX e2e training defaults (bench.py): batch 16, remat on Swin stage 2
+# only, no text remat; one epoch of three steps, best snapshot params-only
+TRAIN_OPTS = ["DATA.BATCH_SIZE", BATCH, "TRAIN.USE_CHECKPOINT", True,
+              "TRAIN.REMAT_STAGES", [2], "TRAIN.TEXT_REMAT", "off",
+              "TRAIN.EPOCHS", 1, "TRAIN.BEST_SAVE", "params", "SAVE_FREQ", 0,
+              "PRINT_FREQ", 1, "SEED", 0]
 
 
 def card_line() -> str:
@@ -91,12 +135,25 @@ def bf16_tol(ref) -> float:
     return 2.0 ** -6 * float(ref.abs().max())
 
 
+def rel_err(got, want) -> float:
+    """max |got − want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
 def check_attention(dev, gen, rows):
+    """K1 (output and row sums) and K2 at every stage's shapes."""
     import torch
     import torch.nn.functional as F
 
     from mvuld_tpu_torch.ops.window_attention import (
-        shift_and_scale, window_attention_flat, window_attention_flat_plain,
+        shift_and_scale, window_attention_flat, window_attention_flat_bwd,
+        window_attention_flat_bwd_plain, window_attention_flat_plain,
         window_region_mask)
 
     for stage, Bn, N, C, H, shift, nW1, per_fwd in K1_SHAPES:
@@ -137,12 +194,68 @@ def check_attention(dev, gen, rows):
         t_bytes = nbytes / HBM_BYTES_S
         t_ops = max(4 * Bn * H * N * N * hd / FP32_FLOP_S,
                     Bn * H * N * N / SFU_EXP_S)
-        rows.append(dict(kernel="window_attention_flat",
-                         shape=f"stage{stage} Bn={Bn} N={N} C={C} H={H} "
-                               f"shift={shift}",
+        shape = f"stage{stage} Bn={Bn} N={N} C={C} H={H} shift={shift}"
+        rows.append(dict(kernel="window_attention_flat", shape=shape,
                          per_fwd=per_fwd, err=err, tol=tol, ms=ms,
                          plain_ms=plain_ms, lib_ms=lib_ms,
                          t_bytes=t_bytes * 1e3, t_ops=t_ops * 1e3))
+
+        # K1's row sums: fp32 sums of the same terms in another order
+        out, r = window_attention_flat_plain(*args, return_rowsum=True)
+        r_err = rel_err(window_attention_flat(*args, return_rowsum=True)[1],
+                        r)
+        print(f"K1 row sums {shape}: max rel err {r_err:.3e} (tol 1e-4)",
+              flush=True)
+        if not r_err <= 1e-4:
+            raise AssertionError(f"K1 row sums disagree: {r_err}")
+
+        # K2 from the forward's output and row sums. Tolerances: dqkv two
+        # bf16 ulps at its largest value (both round one fp32 result);
+        # dbias and dscale fp32 sums over every window in another order,
+        # 1e-4 and 1e-3 of their largest value
+        g = torch.randn(out.shape, device=dev, generator=gen
+                        ).to(torch.bfloat16)
+        bargs = (qkv, bias, ls, out, r, g, shift, nW1, nW1)
+        got = window_attention_flat_bwd(*bargs)
+        want = window_attention_flat_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        tols = [bf16_tol(want[0].float()),
+                1e-4 * float(want[1].abs().max()),
+                1e-3 * float(want[2].abs().max())]
+        ms = time_ms(lambda: window_attention_flat_bwd(*bargs), 3)
+        plain_ms = time_ms(lambda: window_attention_flat_bwd_plain(*bargs), 2)
+        # library yardstick: SDPA's backward with the float mask as a
+        # tensor that requires grad (dbias), when a backend runs it
+        leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        mask_g = mask.detach().requires_grad_()
+        gs = g.reshape(Bn, N, H, hd).permute(0, 2, 1, 3).reshape(shp)
+        try:
+            lo = F.scaled_dot_product_attention(*leaves, attn_mask=mask_g,
+                                                scale=1.0)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lo, leaves + [mask_g], gs, retain_graph=True), 3)
+        except RuntimeError as e:
+            print(f"K2 {shape}: SDPA backward with a mask gradient does not "
+                  f"run here ({str(e)[:120]})", flush=True)
+            lib_ms = None
+        del leaves, mask_g
+        nbytes = (2 * Bn * N * 3 * C * 2 + 2 * Bn * N * C * 2
+                  + Bn * H * N * 4 + 2 * H * N * N * 4)
+        t_ops = max(10 * Bn * H * N * N * hd / FP32_FLOP_S,
+                    Bn * H * N * N / SFU_EXP_S)
+        rows.append(dict(kernel="window_attention_flat_bwd", shape=shape,
+                         per_fwd=per_fwd, err=max(errs),
+                         tol=tols[errs.index(max(errs))],
+                         ok=all(e <= t for e, t in zip(errs, tols)),
+                         detail=f"dqkv {errs[0]:.2e}/{tols[0]:.2e} dbias "
+                                f"{errs[1]:.2e}/{tols[1]:.2e} dscale "
+                                f"{errs[2]:.2e}/{tols[2]:.2e}",
+                         ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_ops=t_ops * 1e3))
+        del got, want, out, r
 
     # fp32 qkv: the same kernel without the bf16 output rounding
     qkv = torch.randn(64, 784, 768, device=dev, generator=gen)
@@ -189,6 +302,71 @@ def check_mlp(dev, gen, rows, name, shapes):
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=4 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
+        if residual:   # the training form: the dropout keep-mask
+            mask = (torch.rand(M, C, device=dev, generator=gen) < KEEP
+                    ).to(torch.bfloat16)
+            got = wrapper(*args, mask, KEEP)
+            want = fd.mlp_ln_plain(*args, residual=True, eps=eps, mask=mask,
+                                   keep_prob=KEEP)
+            err_m = float((got.float() - want.float()).abs().max())
+            tol_m = bf16_tol(want.float())
+            print(f"{name} {label} M={M} C={C} keep {KEEP}: max_abs_err="
+                  f"{err_m:.3e} (tol {tol_m:.3e})", flush=True)
+            if not err_m <= tol_m:
+                raise AssertionError(f"{name} with its mask disagrees: "
+                                     f"{err_m}")
+            rows[-1]["err"] = max(err, err_m)
+
+
+def check_mlp_bwd(dev, gen, rows, name, shapes):
+    """K3b / K4b (K4b with a keep-mask at 0.9) against the plain version:
+    each of the 7 gradients within relative L2 1e-2 — both round dz and dh
+    to bf16 before the products, so a value near a rounding boundary may
+    round either way, and the weight gradients sum those over M rows."""
+    import torch
+
+    from mvuld_tpu_torch.ops import fused_dense as fd
+
+    wrapper = getattr(fd, name)
+    residual = name == "mlp_ln_res_bwd"
+    eps = 1e-5 if residual else 1e-6
+    for label, M, C, per_step in shapes:
+        Hd = 4 * C
+        r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
+                                                generator=gen)
+        x = r(M, C).to(torch.bfloat16)
+        params = (r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02),
+                  r(Hd, C, sc=Hd ** -0.5), r(C, sc=0.02), 1 + r(C, sc=0.1))
+        dy = r(M, C).to(torch.bfloat16)
+        extra = ()
+        if residual:
+            extra = ((torch.rand(M, C, device=dev, generator=gen) < KEEP
+                      ).to(torch.bfloat16), KEEP)
+        got = wrapper(x, dy, *params, *extra)
+        want = fd.mlp_ln_bwd_plain(x, dy, *params, residual=residual,
+                                   eps=eps, mask=extra[0] if extra else None,
+                                   keep_prob=KEEP if extra else 1.0)
+        torch.cuda.synchronize()
+        l2 = [rel_l2(a, b) for a, b in zip(got, want)]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ms = time_ms(lambda: wrapper(x, dy, *params, *extra), 5)
+        plain_ms = time_ms(lambda: fd.mlp_ln_bwd_plain(
+            x, dy, *params, residual=residual, eps=eps,
+            mask=extra[0] if extra else None,
+            keep_prob=KEEP if extra else 1.0), 3)
+        nbytes = ((3 + residual) * M * C * 2 + 2 * C * Hd * 2
+                  + 2 * C * Hd * 4 + (Hd + 3 * C) * 4)
+        rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}",
+                         per_fwd=per_step, err=err, tol=None,
+                         ok=max(l2) <= 1e-2,
+                         detail="rel L2 " + " ".join(
+                             f"{n} {e:.1e}" for n, e in zip(
+                                 ("dx", "dW1", "db1", "dW2", "db2", "dγ",
+                                  "dβ"), l2)) + " (tol 1e-2)",
+                         ms=ms, plain_ms=plain_ms, lib_ms=None,
+                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_ops=12 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
 
 
 def requests(cfg, n: int, seed: int = 0):
@@ -239,23 +417,8 @@ def serve_phase(dev):
     from mvuld_tpu_torch.train.predict import serve
     from mvuld_tpu_torch.train.train_e2e import build_e2e_model
 
-    # the published 448 image config
-    # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
-    # plus UniXcoder-base and the multi_defect_new_gcn head, as opts: the
-    # card has no yaml
-    opts = ["MODEL.SWINV2.EMBED_DIM", 128, "MODEL.SWINV2.DEPTHS", [2, 2, 18, 2],
-            "MODEL.SWINV2.NUM_HEADS", [4, 8, 16, 32],
-            "MODEL.SWINV2.WINDOW_SIZE", 28,
-            "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", [12, 12, 12, 6],
-            "MODEL.DROP_PATH_RATE", 0.2, "MODEL.NUM_CLASSES", 2,
-            "DATA.IMG_SIZE", 448,
-            "MODEL.UNIXCODER.HIDDEN", 768, "MODEL.UNIXCODER.LAYERS", 12,
-            "MODEL.UNIXCODER.HEADS", 12, "MODEL.UNIXCODER.INTERMEDIATE", 3072,
-            "DATA.FUNC_TOKENS", 512, "DATA.NODE_TOKENS", 64,
-            "DATA.MAX_NODES", 100, "MODEL.MULTI.HIDDEN", 512,
-            "MODEL.MULTI.NUM_RS_GCN", 8, "PARALLEL.DTYPE", "bfloat16",
-            "TRAIN.FUSED_MLP", True]
-    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    cfg = get_config(SimpleNamespace(cfg=None, opts=MODEL_OPTS,
+                                     output="unused"))
     arrs = requests(cfg, N_REQUESTS)
 
     def model(kernels: bool):
@@ -301,8 +464,10 @@ def serve_phase(dev):
     if any(c.launches != REPEATS * launches[c.__name__] for c in counters):
         raise AssertionError("the plain serving path launched a kernel")
 
-    profile_forward("kernels", fast, arrs, dev)
-    profile_forward("plain", plain, arrs, dev)
+    one = {k: v[:BATCH] for k, v in arrs.items()}
+    for label, m in (("kernels", fast), ("plain", plain)):
+        profile_run(f"{label} forward (bucket {BATCH})",
+                    lambda: serve(m, one, BATCH, dev))
 
     forwards = math.ceil(N_REQUESTS / BATCH)
     per_fwd = {"window_attention_flat": 24, "mlp_ln": 22, "mlp_ln_res": 24}
@@ -329,11 +494,206 @@ def serve_phase(dev):
     return launches
 
 
+def write_cache(out_dir: str, cfg, n_train: int, n_val: int) -> None:
+    """A seeded synthetic corpus as the trainer's prebuilt inputs:
+    ``cache/e2e.npz`` in ``build_e2e_cache``'s layout (``requests`` rows,
+    balanced labels, train/val parts) and a ``tokenizer.json`` of the
+    4096-token vocabulary."""
+    import numpy as np
+
+    n = n_train + n_val
+    arrs = requests(cfg, n, seed=1)
+    arrs["label"] = (np.arange(n) % 2).astype(np.int32)
+    arrs["part"] = np.asarray(["train"] * n_train + ["val"] * n_val)
+    arrs["node_context"] = np.asarray("none")
+    os.makedirs(os.path.join(out_dir, "cache"), exist_ok=True)
+    np.savez(os.path.join(out_dir, "cache", "e2e.npz"), **arrs)
+    with open(os.path.join(out_dir, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"vocab": {f"t{i}": i for i in range(VOCAB)}},
+                   "added_tokens": []}, f)
+
+
+def train_phase(dev, counters):
+    """(a) The main path: one epoch through ``train_e2e.main`` with the
+    kernels, launches counted. (b) Kernels against plain layers: first-step
+    loss and per-tensor gradients, then timed steps and peak memory."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.schedule import build_schedule
+    from mvuld_tpu_torch.core.train_state import (cross_entropy,
+                                                  model_inputs, train_step)
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+    from mvuld_tpu_torch.train.train_e2e import main as train_main
+
+    work = tempfile.mkdtemp(prefix="mvuld_train_")
+    try:
+        opts = [json.dumps(o) if isinstance(o, list) else str(o)
+                for o in MODEL_OPTS + TRAIN_OPTS]     # as a shell passes them
+        args = ["--output", work, "--device", dev.type, "--node-capacity",
+                str(NODE_CAPACITY), "--opts", *opts]
+        cfg = get_config(SimpleNamespace(cfg=None, opts=MODEL_OPTS + TRAIN_OPTS,
+                                         output=work))
+        write_cache(cfg.OUTPUT, cfg, 3 * BATCH, BATCH)
+        for c in counters:
+            c.launches = 0
+        t0 = time.time()
+        res = train_main(args)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        with open(os.path.join(cfg.OUTPUT, "log_rank0.txt")) as f:
+            losses = [float(line.split(": loss ")[1].split()[0])
+                      for line in f if ": loss " in line]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"train main: 1 epoch of {len(losses)} steps + eval in "
+          f"{time.time() - t0:.1f}s, losses {losses}, val "
+          f"{ {k: round(v, 4) for k, v in res['history'][0].items() if k in ('acc', 'f1', 'roc_auc')} }",
+          flush=True)
+    for name, n in launches.items():
+        print(f"train main: {name} launched {n} times", flush=True)
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"train main losses: {losses}")
+    idle = [n for n, k in launches.items() if k == 0]
+    if idle:
+        raise AssertionError(f"the training run never launched {idle}")
+
+    # (b) kernels against plain layers, one seeded generator per path, and
+    # both against the plain layers in fp32
+    cfg32 = get_config(SimpleNamespace(
+        cfg=None, opts=MODEL_OPTS + TRAIN_OPTS + ["PARALLEL.DTYPE", "float32"],
+        output=work))
+
+    def build(kernels, c=cfg):
+        m, _, _ = build_e2e_model(c, VOCAB, node_capacity=NODE_CAPACITY,
+                                  use_pallas=kernels, use_pallas_mlp=kernels,
+                                  roberta_pallas_mlp=kernels)
+        return m
+
+    fast = build(True)
+    init_jax_like(fast, torch.Generator().manual_seed(0))
+    plain, ref = build(False), build(False, cfg32)
+    for m in (plain, ref):
+        m.load_state_dict(fast.state_dict())
+        m.to(dev)
+    fast.to(dev)
+    arrs = requests(cfg, BATCH, seed=2)
+    arrs["label"] = (np.arange(BATCH) % 2).astype(np.int32)
+
+    def batch_of(n):
+        return to_device({k: v[:n] for k, v in arrs.items()}, dev)
+
+    def first_step(model, n):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        b = batch_of(n)
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if "running" in k}
+        logits = model(**model_inputs(b), train=True, gen=gen)
+        loss = cross_entropy(logits, b["label"], cfg.MODEL.LABEL_SMOOTHING)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        model.load_state_dict(stats, strict=False)   # undo the BN update
+        return loss.item(), grads
+
+    def largest_fit(label, model, n):
+        """(batch, first_step) at the largest batch from ``n`` down that
+        fits."""
+        while True:
+            try:
+                return n, first_step(model, n)
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                if n == 1:
+                    raise
+                print(f"train {label}: batch {n} does not fit", flush=True)
+                n //= 2
+
+    B_plain, (lp, gp) = largest_fit("plain", plain, BATCH)
+    B_cmp, (lr, gr) = largest_fit("plain fp32", ref, B_plain)
+    if B_cmp < B_plain:
+        lp, gp = first_step(plain, B_cmp)
+    lk, gk = first_step(fast, B_cmp)
+    del ref
+    names = [n for n, _ in fast.named_parameters()]
+    # each bf16 path's relative L2 error per tensor against the fp32 run.
+    # A gradient that vanishes or cancels in exact arithmetic (the Swin
+    # final norm and any bias ahead of a batch-statistics BatchNorm, the
+    # logits' bias) is rounding noise on both bf16 paths, so each tensor's
+    # bound is the larger of GRAD_TOL and GRAD_NOISE × the plain path's
+    # own error on it
+    rows = []
+    for a, b, r, n in zip(gk, gp, gr, names):
+        ek, ep, ekp = rel_l2(a, r), rel_l2(b, r), rel_l2(a, b)
+        rows.append((ek / max(GRAD_TOL, GRAD_NOISE * ep), ek, ep, ekp, n))
+    rows.sort(reverse=True)
+    del gk, gp, gr
+    torch.cuda.empty_cache()
+    med = lambda i: statistics.median(r[i] for r in rows)  # noqa: E731
+    print(f"train compare (batch {B_cmp}): first-step loss kernels "
+          f"{lk:.5f} plain {lp:.5f} |Δ| {abs(lk - lp):.2e} (tol {LOSS_TOL}), "
+          f"fp32 {lr:.5f}; gradient rel L2 over {len(rows)} tensors against "
+          f"fp32: kernels median {med(1):.3e}, plain median {med(2):.3e}; "
+          f"kernels vs plain median {med(3):.3e}; bound per tensor "
+          f"max({GRAD_TOL}, {GRAD_NOISE} × plain's), "
+          f"{sum(GRAD_NOISE * r[2] > GRAD_TOL for r in rows)} tensors above "
+          f"{GRAD_TOL}; largest share of its bound {rows[0][0]:.3f} "
+          f"({rows[0][4]})", flush=True)
+    for share, ek, ep, ekp, n in rows[:6]:
+        print(f"train compare:   {n}: kernels {ek:.3e} plain {ep:.3e} "
+              f"against fp32, kernels vs plain {ekp:.3e}", flush=True)
+    if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_TOL):
+        raise AssertionError(f"first-step losses disagree: {lk} vs {lp}")
+    if not rows[0][0] <= 1.0:
+        raise AssertionError(f"first-step gradients disagree: {rows[:3]}")
+
+    def timed_steps(label, model, n):
+        opt = build_optimizer(cfg, build_schedule(cfg, 3, n), model)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        b = batch_of(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times = [], []
+        for i in range(1 + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(train_step(model, opt, b, gen,
+                                      cfg.MODEL.LABEL_SMOOTHING))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{label}: non-finite loss/grad_norm {vals}")
+        ms = statistics.median(times[1:]) * 1e3
+        print(f"train {label}: batch {n}, {TRAIN_STEPS} steps after a "
+              f"warm-up, median {ms:.1f} ms/step = {n / ms * 1e3:.2f} "
+              f"functions/s (steps {', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms; "
+              f"warm-up {times[0] * 1e3:.1f} ms), peak memory {peak:.2f} GiB, "
+              f"loss/grad_norm {[(round(a, 4), round(g, 3)) for a, g in vals]} "
+              f"[{card_line()}]", flush=True)
+        return opt, b, gen
+
+    opt, b, gen = timed_steps("kernels", fast, BATCH)
+    profile_run(f"kernels train step (batch {BATCH})",
+                lambda: train_step(fast, opt, b, gen,
+                                   cfg.MODEL.LABEL_SMOOTHING))
+    del opt, b, fast
+    torch.cuda.empty_cache()
+    timed_steps("plain", plain, B_plain)
+    return launches
+
+
 def _category(name: str) -> str:
     if "flat_fwd" in name:
         return "K1 window_attention_flat"
+    if "bwd_dq" in name or "bwd_dkv" in name or "bwd_dbias" in name:
+        return "K2 window_attention_flat_bwd"
     if "mlp_ln_kernel" in name:
         return "K3/K4 mlp_ln"
+    if "bwd_rows" in name or "atb" in name or "sum_partials" in name:
+        return "K3b/K4b mlp_ln_bwd"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas",
                               "nvjet", "sm90")):
@@ -345,21 +705,18 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_forward(label: str, model, arrs, dev) -> None:
-    """Device time by kernel for one bucket-16 forward under torch.profiler,
-    and the device's idle share of that forward's wall time (kernels on one
-    stream do not overlap, so busy time is their sum)."""
+def profile_run(label: str, fn) -> None:
+    """Device time by kernel for one call of ``fn`` under torch.profiler,
+    and the device's idle share of its wall time (kernels on one stream do
+    not overlap, so busy time is their sum)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mvuld_tpu_torch.train.predict import serve
-
-    one = {k: v[:BATCH] for k, v in arrs.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve(model, one, BATCH, dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -371,9 +728,9 @@ def profile_forward(label: str, model, arrs, dev) -> None:
     cats = {}
     for name, ms in by_kernel.items():
         cats[_category(name)] = cats.get(_category(name), 0.0) + ms
-    print(f"profile {label}: one forward (bucket {BATCH}) wall {wall_ms:.1f} "
-          f"ms, device busy {busy:.1f} ms, idle share "
-          f"{max(0.0, 1 - busy / wall_ms):.3f}", flush=True)
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
+          flush=True)
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"profile {label}:   {cat}: {ms:.2f} ms ({ms / busy:.1%})",
               flush=True)
@@ -384,16 +741,24 @@ def profile_forward(label: str, model, arrs, dev) -> None:
 KERNELS = {
     "window_attention_flat": ("mvuld_tpu_torch/csrc/window_attention_flat.cu",
                               "mvuld_tpu/ops/window_attention.py:883"),
+    "window_attention_flat_bwd": (
+        "mvuld_tpu_torch/csrc/window_attention_flat.cu",
+        "mvuld_tpu/ops/window_attention.py:1317"),
     "mlp_ln": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
                "mvuld_tpu/ops/fused_dense.py:407"),
+    "mlp_ln_bwd": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
+                   "mvuld_tpu/ops/fused_dense.py:442"),
     "mlp_ln_res": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
                    "mvuld_tpu/ops/fused_dense.py:613"),
+    "mlp_ln_res_bwd": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
+                       "mvuld_tpu/ops/fused_dense.py:646"),
 }
 
 
 def summarise(rows, launches):
-    """One entry per kernel; times are per serving forward at bucket 16:
-    Σ over its shapes of (launches per forward × ms per launch)."""
+    """One entry per kernel. Times: Σ over its shapes of (launches per
+    bucket-16 forward, or per batch-16 training step for the backward
+    kernels) × ms per launch. ``launches``: both counted runs' launches."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -446,22 +811,32 @@ def main() -> int:
     check_attention(dev, gen, rows)
     check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES)
     check_mlp(dev, gen, rows, "mlp_ln_res", K4_SHAPES)
+    check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", K3_SHAPES)
+    check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", K4_SHAPES)
     bad = []
     for r in rows:
         lib = "n/a" if r["lib_ms"] is None else f"{r['lib_ms']:.3f}"
-        print(f"{r['kernel']} {r['shape']}: max_abs_err={r['err']:.3e} "
-              f"(tol {r['tol']:.3e}) ms={r['ms']:.3f} "
+        check = (r["detail"] if "detail" in r
+                 else f"max_abs_err={r['err']:.3e} (tol {r['tol']:.3e})")
+        print(f"{r['kernel']} {r['shape']}: {check} ms={r['ms']:.3f} "
               f"plain_ms={r['plain_ms']:.3f} library_ms={lib} "
               f"bound_ms={max(r['t_bytes'], r['t_ops']):.4f} "
               f"(bytes {r['t_bytes']:.4f}, operations {r['t_ops']:.4f}) "
-              f"×{r['per_fwd']}/forward", flush=True)
-        if not r["err"] <= r["tol"]:
+              f"×{r['per_fwd']}/{'step' if 'bwd' in r['kernel'] else 'forward'}",
+              flush=True)
+        if not r.get("ok", r["err"] <= (r["tol"] or 0.0)):
             bad.append(f"{r['kernel']} {r['shape']}")
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
 
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.ops import window_attention as wa
+    counters = [wa.window_attention_flat, wa.window_attention_flat_bwd,
+                fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd]
     launches = serve_phase(dev)
+    for name, n in train_phase(dev, counters).items():
+        launches[name] = launches.get(name, 0) + n
     print(json.dumps({"kernels": summarise(rows, launches)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

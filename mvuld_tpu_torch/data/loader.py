@@ -1,0 +1,75 @@
+"""Host-side batching: the torch DataLoader/DistributedSampler replacement,
+a copy of ``mvuld_tpu/data/loader.py``.
+
+The reference shards data with DistributedSampler and reshuffles with
+``sampler.set_epoch(epoch)`` (mvuld/data/bigvul_dataset.py:163-205,
+main.py:205). Here one host feeds one card; epoch shuffling is seeded with
+(seed, epoch), the JAX package's order, for exact reproducibility.
+
+Two iteration modes mirror the reference:
+  * train: shuffle, drop_last,
+  * eval: sequential, last partial batch padded + a validity mask so metric
+    code can drop padding (the reference gathers all logits and slices).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, Sequence
+
+import numpy as np
+
+
+class ArrayDataset:
+    """A dataset backed by a dict of equal-length sequences / arrays."""
+
+    def __init__(self, columns: Dict[str, Sequence]):
+        lens = {k: len(v) for k, v in columns.items()}
+        assert len(set(lens.values())) == 1, f"ragged columns: {lens}"
+        self.columns = columns
+        self.n = next(iter(lens.values()))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get(self, idx: int) -> Dict:
+        return {k: v[idx] for k, v in self.columns.items()}
+
+
+def _collate(items) -> Dict[str, np.ndarray]:
+    out = {}
+    for k in items[0]:
+        vals = [it[k] for it in items]
+        out[k] = np.stack(vals) if isinstance(vals[0], np.ndarray) else np.asarray(vals)
+    return out
+
+
+def train_batches(ds: ArrayDataset, batch_size: int, epoch: int,
+                  seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    rng = np.random.RandomState(seed + epoch * 1000003)
+    order = rng.permutation(len(ds))
+    n_batches = len(ds) // batch_size
+    for b in range(n_batches):
+        idx = order[b * batch_size:(b + 1) * batch_size]
+        yield _collate([ds.get(int(i)) for i in idx])
+
+
+def eval_batches(ds: ArrayDataset, batch_size: int
+                 ) -> Iterator[Dict[str, np.ndarray]]:
+    n_batches = math.ceil(len(ds) / batch_size)
+    for b in range(n_batches):
+        idx = list(range(b * batch_size, min((b + 1) * batch_size, len(ds))))
+        items = [ds.get(i) for i in idx]
+        batch = _collate(items)
+        valid = np.zeros(batch_size, np.float32)
+        valid[: len(idx)] = 1.0
+        if len(idx) < batch_size:           # pad to static shape
+            pad = batch_size - len(idx)
+            batch = {k: np.concatenate([v] + [v[-1:]] * pad) for k, v in batch.items()}
+        batch["_valid"] = valid
+        yield batch
+
+
+def steps_per_epoch(n: int, batch_size: int) -> int:
+    return n // batch_size
+

@@ -103,6 +103,20 @@ class CodeTokenizer:
         return self._tok.decode(ids, skip_special_tokens=True)
 
 
+def vocab_size_of(path: str) -> int:
+    """``CodeTokenizer.load(path).vocab_size`` read from the saved JSON
+    alone (model vocabulary and added tokens, counted once each), so a
+    trainer can size its embedding where the ``tokenizers`` package is
+    absent."""
+    import json
+
+    with open(path) as f:
+        spec = json.load(f)
+    vocab = dict(spec["model"]["vocab"])
+    vocab.update({t["content"]: t["id"] for t in spec.get("added_tokens", [])})
+    return len(vocab)
+
+
 def normalize_line(text: str) -> str:
     """Whitespace-normalize a code line the way the reference does before
     per-node tokenization (``' '.join(node.split())``, unixcoder.py:62)."""

@@ -20,6 +20,9 @@ and the module names of the reference torch models where the JAX
 converters name them (``attn.cpb_mlp.0``, ``encoder.layer.{i}.attention.
 self.query``, dgl GATConv's ``attn_l`` [1, H, D], Rs_GCN's ``W.0``/``W.1``).
 It raises on a key it leaves unused and on a port tensor it leaves unset.
+``torch_to_jax_names`` is the inverse name map: each port parameter and
+BatchNorm statistic to its JAX variable path, as the decay mask and the
+gradient comparisons need it.
 """
 
 from __future__ import annotations
@@ -260,3 +263,66 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
             mod.bias.zero_()
         elif isinstance(mod, RsGCN):
             mod.W[1].weight.zero_()
+
+
+# ------------------------------------------------------------------ inverse
+
+_INV_SWIN_BLOCK = [(r"attn\.qkv\.kernel$", "attn/qkv_kernel"),
+                   (r"attn\.cpb_mlp\.0\.", "attn/cpb_fc1/"),
+                   (r"attn\.cpb_mlp\.2\.", "attn/cpb_fc2/")]
+_INV_ROBERTA = [(r"^embeddings\.LayerNorm\.", "embeddings_norm/"),
+                (r"^embeddings\.", ""),
+                (r"\.attention\.self\.", "/attention/"),
+                (r"\.attention\.output\.dense\.", "/attention/output/"),
+                (r"\.attention\.output\.LayerNorm\.", "/attention_norm/"),
+                (r"\.intermediate\.dense\.", "/intermediate/"),
+                (r"\.output\.dense\.", "/mlp_output/"),
+                (r"\.output\.LayerNorm\.", "/output_norm/"),
+                (r"^encoder\.layer\.(\d+)", r"layer_\1")]
+_INV_FUSION = [(r"(rs_gcn_\d+)\.W\.0\.", r"\1/W/"),
+               (r"(rs_gcn_\d+)\.W\.1\.", r"\1/bn/")]
+_INV_SWIN = [(r"^layers\.(\d+)\.blocks\.(\d+)\.", r"layers_\1_blocks_\2/"),
+             (r"^layers\.(\d+)\.downsample\.", r"layers_\1_downsample/")]
+
+
+def _jax_leaf(mod: nn.Module, leaf: str) -> str:
+    if leaf == "weight":
+        if isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            return "scale"
+        if isinstance(mod, nn.Embedding):
+            return "embedding"
+        return "kernel"
+    return {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+
+
+def _inverse_tower(tower: str, name: str) -> str:
+    rules = {"swin": _INV_SWIN_BLOCK + _INV_SWIN, "text_encoder": _INV_ROBERTA,
+             "fusion": _INV_FUSION}[tower]
+    for pat, rep in rules:
+        name = re.sub(pat, rep, name)
+    return name.replace(".", "/")
+
+
+def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
+    """{state_dict key: JAX variable path} for every parameter and
+    BatchNorm running statistic of an ``EndToEndMVulD``, e.g.
+    ``swin.layers.0.blocks.1.attn.cpb_mlp.0.weight`` →
+    ``params/swin/layers_0_blocks_1/attn/cpb_fc1/kernel`` and
+    ``fusion.graph.rs_gcn_0.W.1.running_var`` →
+    ``batch_stats/fusion/graph/rs_gcn_0/bn/var``. SwinV2 blocks take the
+    unscanned ``layers_{i}_blocks_{j}`` names."""
+    out: Dict[str, str] = {}
+    for tower in ("swin", "text_encoder", "fusion"):
+        mod = getattr(model, tower)
+        modules = dict(mod.named_modules())
+        for key in mod.state_dict():
+            owner, _, leaf = key.rpartition(".")
+            if leaf == "num_batches_tracked":
+                continue
+            coll = ("batch_stats" if leaf.startswith("running_")
+                    else "params")
+            jleaf = _jax_leaf(modules[owner], leaf)
+            path = _inverse_tower(tower, f"{owner}.{jleaf}" if owner
+                                  else jleaf)
+            out[f"{tower}.{key}"] = f"{coll}/{tower}/{path}"
+    return out

@@ -1,7 +1,9 @@
 """End-to-end tri-modal model in PyTorch: UniXcoder (function + per-line),
 SwinV2 (rendered image) and the fusion head in one forward.
 
-Counterpart of ``mvuld_tpu/models/e2e.py``, forward only (serving).
+Counterpart of ``mvuld_tpu/models/e2e.py``: serving, and training with
+``train=True`` (DropPath, dropout and BatchNorm statistics; gradients flow
+through the packed gather and scatter of the line embeddings).
 
 Inputs:
   func_ids  [B, T]        whole-function token ids
@@ -35,27 +37,33 @@ class EndToEndMVulD(nn.Module):
                  num_hidden: int = 8, max_nodes: int = 100, pos_dim: int = 4,
                  use_pallas: bool = False, use_pallas_mlp: bool = False,
                  window_resident: bool = False,
-                 node_capacity: Optional[int] = None):
+                 node_capacity: Optional[int] = None,
+                 swin_remat_stages: tuple = ()):
         super().__init__()
         self.text_config, self.swin_config = text_config, swin_config
         self.node_capacity = node_capacity
         self.text_encoder = RobertaEncoder(text_config)
         self.swin = SwinTransformerV2(swin_config, use_pallas=use_pallas,
                                       use_pallas_mlp=use_pallas_mlp,
-                                      window_resident=window_resident)
+                                      window_resident=window_resident,
+                                      remat_stages=swin_remat_stages)
         self.fusion = MultiDefectAblation(
             num_classes=num_classes, hidden=hidden,
             img_dim=swin_config.num_features, text_dim=text_config.hidden_size,
             num_rs_gcn=num_rs_gcn, num_hidden=num_hidden,
             max_nodes=max_nodes, pos_dim=pos_dim)
 
-    def forward(self, func_ids, node_ids, image, pos, adj, node_mask):
+    def forward(self, func_ids, node_ids, image, pos, adj, node_mask,
+                train: bool = False, gen: Optional[torch.Generator] = None):
+        """``train``: dropout/DropPath masks from ``gen`` (none without
+        one) and batch statistics in the fusion head's BatchNorms."""
         pad = self.text_config.pad_token_id
         encoder = self.text_encoder
+        gen = gen if train else None
 
         # whole-function sentence embedding
         fmask = (func_ids != pad).long()
-        text_emb = masked_mean(encoder(func_ids, fmask), fmask)   # [B, H]
+        text_emb = masked_mean(encoder(func_ids, fmask, gen), fmask)  # [B, H]
 
         # per-line node embeddings through the SAME encoder
         B, N, Tn = node_ids.shape
@@ -69,15 +77,17 @@ class EndToEndMVulD(nn.Module):
             took = valid[sel].float()
             packed = flat[sel]                                    # [P, Tn]
             pmask = (packed != pad).long()
-            pemb = masked_mean(encoder(packed, pmask), pmask) * took[:, None]
+            pemb = (masked_mean(encoder(packed, pmask, gen), pmask)
+                    * took[:, None])
             node_flat = torch.zeros((B * N, pemb.shape[-1]), dtype=pemb.dtype,
-                                    device=pemb.device)
-            node_flat[sel] = pemb
+                                    device=pemb.device).index_put((sel,), pemb)
             node_emb = node_flat.reshape(B, N, -1)
         else:
             nmask = (flat != pad).long()
-            node_emb = masked_mean(encoder(flat, nmask), nmask).reshape(B, N, -1)
+            node_emb = masked_mean(encoder(flat, nmask, gen),
+                                   nmask).reshape(B, N, -1)
         node_emb = node_emb * node_mask[..., None]                # [B, N, H]
 
-        img_emb = self.swin(image)
-        return self.fusion(img_emb, text_emb, node_emb, pos, adj, node_mask)
+        img_emb = self.swin(image, train, gen)
+        return self.fusion(img_emb, text_emb, node_emb, pos, adj, node_mask,
+                           train, gen)

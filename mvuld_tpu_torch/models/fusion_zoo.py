@@ -14,7 +14,10 @@ Module paths follow the JAX tree (``img_proj``, ``graph.gats.gat``,
 ``graph.rs_gcn_{i}``, ``final_bn`` …); the leaf modules carry the
 reference's torch layouts (dgl GATConv, Rs_GCN Conv1d + BatchNorm1d,
 BatchNorm1d running statistics). The head runs in fp32, as in JAX. The
-other registry keys of the zoo belong to a later slice. Torch BatchNorm1d
+other registry keys of the zoo belong to a later slice. ``train`` takes
+BatchNorm statistics from the batch (flax semantics, ``batch_norm``) and
+draws the 0.2 feature dropout of the GATs, the GAT stack and the hidden
+stack from ``gen``. Torch BatchNorm1d
 needs its feature count up front, so the node-axis BNs take ``max_nodes``
 and the bbox projection ``pos_dim`` (JAX infers both from the input).
 """
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvuld_tpu_torch.models.dropout import dropout
 from mvuld_tpu_torch.models.graph_nets import (DenseGATConv, RsGCN,
                                                batch_norm, l2norm_nodes,
                                                mean_over_max_nodes)
@@ -45,41 +49,42 @@ class ProjectBNFC(nn.Module):
         self.bn = _bn(d_in)
         self.fc = nn.Linear(d_in, out)
 
-    def forward(self, x):
-        return F.elu(self.fc(batch_norm(x, self.bn)))
+    def forward(self, x, train: bool = False):
+        return F.elu(self.fc(batch_norm(x, self.bn, train)))
 
 
 class GATStack(nn.Module):
     """Two stacked 4-head GATs + FC, flattening heads between layers
     (reference: GraphModel.py:167-172)."""
 
-    def __init__(self, d_in: int, hidden: int = 512, heads: int = 4):
+    def __init__(self, d_in: int, hidden: int = 512, heads: int = 4,
+                 drop: float = 0.2):
         super().__init__()
-        self.hidden, self.heads = hidden, heads
-        self.gat = DenseGATConv(d_in, hidden, heads)
-        self.gat2 = DenseGATConv(hidden * heads, hidden, heads)
+        self.hidden, self.heads, self.drop = hidden, heads, drop
+        self.gat = DenseGATConv(d_in, hidden, heads, feat_drop=drop)
+        self.gat2 = DenseGATConv(hidden * heads, hidden, heads, feat_drop=drop)
         self.fc = nn.Linear(hidden * heads, hidden)
 
-    def forward(self, h, adj):
+    def forward(self, h, adj, gen=None):
         B, N, _ = h.shape
-        h = self.gat(h, adj).reshape(B, N, self.heads * self.hidden)
-        h = self.gat2(h, adj).reshape(B, N, self.heads * self.hidden)
-        return F.elu(self.fc(h))
+        h = self.gat(h, adj, gen).reshape(B, N, self.heads * self.hidden)
+        h = self.gat2(h, adj, gen).reshape(B, N, self.heads * self.hidden)
+        return dropout(F.elu(self.fc(h)), self.drop, gen)
 
 
 class HiddenStack(nn.Module):
     """8 shared FC(512→512)+ELU layers (reference: fch/hidden,
     GraphModel.py:113-117, applied at 175-177)."""
 
-    def __init__(self, hidden: int = 512, depth: int = 8):
+    def __init__(self, hidden: int = 512, depth: int = 8, drop: float = 0.2):
         super().__init__()
-        self.depth = depth
+        self.depth, self.drop = depth, drop
         for i in range(depth):
             self.add_module(f"fc_{i}", nn.Linear(hidden, hidden))
 
-    def forward(self, h):
+    def forward(self, h, gen=None):
         for i in range(self.depth):
-            h = F.elu(getattr(self, f"fc_{i}")(h))
+            h = dropout(F.elu(getattr(self, f"fc_{i}")(h)), self.drop, gen)
         return h
 
 
@@ -108,17 +113,18 @@ class GraphBranch(nn.Module):
         for i in range(num_rs_gcn):
             self.add_module(f"rs_gcn_{i}", RsGCN(hidden, hidden))
 
-    def forward(self, node_emb, pos, adj, node_mask):
-        h = self.gats(node_emb, adj)
+    def forward(self, node_emb, pos, adj, node_mask, train: bool = False,
+                gen=None):
+        h = self.gats(node_emb, adj, gen)
         if self.hidden is not None:
-            h = self.hidden(h)
+            h = self.hidden(h, gen)
         # zero padded nodes: the reference pads AFTER the per-node nets
         h = h * node_mask[..., None]
-        h_i = F.elu(self.fc_gat(batch_norm(h, self.bn_gat)))
-        pos_i = F.elu(self.fc_bbox(batch_norm(pos, self.bn_bbox)))
+        h_i = F.elu(self.fc_gat(batch_norm(h, self.bn_gat, train)))
+        pos_i = F.elu(self.fc_bbox(batch_norm(pos, self.bn_bbox, train)))
         h = torch.cat([h_i, pos_i], dim=-1)
         for i in range(self.num_rs_gcn):
-            h, _aff = getattr(self, f"rs_gcn_{i}")(h)
+            h, _aff = getattr(self, f"rs_gcn_{i}")(h, train)
         return mean_over_max_nodes(l2norm_nodes(h))
 
 
@@ -139,10 +145,13 @@ class MultiDefectAblation(nn.Module):
         self.final_bn = _bn(3 * hidden)
         self.final_fc = nn.Linear(3 * hidden, num_classes)
 
-    def forward(self, img_emb, text_emb, node_emb, pos, adj, node_mask):
-        feats = [self.img_proj(img_emb.float()),
+    def forward(self, img_emb, text_emb, node_emb, pos, adj, node_mask,
+                train: bool = False, gen=None):
+        """``gen``: dropout generator, read only when ``train``."""
+        gen = gen if train else None
+        feats = [self.img_proj(img_emb.float(), train),
                  self.graph(node_emb.float(), pos.float(), adj,
-                            node_mask.float()),
-                 self.text_proj(text_emb.float())]
-        fused = batch_norm(torch.cat(feats, dim=-1), self.final_bn)
+                            node_mask.float(), train, gen),
+                 self.text_proj(text_emb.float(), train)]
+        fused = batch_norm(torch.cat(feats, dim=-1), self.final_bn, train)
         return self.final_fc(fused).float()

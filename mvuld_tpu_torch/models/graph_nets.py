@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvuld_tpu_torch.models.dropout import dropout
+
 NEG_INF = -1e9
 NEGATIVE_SLOPE = 0.2   # dgl GATConv's LeakyReLU slope
 
@@ -35,9 +37,11 @@ class DenseGATConv(nn.Module):
     shape [B, N, num_heads, out_feats].
     """
 
-    def __init__(self, in_feats: int, out_feats: int, num_heads: int = 4):
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int = 4,
+                 feat_drop: float = 0.0):
         super().__init__()
         self.out_feats, self.num_heads = out_feats, num_heads
+        self.feat_drop = feat_drop
         self.fc = nn.Linear(in_feats, out_feats * num_heads, bias=False)
         self.attn_l = nn.Parameter(torch.empty(1, num_heads, out_feats))
         self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats))
@@ -45,10 +49,11 @@ class DenseGATConv(nn.Module):
         nn.init.xavier_normal_(self.attn_l)
         nn.init.xavier_normal_(self.attn_r)
 
-    def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, adj: torch.Tensor,
+                gen=None) -> torch.Tensor:
         B, N, _ = h.shape
         H, D = self.num_heads, self.out_feats
-        z = self.fc(h).reshape(B, N, H, D)
+        z = self.fc(dropout(h, self.feat_drop, gen)).reshape(B, N, H, D)
         el = torch.einsum("bnhd,hd->bnh", z, self.attn_l[0])   # source term
         er = torch.einsum("bnhd,hd->bnh", z, self.attn_r[0])   # destination
         # scores[b, h, i, j] for edge i → j
@@ -63,11 +68,33 @@ class DenseGATConv(nn.Module):
         return out + self.bias.reshape(H, D)
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
-    """Eval-mode BatchNorm over ``bn``'s running statistics, features on
-    dim 1 (torch layout) — flax BatchNorm(use_running_average=True)."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+BN_MOMENTUM = 0.99   # flax nn.BatchNorm's default
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d,
+               train: bool = False) -> torch.Tensor:
+    """flax ``BatchNorm``, features on dim 1 (torch layout).
+
+    Eval: normalise with ``bn``'s running statistics. Train: normalise with
+    the batch's statistics over every other dim, taken as flax takes them
+    (fp32, var = max(E[x²] − E[x]², 0), the biased variance), and update the
+    running statistics in place with flax's momentum 0.99:
+    running = 0.99·running + 0.01·batch. Torch's own train path differs in
+    both (momentum 0.1, unbiased running variance)."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    dims = [d for d in range(x.dim()) if d != 1]
+    shape = [1] * x.dim()
+    shape[1] = -1
+    xf = x.float()
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
+    return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
 
 
 class RsGCN(nn.Module):
@@ -92,7 +119,8 @@ class RsGCN(nn.Module):
     def _conv(x, conv: nn.Conv1d):
         return F.linear(x, conv.weight[:, :, 0], conv.bias)
 
-    def forward(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, v: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, N, C = v.shape
         g_v = self._conv(v, self.g)                                # [B,N,Ci]
         theta = self._conv(v, self.theta)
@@ -102,7 +130,8 @@ class RsGCN(nn.Module):
         y = torch.einsum("bij,bjc->bic", R, g_v)                   # [B,N,Ci]
         w_y = self._conv(y, self.W[0])
         # torch BatchNorm1d over channels of [B, C, N]
-        w_y = batch_norm(w_y.reshape(B * N, C), self.W[1]).reshape(B, N, C)
+        w_y = batch_norm(w_y.reshape(B * N, C), self.W[1], train
+                         ).reshape(B, N, C)
         return w_y + v, R
 
 

@@ -1,14 +1,18 @@
 """RoBERTa encoder in PyTorch — the text-modality backbone (UniXcoder).
 
-Counterpart of ``mvuld_tpu/models/roberta.py``, forward only: token
-embeddings → post-LN transformer layers → last hidden state. Module and
+Counterpart of ``mvuld_tpu/models/roberta.py``: token embeddings →
+post-LN transformer layers → last hidden state. Module and
 parameter names are HF ``RobertaModel``'s (``embeddings.word_embeddings``,
 ``encoder.layer.{i}.attention.self.query`` …), so ``models/convert.py`` maps
 the JAX variables onto them one to one.
 
 Activations run in ``config.dtype`` with fp32 parameters; the attention
 softmax is fp32. ``use_pallas_mlp`` runs each layer's MLP half through the
-fused ``mlp_ln_res`` kernel (``ops/fused_dense.py``, K4).
+fused ``mlp_ln_res`` kernel (``ops/fused_dense.py``, K4; K4b backward).
+Given a generator, ``forward`` trains: dropout at ``dropout_rate`` on the
+embeddings, the attention probabilities, the attention output and the MLP
+output — on the kernel path the last is K4's {0,1} keep-mask of hidden's
+shape and dtype, drawn where the plain path draws its dropout mask.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from mvuld_tpu_torch.models.dropout import dropout, keep_mask
 from mvuld_tpu_torch.models.swin_v2 import layer_norm, linear
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln_res
 
@@ -33,6 +38,7 @@ class RobertaConfig:
     type_vocab_size: int = 10
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
+    dropout_rate: float = 0.1
     dtype: torch.dtype = torch.float32   # compute dtype; params stay fp32
     use_pallas_mlp: bool = False
 
@@ -57,7 +63,8 @@ class SelfAttention(nn.Module):
         self.key = nn.Linear(c.hidden_size, c.hidden_size)
         self.value = nn.Linear(c.hidden_size, c.hidden_size)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor):
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
+                gen=None):
         c = self.config
         hd = c.hidden_size // c.num_heads
 
@@ -69,6 +76,7 @@ class SelfAttention(nn.Module):
         # [B, H, Tq, Tk] — softmax in fp32 regardless of compute dtype
         logits = (q @ k.transpose(-1, -2)).float() * (1.0 / hd ** 0.5)
         probs = torch.softmax(logits + attn_bias, dim=-1).to(c.dtype)
+        probs = dropout(probs, c.dropout_rate, gen)
         ctx = (probs @ v).transpose(1, 2)                   # [B, T, H, hd]
         return ctx.reshape(ctx.shape[:2] + (c.hidden_size,))
 
@@ -109,16 +117,24 @@ class TransformerLayer(nn.Module):
         self.output = DenseLN(c.intermediate_size, c.hidden_size,
                               c.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor):
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
+                gen=None):
         c = self.config
+        rate = c.dropout_rate if gen is not None else 0.0
         att = self.attention
-        attn_out = linear(att.self(hidden, attn_bias), att.output.dense, c.dtype)
+        attn_out = linear(att.self(hidden, attn_bias, gen), att.output.dense,
+                          c.dtype)
+        attn_out = dropout(attn_out, rate, gen)
         hidden = layer_norm(hidden + attn_out, att.output.LayerNorm, c.dtype)
         fc1, fc2, ln = self.intermediate.dense, self.output.dense, self.output.LayerNorm
         if c.use_pallas_mlp:
+            mask = (keep_mask(hidden.shape, rate, gen, hidden.device)
+                    .to(c.dtype) if rate > 0 else None)
             return mlp_ln_res(hidden.to(c.dtype), fc1.weight.t(), fc1.bias,
-                              fc2.weight.t(), fc2.bias, ln.weight, ln.bias)
+                              fc2.weight.t(), fc2.bias, ln.weight, ln.bias,
+                              mask, 1.0 - rate)
         mlp = linear(gelu(linear(hidden, fc1, c.dtype)), fc2, c.dtype)
+        mlp = dropout(mlp, rate, gen)
         return layer_norm(hidden + mlp, ln, c.dtype)
 
 
@@ -152,20 +168,22 @@ class RobertaEncoder(nn.Module):
         self.embeddings = Embeddings(config)
         self.encoder = Encoder(config)
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                gen=None) -> torch.Tensor:
+        """``gen``: the dropout generator (training), or None."""
         c = self.config
         emb = self.embeddings
         pos_ids = roberta_position_ids(input_ids, c.pad_token_id)
         hidden = (emb.word_embeddings.weight.to(c.dtype)[input_ids]
                   + emb.position_embeddings.weight.to(c.dtype)[pos_ids]
                   + emb.token_type_embeddings.weight[0].to(c.dtype))
-        hidden = layer_norm(hidden, emb.LayerNorm, c.dtype)
+        hidden = dropout(layer_norm(hidden, emb.LayerNorm, c.dtype),
+                         c.dropout_rate, gen)
         # additive key-side mask, broadcast over heads and query positions
         attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
                                 ).float()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias)
+            hidden = layer(hidden, attn_bias, gen)
         return hidden
 
 

@@ -1,7 +1,7 @@
 """Swin Transformer V2 in PyTorch — the image-modality backbone.
 
 Counterpart of ``mvuld_tpu/models/swin_v2.py`` (post-norm SwinV2; reference
-mvuld/models/swin_transformer_v2.py), forward only. Module and parameter
+mvuld/models/swin_transformer_v2.py). Module and parameter
 names are the reference torch ones (``layers.{i}.blocks.{j}.attn.qkv``,
 ``attn.cpb_mlp.0``, ``norm1`` …) so ``models/convert.py`` maps the JAX
 variables onto them one to one.
@@ -14,8 +14,19 @@ compute dtype, the attention softmax and the CPB bias stay fp32.
 ``use_pallas`` selects the flat-layout attention kernel
 (``ops/window_attention.py``, K1) and ``use_pallas_mlp`` the fused MLP+LN
 kernel (``ops/fused_dense.py`` ``mlp_ln``, K3, stages with C ≤ 512), under
-the JAX package's flag names. Off, the blocks run the plain composition of
-the JAX XLA branch (exact softmax, q/k divided by max(‖·‖, 1e-12)).
+the JAX package's flag names; with gradients enabled the attention runs as
+``flat_attention`` (K1 forward with row sums, K2 backward) and the MLP half
+as the ``mlp_ln`` autograd function (K3 forward, K3b backward). Off, the
+blocks run the plain composition of the JAX XLA branch (exact softmax, q/k
+divided by max(‖·‖, 1e-12)) and autograd differentiates it.
+
+Training (``forward(x, train=True, gen=...)``) adds per-image DropPath with
+the per-block rates ``linspace(0, drop_path_rate, Σdepths)``, its masks
+drawn from ``gen`` for a whole stage before the stage runs, and
+``torch.utils.checkpoint`` over the stages in ``remat_stages``. Under
+checkpointing the recomputed forward reuses the first forward's K1 output
+and row sums (the JAX remat policy's saved ``attn_out`` / ``attn_rowsum``),
+so K1 never runs twice and the DropPath masks are the same in both passes.
 """
 
 from __future__ import annotations
@@ -28,10 +39,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
+from mvuld_tpu_torch.models.dropout import keep_mask
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
-from mvuld_tpu_torch.ops.window_attention import window_attention_flat
+from mvuld_tpu_torch.ops.window_attention import (flat_attention,
+                                                  window_attention_flat)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's default epsilon
 
@@ -50,6 +64,8 @@ class SwinV2Config:
     ape: bool = False
     patch_norm: bool = True
     pretrained_window_sizes: Tuple[int, ...] = (0, 0, 0, 0)
+    drop_rate: float = 0.0
+    drop_path_rate: float = 0.2
     dtype: torch.dtype = torch.float32
 
     @staticmethod
@@ -61,6 +77,8 @@ class SwinV2Config:
             num_heads=tuple(s.NUM_HEADS), window_size=s.WINDOW_SIZE,
             mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS, ape=s.APE, patch_norm=s.PATCH_NORM,
             pretrained_window_sizes=tuple(s.PRETRAINED_WINDOW_SIZES),
+            drop_rate=cfg.MODEL.DROP_RATE,
+            drop_path_rate=cfg.MODEL.DROP_PATH_RATE,
             dtype=(torch.bfloat16 if cfg.PARALLEL.DTYPE == "bfloat16"
                    else torch.float32),
         )
@@ -210,10 +228,12 @@ class WindowAttentionV2(nn.Module):
         return 16.0 * torch.sigmoid(bias.float())
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                shift: int = 0) -> torch.Tensor:
+                shift: int = 0, store: Optional[dict] = None) -> torch.Tensor:
         """x: [B, Hp, Wp, C] feature map (already shifted when applicable);
         returns the same layout. The kernel path derives the shift mask
-        from ``shift``; the plain path adds ``mask``."""
+        from ``shift``; the plain path adds ``mask``. ``store`` (kernel
+        path, checkpointed stages) keeps K1's (out, r) between the first
+        forward and its recomputation."""
         B, Hp, Wp, C = x.shape
         ws, H, dt = self.window_size, self.num_heads, self.dtype
         hd = C // H
@@ -229,10 +249,15 @@ class WindowAttentionV2(nn.Module):
         if self.use_pallas:
             xw = window_partition(x_, ws)
             qkv = F.linear(xw, self.qkv.weight.to(dt), qkv_b)   # [Bn, N, 3C]
-            out = window_attention_flat(qkv, bias, scale.reshape(H),
-                                        shift=shift, nWh=Hp // ws,
-                                        nWw=Wp // ws).to(dt)
-            out = window_reverse(out, ws, Hp, Wp)
+            args = (qkv, bias, scale.reshape(H), shift, Hp // ws, Wp // ws)
+            if torch.is_grad_enabled():
+                prev = None if store is None else store.get(self)
+                out, r = flat_attention(*args, saved=prev)
+                if store is not None and prev is None:
+                    store[self] = (out.detach(), r)
+            else:
+                out = window_attention_flat(*args)
+            out = window_reverse(out.to(dt), ws, Hp, Wp)
         else:
             qkv = F.linear(x_, self.qkv.weight.to(dt), qkv_b)   # [B,Hp,Wp,3C]
             qkvw = window_partition(qkv, ws)
@@ -292,18 +317,19 @@ class SwinBlockV2(nn.Module):
             persistent=False)
 
     def _mlp_half(self, x):
-        """x + LN(MLP(x)) — the post-norm second half of the block
-        (reference swin_transformer_v2.py:310-315)."""
+        """LN(MLP(x)) — the post-norm second half of the block before its
+        residual (reference swin_transformer_v2.py:310-315)."""
         C = x.shape[-1]
         if self.use_pallas_mlp and C <= 512:
-            y = mlp_ln(x, self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
-                       self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
-                       self.norm2.weight, self.norm2.bias)
-        else:
-            y = layer_norm(self.mlp(x, self.dtype), self.norm2, self.dtype)
-        return x + y
+            return mlp_ln(x, self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
+                          self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
+                          self.norm2.weight, self.norm2.bias)
+        return layer_norm(self.mlp(x, self.dtype), self.norm2, self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop=None,
+                store: Optional[dict] = None) -> torch.Tensor:
+        """``drop``: (keep-mask of the attention half [B], of the MLP half
+        [B], rate) for DropPath, or None."""
         Hr, Wr = self.input_resolution
         shift = self.shift_size
         B, L, C = x.shape
@@ -311,11 +337,25 @@ class SwinBlockV2(nn.Module):
         x = x.reshape(B, Hr, Wr, C)
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        x = self.attn(x, self.attn_mask, shift=shift)
+        x = self.attn(x, self.attn_mask, shift=shift, store=store)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = layer_norm(x.reshape(B, L, C), self.norm1, self.dtype)
-        return self._mlp_half(shortcut + x)
+        x = shortcut + drop_path(x, drop, 0)
+        return x + drop_path(self._mlp_half(x), drop, 1)
+
+
+def drop_path(x: torch.Tensor, drop, which: int) -> torch.Tensor:
+    """Per-image stochastic depth (the JAX ``DropPath``): images whose mask
+    is False are zeroed, the others divided by keep in x's dtype."""
+    if drop is None:
+        return x
+    mask, rate = drop[which], drop[2]
+    # made on the device: a host tensor copied there would sync the stream
+    keep = torch.full((), 1.0 - rate, dtype=torch.float32,
+                      device=x.device).to(x.dtype)
+    return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PatchMerging(nn.Module):
@@ -369,9 +409,9 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
 
-    def forward(self, x):
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x, drops=None, store: Optional[dict] = None):
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if drops is None else drops[i], store)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -379,14 +419,17 @@ class SwinTransformerV2(nn.Module):
     """The image tower: patch embedding, four stages and the final norm,
     returning the mean-pooled embedding [B, num_features] (the JAX model
     with ``return_features=True``, the reference's ``forward_features``).
-    The classification head and the dropout/DropPath rates arrive with the
-    training slices. ``window_resident`` is accepted for parity with the JAX
-    constructor and changes nothing here (see SwinBlockV2)."""
+    The classification head belongs to a later slice. ``window_resident``
+    is accepted for parity with the JAX constructor and changes nothing here
+    (see SwinBlockV2). ``remat_stages``: the stage indices checkpointed in
+    training (the JAX ``use_checkpoint`` with ``remat_stages``)."""
 
     def __init__(self, config: SwinV2Config, use_pallas: bool = False,
-                 use_pallas_mlp: bool = False, window_resident: bool = False):
+                 use_pallas_mlp: bool = False, window_resident: bool = False,
+                 remat_stages: Tuple[int, ...] = ()):
         super().__init__()
         c = self.config = config
+        self.remat_stages = tuple(remat_stages)
         self.patch_embed = PatchEmbed(c)
         res = c.img_size // c.patch_size
         self.absolute_pos_embed = (
@@ -407,11 +450,34 @@ class SwinTransformerV2(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(c.num_features, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train``: DropPath from ``gen`` and checkpointing of
+        ``remat_stages``."""
         c = self.config
+        if train and c.drop_rate > 0:
+            raise ValueError("the port trains with MODEL.DROP_RATE 0 (the "
+                             "configs' value); SwinV2 feature dropout is "
+                             "not ported")
         x = self.patch_embed(x.to(c.dtype))
         if self.absolute_pos_embed is not None:
             x = x + self.absolute_pos_embed.to(c.dtype)
-        for layer in self.layers:
-            x = layer(x)
+        rates = np.linspace(0, c.drop_path_rate, sum(c.depths)).tolist()
+        first = 0
+        for i, layer in enumerate(self.layers):
+            n = len(layer.blocks)
+            drops = None
+            if train and gen is not None:
+                # the whole stage's masks before it runs: a checkpointed
+                # stage recomputes with the same masks
+                drops = [(keep_mask((x.shape[0],), r, gen, x.device),
+                          keep_mask((x.shape[0],), r, gen, x.device), r)
+                         if r > 0 else None for r in rates[first:first + n]]
+            first += n
+            if train and i in self.remat_stages:
+                store: dict = {}
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, drops, store, use_reentrant=False)
+            else:
+                x = layer(x, drops)
         return layer_norm(x, self.norm, c.dtype).mean(dim=1).float()

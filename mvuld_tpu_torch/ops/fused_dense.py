@@ -1,19 +1,23 @@
-"""Fused MLP + LayerNorm: the K3 (``mlp_ln``) and K4 (``mlp_ln_res``) kernels.
+"""Fused MLP + LayerNorm: the K3 (``mlp_ln``) and K4 (``mlp_ln_res``)
+kernels and their backward kernels K3b and K4b.
 
 Counterparts of ``mvuld_tpu/ops/fused_dense.py`` ``mlp_ln`` (SwinBlockV2's
 post-norm MLP half, LayerNorm eps 1e-6) and ``mlp_ln_res`` (the RoBERTa
-layer's residual MLP half, eps 1e-5), forward only:
+layer's residual MLP half with its dropout keep-mask, eps 1e-5), both
+``custom_vjp`` ops there and ``torch.autograd.Function``s here:
 
   mlp_ln:      y = LN(GELU(x@W1 + b1)@W2 + b2)·γ + β
-  mlp_ln_res:  y = LN(x + GELU(x@W1 + b1)@W2 + b2)·γ + β
+  mlp_ln_res:  y = LN(x + (GELU(x@W1 + b1)@W2 + b2)·mask/keep)·γ + β
 
 Weights are in the JAX layout (W1 ``[C, Hd]``, W2 ``[Hd, C]``) and are
 cast to x's dtype before the products, which accumulate in fp32; the hidden
 activation is rounded to x's dtype before the second product, as the Pallas
-kernel does. GELU is the exact erf form (the Pallas kernel's polynomial erf
-is a Mosaic workaround). This is the inference form: ``mlp_ln_res`` has
-no dropout operand (the JAX kernel's mask with keep_prob 1); the training
-slice adds it.
+kernel does. ``mask`` is a {0,1} keep-mask of x's shape and dtype, read
+only when keep_prob < 1. The backward matches the Pallas casts: dy is cast
+to x's dtype, and dz and dh are rounded to it before their products. GELU
+is the exact erf form; the Pallas kernels take a polynomial erf
+(|err| ≤ 1.5e-7, a Mosaic workaround) and differentiate it, so their GELU
+gradient differs from the exact one by about 1e-6.
 
 CUDA tensors run ``csrc/mlp_ln.cu`` (bf16 only; anything else raises); CPU
 tensors run the plain versions. The wrappers never fall back from one to
@@ -23,6 +27,7 @@ the other.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -39,6 +44,12 @@ def gelu(z):
     return 0.5 * z * (1.0 + torch.erf(z * 0.7071067811865476))
 
 
+def gelu_grad(z):
+    """d GELU / dz of the exact-erf form."""
+    return (0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+            + z * 0.3989422804014327 * torch.exp(-0.5 * z * z))
+
+
 def _check_shapes(x, w1, b1, w2, b2, gamma, beta):
     C, Hd = w1.shape
     want = {"x": (x.shape[-1], C), "w2": (tuple(w2.shape), (Hd, C)),
@@ -51,8 +62,15 @@ def _check_shapes(x, w1, b1, w2, b2, gamma, beta):
                          f"[C={C}, Hd={Hd}]")
 
 
+def _scaled_mask(mask, keep_prob: float, C: int):
+    """mask/keep as fp32 [M, C], or None when the mask is unread."""
+    if mask is None or keep_prob >= 1.0:
+        return None
+    return mask.reshape(-1, C).float() / keep_prob
+
+
 def mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta, residual: bool = False,
-                 eps: float = _LN_EPS):
+                 eps: float = _LN_EPS, mask=None, keep_prob: float = 1.0):
     """Plain PyTorch version of K3 (``residual=False``) and K4."""
     _check_shapes(x, w1, b1, w2, b2, gamma, beta)
     dt = x.dtype
@@ -60,6 +78,9 @@ def mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta, residual: bool = False,
     xf = x.reshape(-1, C).float()
     h = gelu(xf @ w1.to(dt).float() + b1.float())
     z = h.to(dt).float() @ w2.to(dt).float() + b2.float()
+    sm = _scaled_mask(mask, keep_prob, C)
+    if sm is not None:
+        z = z * sm
     if residual:
         z = z + xf
     mu = z.mean(-1, keepdim=True)
@@ -69,63 +90,207 @@ def mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta, residual: bool = False,
     return y.to(dt).reshape(x.shape)
 
 
-def _lib():
-    fn = _build.load("mlp_ln").mlp_ln_fwd
+def mlp_ln_bwd_plain(x, dy, w1, b1, w2, b2, gamma, residual: bool = False,
+                     eps: float = _LN_EPS, mask=None, keep_prob: float = 1.0):
+    """Plain PyTorch version of K3b (``residual=False``) and K4b: returns
+    (dx in x's dtype, dW1, db1, dW2, db2, dγ, dβ in fp32)."""
+    dt = x.dtype
+    C, Hd = w1.shape
+    xf = x.reshape(-1, C).float()
+    w1b, w2b = w1.to(dt).float(), w2.to(dt).float()
+    h_pre = xf @ w1b + b1.float()
+    hb = gelu(h_pre).to(dt).float()
+    z = hb @ w2b + b2.float()
+    sm = _scaled_mask(mask, keep_prob, C)
+    if sm is not None:
+        z = z * sm
+    if residual:
+        z = z + xf
+    zc = z - z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
+    zhat = zc * rstd
+    dyf = dy.reshape(-1, C).to(dt).float()
+    dgamma, dbeta = (dyf * zhat).sum(0), dyf.sum(0)
+    dyg = dyf * gamma.float()
+    dz = (dyg - dyg.mean(-1, keepdim=True)
+          - zhat * (dyg * zhat).mean(-1, keepdim=True)) * rstd
+    dzm = dz if sm is None else dz * sm
+    dzb = dzm.to(dt).float()
+    dh_pre = (dzb @ w2b.t()) * gelu_grad(h_pre)
+    dhb = dh_pre.to(dt).float()
+    dx = dhb @ w1b.t()
+    if residual:
+        dx = dx + dz
+    return (dx.to(dt).reshape(x.shape), xf.t() @ dhb, dh_pre.sum(0),
+            hb.t() @ dzb, dzm.sum(0), dgamma, dbeta)
+
+
+def _lib(name):
+    fn = getattr(_build.load("mlp_ln"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([P] * 8 + [F, P] + [I] * 4 + [F, P]
+                       if name == "mlp_ln_fwd" else
+                       [P] * 3 + [F] + [P] * 14 + [I] * 4 + [F]
+                       + [I] * 3 + [P])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, w1, b1, w2, b2, gamma, beta, residual: bool, eps: float,
-            what: str):
+def _aligned(t):
+    """A contiguous tensor whose data starts on 32 bytes (wmma loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()
+
+
+def _check_kernel(x, w1, what):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    _check_shapes(x, w1, b1, w2, b2, gamma, beta)
     C, Hd = w1.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16)")
     if C % 16 or C > _MAX_C or Hd % _HIDDEN_CHUNK:
         raise ValueError(f"{what} kernel: C={C} must be a multiple of 16 and "
                          f"≤ {_MAX_C}, Hd={Hd} a multiple of {_HIDDEN_CHUNK}")
+
+
+def _kernel_operands(x, w1, b1, w2, b2, gamma, mask, keep_prob):
     dev = x.device
-    x2 = x.reshape(-1, C).contiguous()
-    M = x2.shape[0]
-    bf = lambda w: w.to(device=dev, dtype=torch.bfloat16).contiguous()  # noqa: E731
+    C = w1.shape[0]
+    bf = lambda w: _aligned(w.to(device=dev, dtype=torch.bfloat16))  # noqa: E731
     f32 = lambda v: v.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    w1b, w2b = bf(w1), bf(w2)
-    b1f, b2f, gf, bt = f32(b1), f32(b2), f32(gamma), f32(beta)
+    m2 = (None if mask is None or keep_prob >= 1.0
+          else bf(mask.reshape(-1, C)))
+    return (_aligned(x.reshape(-1, C)), bf(w1), f32(b1), bf(w2), f32(b2),
+            f32(gamma), m2)
+
+
+def _forward(x, w1, b1, w2, b2, gamma, beta, residual, eps, mask, keep_prob,
+             counter):
+    _check_shapes(x, w1, b1, w2, b2, gamma, beta)
+    if x.device.type == "cpu":
+        return mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta, residual, eps,
+                            mask, keep_prob)
+    what = counter.__name__
+    _check_kernel(x, w1, what)
+    C, Hd = w1.shape
+    x2, w1b, b1f, w2b, b2f, gf, m2 = _kernel_operands(
+        x, w1, b1, w2, b2, gamma, mask, keep_prob)
+    bt = beta.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x2)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib("mlp_ln_fwd")(
+        x2.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
+        b2f.data_ptr(), gf.data_ptr(), bt.data_ptr(),
+        0 if m2 is None else m2.data_ptr(), float(keep_prob), out.data_ptr(),
+        x2.shape[0], C, Hd, int(residual), eps, stream)
+    counter.launches += 1
+    _build.check(err, what)
+    return out.reshape(x.shape)
+
+
+def _split_rows(Mp: int, tiles: int, sms: int):
+    """Row groups of the weight-gradient contraction: enough (tile, group)
+    blocks to fill the card, groups of at least 512 rows."""
+    S = max(1, min(math.ceil(2 * sms / tiles), Mp // 512))
+    rows = math.ceil(Mp / S / 16) * 16
+    return math.ceil(Mp / rows), rows
+
+
+def _backward(x, dy, w1, b1, w2, b2, gamma, residual, eps, mask, keep_prob,
+              counter):
+    if x.device.type == "cpu":
+        return mlp_ln_bwd_plain(x, dy, w1, b1, w2, b2, gamma, residual, eps,
+                                mask, keep_prob)
+    what = counter.__name__
+    _check_kernel(x, w1, what)
+    dev = x.device
+    C, Hd = w1.shape
+    x2, w1b, b1f, w2b, b2f, gf, m2 = _kernel_operands(
+        x, w1, b1, w2, b2, gamma, mask, keep_prob)
+    M = x2.shape[0]
+    Mp = -(-M // 16) * 16
+    if Mp != M:
+        x2 = torch.cat([x2, x2.new_zeros(Mp - M, C)])
+    dy2 = dy.reshape(-1, C).to(torch.bfloat16).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = min(Mp // 16, 2 * sms)
+    S, rows = _split_rows(Mp, -(-C // 64) * -(-Hd // 64), sms)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    dx = torch.empty((M, C), **bf16)
+    dw1, dw2 = torch.empty((C, Hd), **f32), torch.empty((Hd, C), **f32)
+    dvec = torch.empty((Hd + 3 * C,), **f32)
+    dzb = torch.empty((Mp, C), **bf16)
+    hb, dhb = torch.empty((Mp, Hd), **bf16), torch.empty((Mp, Hd), **bf16)
+    col_part = torch.empty((G, Hd + 3 * C), **f32)
+    wpart = torch.empty((S if S > 1 else 0, C * Hd), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(x2.data_ptr(), w1b.data_ptr(), b1f.data_ptr(),
-                 w2b.data_ptr(), b2f.data_ptr(), gf.data_ptr(), bt.data_ptr(),
-                 out.data_ptr(), M, C, Hd, int(residual), eps, stream)
-    return out.reshape(x.shape), err
+    err = _lib("mlp_ln_bwd")(
+        x2.data_ptr(), dy2.data_ptr(), 0 if m2 is None else m2.data_ptr(),
+        float(keep_prob), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
+        b2f.data_ptr(), gf.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+        dw2.data_ptr(), dvec.data_ptr(), dzb.data_ptr(), hb.data_ptr(),
+        dhb.data_ptr(), col_part.data_ptr(), wpart.data_ptr(), M, C, Hd,
+        int(residual), eps, G, S, rows, stream)
+    counter.launches += 1
+    _build.check(err, what)
+    db1, db2, dgamma, dbeta = dvec.split([Hd, C, C, C])
+    return dx.reshape(x.shape), dw1, db1, dw2, db2, dgamma, dbeta
+
+
+def mlp_ln_bwd(x, dy, w1, b1, w2, b2, gamma):
+    """K3b: (dx, dW1, db1, dW2, db2, dγ, dβ) of ``mlp_ln``."""
+    return _backward(x, dy, w1, b1, w2, b2, gamma, False, _LN_EPS, None, 1.0,
+                     mlp_ln_bwd)
+
+
+def mlp_ln_res_bwd(x, dy, w1, b1, w2, b2, gamma, mask=None,
+                   keep_prob: float = 1.0):
+    """K4b: (dx, dW1, db1, dW2, db2, dγ, dβ) of ``mlp_ln_res``."""
+    return _backward(x, dy, w1, b1, w2, b2, gamma, True, _BERT_LN_EPS, mask,
+                     keep_prob, mlp_ln_res_bwd)
+
+
+class _MlpLN(torch.autograd.Function):
+    """K3/K4 forward, K3b/K4b backward (recomputing h and z from x)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, gamma, beta, mask, keep_prob,
+                residual):
+        fwd = mlp_ln_res if residual else mlp_ln
+        eps = _BERT_LN_EPS if residual else _LN_EPS
+        y = _forward(x, w1, b1, w2, b2, gamma, beta, residual, eps, mask,
+                     keep_prob, fwd)
+        ctx.save_for_backward(x, w1, b1, w2, b2, gamma, mask)
+        ctx.keep_prob, ctx.residual = keep_prob, residual
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, b2, gamma, mask = ctx.saved_tensors
+        if ctx.residual:
+            grads = mlp_ln_res_bwd(x, dy, w1, b1, w2, b2, gamma, mask,
+                                   ctx.keep_prob)
+        else:
+            grads = mlp_ln_bwd(x, dy, w1, b1, w2, b2, gamma)
+        return (*grads, None, None, None)
 
 
 def mlp_ln(x, w1, b1, w2, b2, gamma, beta):
-    """LayerNorm(MLP(x)), eps 1e-6 — K3."""
-    if x.device.type == "cpu":
-        return mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta)
-    out, err = _launch(x, w1, b1, w2, b2, gamma, beta, False, _LN_EPS,
-                       "mlp_ln")
-    mlp_ln.launches += 1
-    _build.check(err, "mlp_ln")
-    return out
+    """LayerNorm(MLP(x)), eps 1e-6 — K3, with K3b as its gradient."""
+    return _MlpLN.apply(x, w1, b1, w2, b2, gamma, beta, None, 1.0, False)
 
 
-def mlp_ln_res(x, w1, b1, w2, b2, gamma, beta):
-    """LayerNorm(x + MLP(x)), eps 1e-5 — K4, inference form (no dropout)."""
-    if x.device.type == "cpu":
-        return mlp_ln_plain(x, w1, b1, w2, b2, gamma, beta, residual=True,
-                            eps=_BERT_LN_EPS)
-    out, err = _launch(x, w1, b1, w2, b2, gamma, beta, True, _BERT_LN_EPS,
-                       "mlp_ln_res")
-    mlp_ln_res.launches += 1
-    _build.check(err, "mlp_ln_res")
-    return out
+def mlp_ln_res(x, w1, b1, w2, b2, gamma, beta, mask=None,
+               keep_prob: float = 1.0):
+    """LayerNorm(x + MLP(x)·mask/keep), eps 1e-5 — K4, with K4b as its
+    gradient. ``mask`` ({0,1}, x's shape) is read only when keep_prob < 1."""
+    return _MlpLN.apply(x, w1, b1, w2, b2, gamma, beta, mask,
+                        float(keep_prob), True)
 
 
 mlp_ln.launches = 0
 mlp_ln_res.launches = 0
+mlp_ln_bwd.launches = 0
+mlp_ln_res_bwd.launches = 0

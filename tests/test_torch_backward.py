@@ -1,0 +1,159 @@
+"""The port's plain K2, K3b and K4b against the JAX package, on the CPU.
+
+- K1's row sums and K2 (``window_attention_flat_bwd_plain``) against the
+  Pallas kernels ``pallas_window_attention_flat(return_rowsum=True)`` and
+  ``pallas_window_attention_flat_bwd2`` in interpret mode, and the port's
+  autograd function ``flat_attention`` against ``jax.vjp`` of the JAX
+  ``window_attention_flat`` (its default v2 backward), at shift 0 and at
+  shift 2 on a 2×2 window grid. fp32; both sides compute the same
+  formulas in another summation order, so 1e-5 absolute on values of
+  order one.
+- K3b / K4b (the ``mlp_ln`` / ``mlp_ln_res`` autograd functions, whose
+  backward on the CPU is ``mlp_ln_bwd_plain``) against ``jax.vjp`` of the
+  Pallas ``mlp_ln`` / ``mlp_ln_res`` in interpret mode, K4b with the same
+  {0,1} keep-mask at keep 0.9, for all seven gradients. The Pallas GELU
+  differentiates a polynomial erf (|err| ≤ 1.5e-7) where the port takes
+  the exact derivative; with the fp32 sums that stays within 2e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mvuld_tpu.ops import fused_dense as jfd
+from mvuld_tpu.ops import window_attention as jwa
+from mvuld_tpu_torch.ops import fused_dense as fd
+from mvuld_tpu_torch.ops import window_attention as wa
+from jax_reference import no_persistent_compile_cache  # noqa: F401
+
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+MLP_TOL = dict(atol=2e-5, rtol=2e-5)
+GEOMS = [dict(), dict(shift=2, nWh=2, nWw=2)]
+GEOM_IDS = ["shift0", "shift2_grid2x2"]
+
+
+def _attn_inputs(seed, Bn=8, ws=4, heads=2, hd=8):
+    rng = np.random.RandomState(seed)
+    N, C = ws * ws, heads * hd
+    return (rng.randn(Bn, N, 3 * C).astype(np.float32),
+            rng.randn(heads, N, N).astype(np.float32),
+            np.exp(rng.rand(heads)).astype(np.float32),
+            rng.randn(Bn, N, C).astype(np.float32))
+
+
+def _jax_rowsum(r, Bn, H, N):
+    """[NB, Bn, GL, N] (the Pallas lane layout) → the port's [Bn, H, N]."""
+    r = np.asarray(r)
+    return r.transpose(1, 0, 2, 3).reshape(Bn, H, N)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_rowsum_and_plain_k2_match_pallas_interpret(geom):
+    qkv, bias, scale, g = _attn_inputs(seed=11)
+    Bn, N = qkv.shape[:2]
+    H = bias.shape[0]
+    jo, jr = jwa.pallas_window_attention_flat(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(scale),
+        interpret=True, return_rowsum=True, **geom)
+    t = [torch.as_tensor(a) for a in (qkv, bias, scale, g)]
+    out, r = wa.window_attention_flat(t[0], t[1], t[2], **geom,
+                                      return_rowsum=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), **ATTN_TOL)
+    np.testing.assert_allclose(r.numpy(), _jax_rowsum(jr, Bn, H, N),
+                               rtol=1e-5)
+    want = jwa.pallas_window_attention_flat_bwd2(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(scale), jo, jr,
+        jnp.asarray(g), interpret=True, **geom)
+    dqkv, dbias, dscale = wa.window_attention_flat_bwd(
+        t[0], t[1], t[2], out, r, t[3], **geom)
+    C = qkv.shape[-1] // 3
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(dqkv[..., i * C:(i + 1) * C].numpy(),
+                                   np.asarray(want[i]), **ATTN_TOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(dbias.numpy(), np.asarray(want[3]),
+                               **ATTN_TOL)
+    np.testing.assert_allclose(dscale.numpy(), np.asarray(want[4]),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_flat_attention_grads_match_jax_vjp(geom):
+    qkv, bias, scale, g = _attn_inputs(seed=12)
+    fn = lambda q, b, s: jwa.window_attention_flat(  # noqa: E731
+        q, b, s, interpret=True, bwd_v2=True, **geom)
+    jout, vjp = jax.vjp(fn, jnp.asarray(qkv), jnp.asarray(bias),
+                        jnp.asarray(scale))
+    want = vjp(jnp.asarray(g))
+    t = [torch.tensor(a, requires_grad=True) for a in (qkv, bias, scale)]
+    out, _r = wa.flat_attention(*t, geom.get("shift", 0), geom.get("nWh", 1),
+                                geom.get("nWw", 1))
+    got = torch.autograd.grad(out, t, torch.as_tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **ATTN_TOL)
+    for a, b, name in zip(got, want, ("dqkv", "dbias", "dscale")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN_TOL,
+                                   err_msg=name)
+
+
+def _mlp_inputs(lead, C=32, Hd=128, seed=0):
+    rng = np.random.RandomState(seed)
+    f = lambda *s, sc=1.0: (sc * rng.randn(*s)).astype(np.float32)  # noqa: E731
+    return (f(*lead, C), f(C, Hd, sc=0.2), f(Hd, sc=0.1), f(Hd, C, sc=0.1),
+            f(C, sc=0.1), 1.0 + f(C, sc=0.1), f(C, sc=0.1)), f(*lead, C)
+
+
+GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta")
+
+
+@pytest.mark.parametrize("lead", [(48,), (3, 19)], ids=["aligned", "3d"])
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["k3b_mlp_ln", "k4b_mlp_ln_res_keep0.9"])
+def test_mlp_ln_grads_match_jax_vjp(lead, residual):
+    args, dy = _mlp_inputs(lead, seed=21 + residual)
+    mask = (np.random.RandomState(5).rand(*args[0].shape) < 0.9
+            ).astype(np.float32)
+    if residual:
+        jfn = lambda *a: jfd.mlp_ln_res(*a, jnp.asarray(mask), 0.9, True)  # noqa: E731
+        pfn = lambda *a: fd.mlp_ln_res(*a, torch.as_tensor(mask), 0.9)  # noqa: E731
+    else:
+        jfn = lambda *a: jfd.mlp_ln(*a, True)  # noqa: E731
+        pfn = fd.mlp_ln
+    jy, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dy))
+    t = [torch.tensor(a, requires_grad=True) for a in args]
+    y = pfn(*t)
+    got = torch.autograd.grad(y, t, torch.as_tensor(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **MLP_TOL)
+    for a, b, name in zip(got, want, GRADS):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **MLP_TOL,
+                                   err_msg=name)
+
+
+def test_mlp_ln_res_unread_mask_at_keep_one():
+    """keep_prob 1: the mask is not read (the JAX kernel's contract)."""
+    args, _ = _mlp_inputs((16,), seed=3)
+    t = [torch.as_tensor(a) for a in args]
+    junk = torch.full_like(t[0], 7.0)
+    torch.testing.assert_close(fd.mlp_ln_res(*t, junk, 1.0),
+                               fd.mlp_ln_res(*t))
+
+
+def test_backward_wrappers_never_fall_back_off_the_cpu():
+    """K2 and K3b/K4b on a non-CPU tensor launch or raise (meta tensors
+    stand in for a device here)."""
+    m = torch.device("meta")
+    z = lambda *s: torch.zeros(*s, device=m)  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        wa.window_attention_flat_bwd(z(4, 16, 96), z(1, 16, 16), z(1),
+                                     z(4, 16, 32), z(4, 1, 16),
+                                     z(4, 16, 32))
+    w = [z(16, 128), z(128), z(128, 16), z(16), z(16)]
+    for fn in (fd.mlp_ln_bwd, fd.mlp_ln_res_bwd):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(z(8, 16), z(8, 16), *w)
+    assert wa.window_attention_flat_bwd.launches == 0
+    assert fd.mlp_ln_bwd.launches == 0 and fd.mlp_ln_res_bwd.launches == 0

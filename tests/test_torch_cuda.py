@@ -75,3 +75,96 @@ def test_mlp_ln_kernel_rejects_fp32(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         mlp_ln(x, torch.zeros(16, 128), torch.zeros(128), torch.zeros(128, 16),
                torch.zeros(16), torch.ones(16), torch.zeros(16))
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(16, 4, 0, 1), (32, 8, 4, 2), (18, 7, 3, 3)],
+                         ids=["ws4", "ws8_shift4", "ws7_ragged_shift3"])
+def test_window_attention_bwd_kernel_matches_plain(dev, geom, dtype):
+    """K1's row sums and K2's three gradients against the plain versions:
+    fp32 within 1e-4 relative L2 (another summation order; dbias sums
+    every window); bf16 dqkv within 2e-2 (both round to bf16 once, the
+    kernel from fp32 sums of bf16 inputs)."""
+    from mvuld_tpu_torch.ops.window_attention import (
+        window_attention_flat, window_attention_flat_bwd,
+        window_attention_flat_bwd_plain, window_attention_flat_plain)
+    Bn, ws, shift, nW1 = geom
+    H, hd = 2, 32
+    g = torch.Generator(device=dev).manual_seed(2)
+    qkv = torch.randn(Bn, ws * ws, 3 * H * hd, device=dev, generator=g
+                      ).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, ws * ws, ws * ws, device=dev,
+                                          generator=g))
+    ls = torch.full((H,), math.log(10.0), device=dev)
+    args = (qkv, bias, ls, shift, nW1, nW1)
+    out, r = window_attention_flat(*args[:3], *args[3:], return_rowsum=True)
+    out_p, r_p = window_attention_flat_plain(*args[:3], *args[3:],
+                                             return_rowsum=True)
+    assert _rel_l2(r, r_p) <= 1e-5
+    gout = torch.randn(out.shape, device=dev, generator=g).to(dtype)
+    before = window_attention_flat_bwd.launches
+    got = window_attention_flat_bwd(qkv, bias, ls, out_p, r_p, gout, shift,
+                                    nW1, nW1)
+    want = window_attention_flat_bwd_plain(qkv, bias, ls, out_p, r_p, gout,
+                                           shift, nW1, nW1)
+    torch.cuda.synchronize()
+    assert window_attention_flat_bwd.launches == before + 1
+    assert got[0].dtype == dtype and got[0].shape == qkv.shape
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_l2(got[0], want[0]) <= tol
+    assert _rel_l2(got[1], want[1]) <= 1e-4
+    assert _rel_l2(got[2], want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["mlp_ln_bwd", "mlp_ln_res_bwd"])
+@pytest.mark.parametrize("M,C", [(37, 128), (100, 768), (2048, 256)])
+def test_mlp_ln_bwd_kernels_match_plain(dev, name, M, C):
+    """K3b/K4b (K4b with a keep-mask at 0.9) against the plain versions:
+    each of the 7 gradients within 2e-2 relative L2 — both round dz and dh
+    to bf16 before the products and may round a value the other way."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    Hd = 4 * C
+    x = r(M, C).bfloat16()
+    params = (r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02), r(Hd, C, sc=Hd ** -0.5),
+              r(C, sc=0.02), 1 + r(C, sc=0.1))
+    dy = r(M, C).bfloat16()
+    res = name == "mlp_ln_res_bwd"
+    extra = ()
+    if res:
+        mask = (torch.rand(M, C, device=dev, generator=g) < 0.9).bfloat16()
+        extra = (mask, 0.9)
+    fn = getattr(fd, name)
+    before = fn.launches
+    got = fn(x, dy, *params, *extra)
+    want = fd.mlp_ln_bwd_plain(x, dy, *params, residual=res,
+                               eps=1e-5 if res else 1e-6,
+                               mask=extra[0] if res else None,
+                               keep_prob=0.9 if res else 1.0)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_l2(a, b) <= 2e-2
+
+
+def test_mlp_ln_res_mask_kernel_matches_plain(dev):
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    M, C, Hd = 64, 256, 1024
+    args = (r(M, C).bfloat16(), r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02),
+            r(Hd, C, sc=Hd ** -0.5), r(C, sc=0.02), 1 + r(C, sc=0.1),
+            r(C, sc=0.1))
+    mask = (torch.rand(M, C, device=dev, generator=g) < 0.9).bfloat16()
+    got = fd.mlp_ln_res(*args, mask, 0.9)
+    want = fd.mlp_ln_plain(*args, residual=True, eps=1e-5, mask=mask,
+                           keep_prob=0.9)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)

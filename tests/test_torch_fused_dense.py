@@ -14,6 +14,7 @@ import torch
 
 from mvuld_tpu.ops import fused_dense as jfd
 from mvuld_tpu_torch.ops.fused_dense import mlp_ln, mlp_ln_plain, mlp_ln_res
+from jax_reference import no_persistent_compile_cache  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -112,3 +112,38 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
             fn(*args)
     assert window_attention_flat.launches == 0
     assert mlp_ln.launches == 0 and mlp_ln_res.launches == 0
+
+
+def test_trainer_starts_from_a_prebuilt_cache_without_host_extras(tmp_path):
+    """The trainer CLI trains from an output directory that already holds
+    ``cache/e2e.npz`` and ``tokenizer.json`` with jax, pandas, PIL, yaml
+    and tokenizers blocked — the GPU machine has none of them."""
+    from mvuld_tpu_torch.train.train_e2e import main
+
+    opts = ["MODEL.UNIXCODER.LAYERS", "1", "MODEL.UNIXCODER.HIDDEN", "32",
+            "MODEL.UNIXCODER.HEADS", "2", "MODEL.UNIXCODER.INTERMEDIATE",
+            "64", "DATA.IMG_SIZE", "32", "DATA.FUNC_TOKENS", "32",
+            "DATA.NODE_TOKENS", "8", "DATA.MAX_NODES", "16",
+            "MODEL.SWINV2.EMBED_DIM", "16", "MODEL.SWINV2.DEPTHS", "[1,1]",
+            "MODEL.SWINV2.NUM_HEADS", "[2,2]", "MODEL.SWINV2.WINDOW_SIZE",
+            "4", "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", "[0,0]",
+            "MODEL.MULTI.HIDDEN", "64", "MODEL.MULTI.NUM_RS_GCN", "1",
+            "MODEL.MULTI.NUM_HIDDEN_FC", "1", "TRAIN.EPOCHS", "1",
+            "PARALLEL.DTYPE", "float32"]
+    out = str(tmp_path / "run")
+    res = main(["--synthetic", "24", "--batch-size", "8", "--output", out,
+                "--device", "cpu", "--cache-only", "--opts", *opts])
+    assert res["cache_only"]
+    code = f"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "pandas",
+             "tokenizers", "matplotlib"):
+    sys.modules[name] = None
+from mvuld_tpu_torch.train.train_e2e import main
+res = main(["--batch-size", "8", "--output", {out!r}, "--device", "cpu",
+            "--opts", *{opts!r}])
+print(json.dumps(res["history"][0]["f1"]))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert os.path.exists(os.path.join(res["output"], "history.json"))

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from mvuld_tpu_torch.models.convert import jax_variables_to_torch
+from jax_reference import no_persistent_compile_cache  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

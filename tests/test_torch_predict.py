@@ -13,6 +13,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from jax_reference import no_persistent_compile_cache  # noqa: F401
 
 C1 = """int foo(int a) {
   int b = a + 1;

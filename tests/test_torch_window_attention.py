@@ -16,6 +16,7 @@ import torch
 from mvuld_tpu.ops.window_attention import pallas_window_attention_flat
 from mvuld_tpu_torch.ops.window_attention import (window_attention_flat,
                                                   window_attention_flat_plain)
+from jax_reference import no_persistent_compile_cache  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
