@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
      beside the bound computed from the shapes: the forward kernels K1,
      K3, K4 (K1 with its row sums, K4 with and without its keep-mask) at
      the shapes one bucket-16 forward gives them, the backward kernels K2,
-     K3b, K4b at the shapes one batch-16 training step gives them;
+     K3b, K4b at the shapes one batch-16 training step gives them; K1, K2,
+     K5 (also against K2), K3 and K3b at the shapes one batch-64 SwinV2
+     fine-tune step gives them (the plain attention versions over chunks
+     of windows there); and K6/K6b at blockbench's stage-3 shapes;
   3. serve 37 seeded requests at full width (SwinV2-Base-448 window 28,
      UniXcoder-base, the multi_defect_new_gcn head) through the kernels,
      counting each kernel's launches, then again through the plain layers,
@@ -27,7 +30,20 @@ Phases, in order; any failure exits non-zero:
      of the tensors whose exact gradient cancels), timed steps of both
      paths (ms/step, functions/s, peak memory) and a profile of one
      kernel-path step;
-  5. print the kernels JSON line, the card line, and the result line last.
+  5. the SwinV2 fine-tune (``train_swin``) alone at the published 448
+     config, batch 64 (an out-of-memory error fails the run):
+     ``--throughput`` through the kernels; a warm-up and
+     three AdamW steps with mixup soft targets through the kernels under
+     the v2 backward (K2) and then the v1 backward (K5), counting every
+     kernel's launches (K1 once per block: never rerun in the checkpointed
+     stage); the first step's gradients of both generations and of the
+     plain layers against the plain layers in fp32 at batch 16, and v1
+     against v2;
+     a profile of one step of each generation;
+  6. the block microbenchmark (``tools/blockbench.py``): its five variants
+     of the stage-3 MLP half, fwd_bwd at batch 64, one JSON line each, the
+     K6/K6b launches counted in v3's run;
+  7. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -74,11 +90,25 @@ K4_SHAPES = [("function", BATCH * 512, 768, 12),
              ("lines", NODE_CAPACITY * 64, 768, 12)]
 # A batch-16 training step runs the same shapes, and each backward kernel
 # once per forward launch: K2 as K1, K3b as K3, K4b as K4.
-KEEP = 0.9               # RoBERTa dropout 0.1: K4/K4b's keep probability
+SWIN_BATCH = 64     # the SwinV2 fine-tune's batch
+# its step runs K1, K2 or K5 and K3 (K3b) at 4× the bucket-16 windows or
+# rows, the same number of times per step
+SWIN_K1_SHAPES = [(s, Bn * SWIN_BATCH // BATCH, *rest)
+                  for s, Bn, *rest in K1_SHAPES]
+SWIN_K3_SHAPES = [(label, M * SWIN_BATCH // BATCH, C, n)
+                  for label, M, C, n in K3_SHAPES]
+SCORE_BYTES = 2 ** 32    # a plain attention version's fp32 scores per chunk
+KEEP = 0.9              # RoBERTa dropout 0.1: K4/K4b's keep probability
 TRAIN_STEPS = 3          # timed steps per path, after one warm-up step
 LOSS_TOL = 2e-2          # |Δ loss| of the first step, kernels vs plain
 GRAD_TOL = 0.1           # per-tensor relative L2 of the first step's grads
 GRAD_NOISE = 3.0         # … against fp32, or this × the plain bf16 path's
+
+# K6 / K6b at blockbench's default shape (batch 64 at stage 3: M = 64·784,
+# C = 512, Hd = 2048): (label, M, K, N, act, ln)
+DENSE_SHAPES = [("fc1_gelu", 64 * 784, 512, 2048, "gelu", False),
+                ("fc2_ln", 64 * 784, 2048, 512, "none", True)]
+VEC_TOL = 1e-3           # K6b's fp32 column sums, relative L2
 
 # the published 448 image config
 # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
@@ -98,6 +128,16 @@ MODEL_OPTS = ["MODEL.SWINV2.EMBED_DIM", 128, "MODEL.SWINV2.DEPTHS", [2, 2, 18, 2
               "TRAIN.FUSED_MLP", True]
 # the JAX e2e training defaults (bench.py): batch 16, remat on Swin stage 2
 # only, no text remat; one epoch of three steps, best snapshot params-only
+# the SwinV2 fine-tune alone (train_swin): the same published config with
+# its training settings, batch 64 as bench.py trains SwinV2 alone, bf16,
+# the fused MLP on and the 18-block stage checkpointed; mixup/cutmix on
+SWIN_OPTS = MODEL_OPTS[:16] + [
+    "MODEL.LABEL_SMOOTHING", 0.1, "PARALLEL.DTYPE", "bfloat16",
+    "TRAIN.FUSED_MLP", True, "TRAIN.USE_CHECKPOINT", True,
+    "TRAIN.REMAT_STAGES", [2], "TRAIN.WARMUP_EPOCHS", 5,
+    "TRAIN.WEIGHT_DECAY", 1e-8, "TRAIN.BASE_LR", 2e-5,
+    "TRAIN.WARMUP_LR", 2e-8, "TRAIN.MIN_LR", 2e-7, "SEED", 0]
+SWIN_BLOCKS = 24                # K1 launches per forward
 TRAIN_OPTS = ["DATA.BATCH_SIZE", BATCH, "TRAIN.USE_CHECKPOINT", True,
               "TRAIN.REMAT_STAGES", [2], "TRAIN.TEXT_REMAT", "off",
               "TRAIN.EPOCHS", 1, "TRAIN.BEST_SAVE", "params", "SAVE_FREQ", 0,
@@ -146,29 +186,52 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def check_attention(dev, gen, rows):
-    """K1 (output and row sums) and K2 at every stage's shapes."""
+def by_windows(fn, Bn, nW, H, N, n_summed=0):
+    """``fn(w)`` over slices ``w`` of whole images' windows (the shift mask
+    repeats per image), each slice's fp32 [windows, H, N, N] scores within
+    SCORE_BYTES: the plain attention versions hold several such tensors at
+    once, more than the card holds at the fine-tune's stage 1. The outputs
+    are joined along windows; the last ``n_summed`` (dbias and dscale, sums
+    over windows) are added."""
+    import torch
+
+    step = max(nW, SCORE_BYTES // (H * N * N * 4) // nW * nW)
+    parts = [fn(slice(i, i + step)) for i in range(0, Bn, step)]
+    k = len(parts[0]) - n_summed
+    return (tuple(torch.cat([p[j] for p in parts]) for j in range(k))
+            + tuple(sum(p[j] for p in parts) for j in range(k, len(parts[0]))))
+
+
+def check_attention(dev, gen, rows, shapes, path):
+    """K1 (output and row sums) and K2 at every stage's ``shapes``; on the
+    fine-tune's path (``path`` "swin") also K5, against its plain version
+    and against K2 on the same inputs. The plain versions run over chunks
+    of windows (``by_windows``); the kernels over all of them at once."""
     import torch
     import torch.nn.functional as F
 
     from mvuld_tpu_torch.ops.window_attention import (
         shift_and_scale, window_attention_flat, window_attention_flat_bwd,
-        window_attention_flat_bwd_plain, window_attention_flat_plain,
+        window_attention_flat_bwd_plain, window_attention_flat_bwd_v1,
+        window_attention_flat_bwd_v1_plain, window_attention_flat_plain,
         window_region_mask)
 
-    for stage, Bn, N, C, H, shift, nW1, per_fwd in K1_SHAPES:
-        hd = C // H
+    for stage, Bn, N, C, H, shift, nW1, per_fwd in shapes:
+        hd, nW = C // H, nW1 * nW1
         qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=gen
                           ).to(torch.bfloat16)
         bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev,
                                               generator=gen))
         ls = math.log(10.0) + 0.1 * torch.randn(H, device=dev, generator=gen)
         args = (qkv, bias, ls, shift, nW1, nW1)
+        chunks = lambda fn, n_summed=0: by_windows(  # noqa: E731
+            fn, Bn, nW, H, N, n_summed)
         got = window_attention_flat(*args)
-        want = window_attention_flat_plain(*args)
+        out, r = chunks(lambda w: window_attention_flat_plain(
+            qkv[w], *args[1:], return_rowsum=True))
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = bf16_tol(want.float())
+        err = float((got.float() - out.float()).abs().max())
+        tol = bf16_tol(out.float())
 
         # library yardstick: SDPA on pre-normalised q·scale, k, v with a
         # float mask of bias (+ the shift mask); timed only
@@ -178,7 +241,7 @@ def check_attention(dev, gen, rows):
         k = x[1] * torch.rsqrt((x[1] ** 2).sum(-1, keepdim=True) + 1e-12)
         q = (q * scale[:, None, None]).to(torch.bfloat16)
         k, v = k.to(torch.bfloat16), x[2].to(torch.bfloat16)
-        nW = nW1 * nW1
+        del x
         mask = bias[None, None]
         if shift:
             mask = mask + torch.as_tensor(window_region_mask(
@@ -187,7 +250,8 @@ def check_attention(dev, gen, rows):
         shp = (Bn // nW, nW, H, N, hd)
         qs, ks, vs = (t.reshape(shp) for t in (q, k, v))
         ms = time_ms(lambda: window_attention_flat(*args), 5)
-        plain_ms = time_ms(lambda: window_attention_flat_plain(*args), 3)
+        plain_ms = time_ms(lambda: chunks(lambda w: (
+            window_attention_flat_plain(qkv[w], *args[1:]),)), 3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=1.0), 5)
         nbytes = Bn * N * 3 * C * 2 + H * N * N * 4 + Bn * N * C * 2
@@ -196,12 +260,11 @@ def check_attention(dev, gen, rows):
                     Bn * H * N * N / SFU_EXP_S)
         shape = f"stage{stage} Bn={Bn} N={N} C={C} H={H} shift={shift}"
         rows.append(dict(kernel="window_attention_flat", shape=shape,
-                         per_fwd=per_fwd, err=err, tol=tol, ms=ms,
+                         path=path, per_fwd=per_fwd, err=err, tol=tol, ms=ms,
                          plain_ms=plain_ms, lib_ms=lib_ms,
                          t_bytes=t_bytes * 1e3, t_ops=t_ops * 1e3))
 
         # K1's row sums: fp32 sums of the same terms in another order
-        out, r = window_attention_flat_plain(*args, return_rowsum=True)
         r_err = rel_err(window_attention_flat(*args, return_rowsum=True)[1],
                         r)
         print(f"K1 row sums {shape}: max rel err {r_err:.3e} (tol 1e-4)",
@@ -216,8 +279,11 @@ def check_attention(dev, gen, rows):
         g = torch.randn(out.shape, device=dev, generator=gen
                         ).to(torch.bfloat16)
         bargs = (qkv, bias, ls, out, r, g, shift, nW1, nW1)
+        k2_plain = lambda: chunks(  # noqa: E731
+            lambda w: window_attention_flat_bwd_plain(
+                qkv[w], bias, ls, out[w], r[w], g[w], shift, nW1, nW1), 2)
         got = window_attention_flat_bwd(*bargs)
-        want = window_attention_flat_bwd_plain(*bargs)
+        want = k2_plain()
         torch.cuda.synchronize()
         errs = [float((a.float() - b.float()).abs().max())
                 for a, b in zip(got, want)]
@@ -225,7 +291,8 @@ def check_attention(dev, gen, rows):
                 1e-4 * float(want[1].abs().max()),
                 1e-3 * float(want[2].abs().max())]
         ms = time_ms(lambda: window_attention_flat_bwd(*bargs), 3)
-        plain_ms = time_ms(lambda: window_attention_flat_bwd_plain(*bargs), 2)
+        plain_ms = time_ms(k2_plain, 2)
+        del want
         # library yardstick: SDPA's backward with the float mask as a
         # tensor that requires grad (dbias), when a backend runs it
         leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
@@ -236,17 +303,18 @@ def check_attention(dev, gen, rows):
                                                 scale=1.0)
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 lo, leaves + [mask_g], gs, retain_graph=True), 3)
+            del lo
         except RuntimeError as e:
             print(f"K2 {shape}: SDPA backward with a mask gradient does not "
                   f"run here ({str(e)[:120]})", flush=True)
             lib_ms = None
-        del leaves, mask_g
+        del leaves, mask_g, gs, qs, ks, vs, q, k, v
         nbytes = (2 * Bn * N * 3 * C * 2 + 2 * Bn * N * C * 2
                   + Bn * H * N * 4 + 2 * H * N * N * 4)
         t_ops = max(10 * Bn * H * N * N * hd / FP32_FLOP_S,
                     Bn * H * N * N / SFU_EXP_S)
         rows.append(dict(kernel="window_attention_flat_bwd", shape=shape,
-                         per_fwd=per_fwd, err=max(errs),
+                         path=path, per_fwd=per_fwd, err=max(errs),
                          tol=tols[errs.index(max(errs))],
                          ok=all(e <= t for e, t in zip(errs, tols)),
                          detail=f"dqkv {errs[0]:.2e}/{tols[0]:.2e} dbias "
@@ -255,9 +323,58 @@ def check_attention(dev, gen, rows):
                          ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=t_ops * 1e3))
-        del got, want, out, r
+        if path != "swin":
+            del got, out, r
+            continue
 
-    # fp32 qkv: the same kernel without the bf16 output rounding
+        # K5, the v1 backward, from the forward's inputs alone: against
+        # its plain version with K2's tolerances, and against K2 on the
+        # same inputs (the same function; K2's row term comes from the
+        # bf16 output, so relative L2 within 1e-2). Its library yardstick
+        # is K2's (the same SDPA backward); its bound K2's operations, and
+        # bytes without o and r
+        k2 = got
+        vargs = (qkv, bias, ls, g, shift, nW1, nW1)
+        k5_plain = lambda: chunks(  # noqa: E731
+            lambda w: window_attention_flat_bwd_v1_plain(
+                qkv[w], bias, ls, g[w], shift, nW1, nW1), 2)
+        got = window_attention_flat_bwd_v1(*vargs)
+        want = k5_plain()
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        tols = [bf16_tol(want[0].float()),
+                1e-4 * float(want[1].abs().max()),
+                1e-3 * float(want[2].abs().max())]
+        vs_k2 = [rel_l2(a, b) for a, b in zip(got, k2)]
+        del want, k2
+        ms = time_ms(lambda: window_attention_flat_bwd_v1(*vargs), 3)
+        plain_ms = time_ms(k5_plain, 2)
+        nbytes = (Bn * N * 3 * C * 2 + Bn * N * C * 2 + Bn * N * 3 * C * 2
+                  + 2 * H * N * N * 4)
+        rows.append(dict(kernel="window_attention_flat_bwd_v1", shape=shape,
+                         path=path, per_fwd=per_fwd, err=max(errs),
+                         tol=tols[errs.index(max(errs))],
+                         ok=(all(e <= t for e, t in zip(errs, tols))
+                             and max(vs_k2) <= 1e-2),
+                         detail=f"dqkv {errs[0]:.2e}/{tols[0]:.2e} dbias "
+                                f"{errs[1]:.2e}/{tols[1]:.2e} dscale "
+                                f"{errs[2]:.2e}/{tols[2]:.2e}; against K2 "
+                                f"rel L2 {vs_k2[0]:.2e} {vs_k2[1]:.2e} "
+                                f"{vs_k2[2]:.2e} (tol 1e-2)",
+                         ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_ops=t_ops * 1e3))
+        del got, out, r
+
+
+def check_attention_fp32(dev, gen):
+    """K1 on fp32 qkv: the same kernel without the bf16 output rounding."""
+    import torch
+
+    from mvuld_tpu_torch.ops.window_attention import (
+        window_attention_flat, window_attention_flat_plain)
+
     qkv = torch.randn(64, 784, 768, device=dev, generator=gen)
     bias = 16 * torch.sigmoid(torch.randn(8, 784, 784, device=dev,
                                           generator=gen))
@@ -272,7 +389,7 @@ def check_attention(dev, gen, rows):
                              f"{err32}")
 
 
-def check_mlp(dev, gen, rows, name, shapes):
+def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
@@ -298,7 +415,8 @@ def check_mlp(dev, gen, rows, name, shapes):
             *args, residual=residual, eps=eps), 5)
         nbytes = 2 * M * C * 2 + 2 * C * Hd * 2 + (Hd + 3 * C) * 4
         rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}",
-                         per_fwd=per_fwd, err=err, tol=bf16_tol(want.float()),
+                         path=path, per_fwd=per_fwd, err=err,
+                         tol=bf16_tol(want.float()),
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=4 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
@@ -318,7 +436,7 @@ def check_mlp(dev, gen, rows, name, shapes):
             rows[-1]["err"] = max(err, err_m)
 
 
-def check_mlp_bwd(dev, gen, rows, name, shapes):
+def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e"):
     """K3b / K4b (K4b with a keep-mask at 0.9) against the plain version:
     each of the 7 gradients within relative L2 1e-2 — both round dz and dh
     to bf16 before the products, so a value near a rounding boundary may
@@ -358,7 +476,7 @@ def check_mlp_bwd(dev, gen, rows, name, shapes):
         nbytes = ((3 + residual) * M * C * 2 + 2 * C * Hd * 2
                   + 2 * C * Hd * 4 + (Hd + 3 * C) * 4)
         rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}",
-                         per_fwd=per_step, err=err, tol=None,
+                         path=path, per_fwd=per_step, err=err, tol=None,
                          ok=max(l2) <= 1e-2,
                          detail="rel L2 " + " ".join(
                              f"{n} {e:.1e}" for n, e in zip(
@@ -367,6 +485,62 @@ def check_mlp_bwd(dev, gen, rows, name, shapes):
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=12 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
+
+
+def check_dense(dev, gen, rows):
+    """K6 and K6b against their plain versions at blockbench's stage-3
+    shapes: the bf16 outputs (y, dz) within two bf16 ulps of their largest
+    value, K6b's fp32 column sums (db, dγ, dβ) within relative L2 VEC_TOL
+    (sums over 50176 rows in another order). Yardstick: ``torch.addmm`` on
+    the product alone (the epilogue not included)."""
+    import torch
+
+    from mvuld_tpu_torch.ops import fused_dense as fd
+
+    for label, M, K, N, act, ln in DENSE_SHAPES:
+        r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
+                                                generator=gen)
+        x, w, b = r(M, K).to(torch.bfloat16), r(K, N, sc=K ** -0.5), r(N, sc=0.02)
+        gamma, beta = 1 + r(N, sc=0.1), r(N, sc=0.1)
+        dy = r(M, N).to(torch.bfloat16)
+        fargs = (x, w, b, gamma, beta, act, ln)
+        bargs = (x, w, b, gamma, dy, act, ln)
+        got, want = fd.dense_fwd(*fargs), fd.dense_fwd_plain(*fargs)
+        dz, vecs = fd.dense_bwd(*bargs)
+        dz_p, vecs_p = fd.dense_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib_ms = time_ms(lambda: torch.addmm(bb, x, wb), 10)
+        shape = f"{label} M={M} K={K} N={N}"
+        t_ops = 2 * M * K * N / BF16_TC_FLOP_S * 1e3
+        err = float((got.float() - want.float()).abs().max())
+        rows.append(dict(kernel="dense_fwd", shape=shape, path="blockbench",
+                         per_fwd=1, err=err,
+                         tol=bf16_tol(want.float()),
+                         ms=time_ms(lambda: fd.dense_fwd(*fargs), 10),
+                         plain_ms=time_ms(lambda: fd.dense_fwd_plain(*fargs),
+                                          5),
+                         lib_ms=lib_ms,
+                         t_bytes=(M * K + K * N + M * N) * 2 / HBM_BYTES_S * 1e3,
+                         t_ops=t_ops))
+        err = float((dz.float() - dz_p.float()).abs().max())
+        tol = bf16_tol(dz_p.float())
+        v_err = [rel_l2(a, b) for a, b in zip(vecs, vecs_p)]
+        names = ("db", "dγ", "dβ")
+        rows.append(dict(kernel="dense_bwd", shape=shape, path="blockbench",
+                         per_fwd=1, err=err,
+                         tol=tol, ok=err <= tol and max(v_err) <= VEC_TOL,
+                         detail=f"dz {err:.2e}/{tol:.2e}; rel L2 " + " ".join(
+                             f"{n} {e:.1e}" for n, e in zip(names, v_err))
+                         + f" (tol {VEC_TOL})",
+                         ms=time_ms(lambda: fd.dense_bwd(*bargs), 10),
+                         plain_ms=time_ms(lambda: fd.dense_bwd_plain(*bargs),
+                                          5),
+                         lib_ms=lib_ms,
+                         t_bytes=((M * K + K * N + 2 * M * N) * 2
+                                  + len(vecs) * N * 4) / HBM_BYTES_S * 1e3,
+                         t_ops=t_ops))
+        del x, dy, got, want, dz, dz_p
 
 
 def requests(cfg, n: int, seed: int = 0):
@@ -532,10 +706,9 @@ def train_phase(dev, counters):
 
     work = tempfile.mkdtemp(prefix="mvuld_train_")
     try:
-        opts = [json.dumps(o) if isinstance(o, list) else str(o)
-                for o in MODEL_OPTS + TRAIN_OPTS]     # as a shell passes them
         args = ["--output", work, "--device", dev.type, "--node-capacity",
-                str(NODE_CAPACITY), "--opts", *opts]
+                str(NODE_CAPACITY), "--opts",
+                *_opts_args(MODEL_OPTS + TRAIN_OPTS)]
         cfg = get_config(SimpleNamespace(cfg=None, opts=MODEL_OPTS + TRAIN_OPTS,
                                          output=work))
         write_cache(cfg.OUTPUT, cfg, 3 * BATCH, BATCH)
@@ -685,11 +858,230 @@ def train_phase(dev, counters):
     return launches
 
 
+def _opts_args(opts):
+    """Config opts as a shell passes them."""
+    return [json.dumps(o) if isinstance(o, list) else str(o) for o in opts]
+
+
+def _counts(counters):
+    return {c.__name__: c.launches for c in counters}
+
+
+def _reset(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def swin_phase(dev, counters):
+    """The SwinV2 fine-tune alone (``train_swin``), at full width:
+    (a) ``--throughput`` through the CLI; (b) per backward generation a
+    warm-up and TRAIN_STEPS timed AdamW steps with mixup soft targets at
+    SWIN_BATCH, launches counted; (c) the first step's gradients of v2, v1
+    and the plain layers (bf16) against the plain layers in fp32 at BATCH,
+    where the plain layers fit; (d) a profile of one step of each
+    generation. Returns the launches of the counted runs."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.train_state import cross_entropy, image_inputs
+    from mvuld_tpu_torch.ops import window_attention as wa
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+    from mvuld_tpu_torch.train.train_swin import main as swin_main
+
+    def config(batch, extra=()):
+        return get_config(SimpleNamespace(
+            cfg=None, opts=SWIN_OPTS + ["DATA.BATCH_SIZE", batch, *extra],
+            output=tempfile.gettempdir()))
+
+    def host_batch(n, seed):
+        rng = np.random.RandomState(seed)
+        S = config(n).DATA.IMG_SIZE
+        return {"image": rng.randn(n, S, S, 3).astype(np.float32),
+                "label": (np.arange(n) % 2).astype(np.int32)}
+
+    total = dict.fromkeys(_counts(counters), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) the throughput mode through the CLI
+    B = SWIN_BATCH
+    work = tempfile.mkdtemp(prefix="mvuld_swin_")
+    try:
+        _reset(counters)
+        res = swin_main(["--throughput", "--output", work, "--device",
+                         dev.type, "--opts",
+                         *_opts_args(SWIN_OPTS + ["DATA.BATCH_SIZE", B])])
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    add(counts)
+    print(f"swin throughput: {res['throughput']:.2f} images/s (batch {B}, 50 "
+          f"warm-up + 30 timed forwards; launches "
+          f"{ {k: v for k, v in counts.items() if v} }) [{card_line()}]",
+          flush=True)
+    if counts["window_attention_flat"] != 80 * SWIN_BLOCKS:
+        raise AssertionError(f"throughput launches: {counts}")
+    torch.cuda.empty_cache()
+
+    # (b) timed fine-tune steps, v2 then v1
+    def steps(gen_name, n=SWIN_BATCH):
+        os.environ["MVULD_ATTN_BWD"] = gen_name
+        run = build_swin_training(config(n), dev, steps_per_epoch=3)
+        raw = host_batch(n, 3)
+        batches = [to_device(run.batch_hook(raw, 0, i), dev)
+                   for i in range(1 + TRAIN_STEPS)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        metrics, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            metrics.append(run.step(b, gen))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = _counts(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+        return run, batches, gen, counts, times, peak, vals
+
+    n = SWIN_BATCH
+    for gen_name, bwd in (("v2", "window_attention_flat_bwd"),
+                          ("v1", "window_attention_flat_bwd_v1")):
+        run, batches, gen, counts, times, peak, vals = steps(gen_name)
+        add(counts)
+        ms = statistics.median(times[1:]) * 1e3
+        print(f"swin train {gen_name} (MVULD_ATTN_BWD={gen_name}): batch {n}, "
+              f"{TRAIN_STEPS} steps after a warm-up, median {ms:.1f} ms/step "
+              f"= {n / ms * 1e3:.2f} images/s (steps "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms; warm-up "
+              f"{times[0] * 1e3:.1f} ms), peak memory {peak:.2f} GiB, "
+              f"loss/grad_norm {[(round(a, 4), round(g, 3)) for a, g in vals]}"
+              f", launches { {k: v for k, v in counts.items() if v} } "
+              f"[{card_line()}]", flush=True)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"swin {gen_name}: non-finite {vals}")
+        other = ("window_attention_flat_bwd_v1" if gen_name == "v2"
+                 else "window_attention_flat_bwd")
+        n_steps = 1 + TRAIN_STEPS
+        if (counts["window_attention_flat"] != SWIN_BLOCKS * n_steps
+                or counts[bwd] != SWIN_BLOCKS * n_steps or counts[other]
+                or not counts["mlp_ln"] or not counts["mlp_ln_bwd"]):
+            raise AssertionError(f"swin {gen_name} launches: {counts} (want "
+                                 f"K1 and {bwd} {SWIN_BLOCKS} per step: K1 "
+                                 f"never rerun in the checkpointed stage)")
+        profile_run(f"swin {gen_name} train step (batch {n})",
+                    lambda: run.step(batches[-1], gen))
+        del run, batches
+        torch.cuda.empty_cache()
+    os.environ["MVULD_ATTN_BWD"] = "v2"
+
+    # (c) first-step gradients against the plain layers in fp32
+    def first_step(model, n, smoothing, hook):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        b = to_device(hook(host_batch(n, 4), 0, 0), dev)
+        logits = model(**image_inputs(b), train=True, gen=gen)
+        loss = cross_entropy(logits, b["label"], smoothing, b["soft_label"])
+        return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
+
+    def grads_at(kind, n):
+        extra = ["PARALLEL.DTYPE", "float32"] if kind == "fp32" else []
+        c = config(n, extra)
+        run = build_swin_training(c, dev, kernels=kind.startswith("kernels"))
+        if kind.startswith("kernels"):
+            os.environ["MVULD_ATTN_BWD"] = kind[-2:]
+        try:
+            return first_step(run.model, n, run.label_smoothing,
+                              run.batch_hook), run.model
+        finally:
+            os.environ["MVULD_ATTN_BWD"] = "v2"
+
+    n = BATCH
+    (lr_, gr), ref = grads_at("fp32", n)
+    (lp, gp), plain = grads_at("plain", n)
+    del ref, plain
+    torch.cuda.empty_cache()
+    (l2, g2), _ = grads_at("kernels_v2", n)
+    (l1, g1), fast = grads_at("kernels_v1", n)
+    names = [k for k, _ in fast.named_parameters()]
+    del fast
+    report = {}
+    for label, gk, lk in (("v2", g2, l2), ("v1", g1, l1)):
+        rows = sorted(((rel_l2(a, r) / max(GRAD_TOL, GRAD_NOISE * rel_l2(b, r)),
+                        rel_l2(a, r), rel_l2(b, r), name)
+                       for a, b, r, name in zip(gk, gp, gr, names)),
+                      reverse=True)
+        report[label] = rows
+        med = lambda i: statistics.median(x[i] for x in rows)  # noqa: E731
+        print(f"swin compare {label} (batch {n}): first-step loss kernels "
+              f"{lk:.5f} plain {lp:.5f} fp32 {lr_:.5f}; gradient rel L2 over "
+              f"{len(rows)} tensors against fp32: kernels median "
+              f"{med(1):.3e}, plain median {med(2):.3e}; bound per tensor "
+              f"max({GRAD_TOL}, {GRAD_NOISE} × plain's); largest share of "
+              f"its bound {rows[0][0]:.3f} ({rows[0][3]})", flush=True)
+        for share, ek, ep, name in rows[:4]:
+            print(f"swin compare {label}:   {name}: kernels {ek:.3e} plain "
+                  f"{ep:.3e} against fp32", flush=True)
+        scales = [x for x in rows if x[3].endswith("logit_scale")]
+        print(f"swin compare {label}: logit scales against fp32: kernels "
+              f"median {statistics.median(x[1] for x in scales):.3e}, plain "
+              f"median {statistics.median(x[2] for x in scales):.3e}",
+              flush=True)
+        if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_TOL):
+            raise AssertionError(f"swin {label}: first-step losses {lk} {lp}")
+        if not rows[0][0] <= 1.0:
+            raise AssertionError(f"swin {label}: gradients {rows[:3]}")
+    v12 = sorted((rel_l2(a, b), name) for a, b, name in zip(g1, g2, names))
+    print(f"swin compare v1 against v2: rel L2 median "
+          f"{statistics.median(x[0] for x in v12):.3e}, max {v12[-1][0]:.3e} "
+          f"({v12[-1][1]})", flush=True)
+    if not all(math.isfinite(x[0]) for x in v12):
+        raise AssertionError("swin v1 against v2: non-finite gradients")
+    del g1, g2, gp, gr
+    torch.cuda.empty_cache()
+    return total
+
+
+def blockbench_phase(dev, counters):
+    """The five blockbench variants, fwd_bwd at the default shape (batch
+    64, C 512); K6/K6b (and K3/K3b in v4) counted in their variant's run."""
+    import torch
+
+    from mvuld_tpu_torch.tools.blockbench import VARIANTS, run_variant
+
+    total = dict.fromkeys(_counts(counters), 0)
+    want = {"v3": ("dense_fwd", "dense_bwd"), "v4": ("mlp_ln", "mlp_ln_bwd")}
+    for v in VARIANTS:
+        _reset(counters)
+        row = run_variant(v, 64 * 784, 24, "fwd_bwd", device=dev)
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        for k, n in counts.items():
+            total[k] += n
+        launched = {k for k, n in counts.items() if n}
+        if launched != set(want.get(v, ())):
+            raise AssertionError(f"blockbench {v} launched {counts}")
+        print(json.dumps({"blockbench": row, "card": card_line()}),
+              flush=True)
+    return total
+
+
 def _category(name: str) -> str:
     if "flat_fwd" in name:
         return "K1 window_attention_flat"
+    if "bwd_rowstats" in name:
+        return "K5 window_attention_flat_bwd_v1 (row pass)"
     if "bwd_dq" in name or "bwd_dkv" in name or "bwd_dbias" in name:
         return "K2 window_attention_flat_bwd"
+    if "dense_fwd" in name:
+        return "K6 dense_fwd"
+    if "dense_bwd_rows" in name:
+        return "K6b dense_bwd"
     if "mlp_ln_kernel" in name:
         return "K3/K4 mlp_ln"
     if "bwd_rows" in name or "atb" in name or "sum_partials" in name:
@@ -752,23 +1144,41 @@ KERNELS = {
                    "mvuld_tpu/ops/fused_dense.py:613"),
     "mlp_ln_res_bwd": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
                        "mvuld_tpu/ops/fused_dense.py:646"),
+    "window_attention_flat_bwd_v1": (
+        "mvuld_tpu_torch/csrc/window_attention_flat.cu",
+        "mvuld_tpu/ops/window_attention.py:1042"),
+    "dense_fwd": ("mvuld_tpu_torch/csrc/fused_dense.cu",
+                  "mvuld_tpu/ops/fused_dense.py:74"),
+    "dense_bwd": ("mvuld_tpu_torch/csrc/fused_dense.cu",
+                  "mvuld_tpu/ops/fused_dense.py:165"),
 }
 
 
+# the path whose rows give a kernel's times in the kernels line: its first
+# main path (K1-K4b the e2e model's, whose rows earlier slices reported)
+SUMMARY_PATH = {"window_attention_flat_bwd_v1": "swin",
+                "dense_fwd": "blockbench", "dense_bwd": "blockbench"}
+
+
 def summarise(rows, launches):
-    """One entry per kernel. Times: Σ over its shapes of (launches per
-    bucket-16 forward, or per batch-16 training step for the backward
-    kernels) × ms per launch. ``launches``: both counted runs' launches."""
+    """One entry per kernel. Times: Σ over the shapes of its summary path
+    of (launches per bucket-16 forward, per batch-16 training step for the
+    attention and MLP backward kernels, per batch-64 fine-tune step for K5,
+    or per blockbench iteration for K6/K6b) × ms per launch; its largest
+    error over every path. ``launches``: every counted main-path run's
+    launches."""
     out = []
     for name, (source, replaces) in KERNELS.items():
-        mine = [r for r in rows if r["kernel"] == name]
+        every = [r for r in rows if r["kernel"] == name]
+        mine = [r for r in every
+                if r["path"] == SUMMARY_PATH.get(name, "e2e")]
         tot = lambda key: sum(r["per_fwd"] * r[key] for r in mine)  # noqa: E731
         t_bytes, t_ops = tot("t_bytes"), tot("t_ops")
         lib = (None if any(r["lib_ms"] is None for r in mine)
                else tot("lib_ms"))
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": max(r["err"] for r in mine),
+                    "max_abs_err": max(r["err"] for r in every),
                     "ms": tot("ms"), "plain_ms": tot("plain_ms"),
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -799,7 +1209,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.time()
-    _build.build_all(["window_attention_flat", "mlp_ln"])
+    _build.build_all(["window_attention_flat", "mlp_ln", "fused_dense"])
     print(f"build: {time.time() - t0:.1f}s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -808,12 +1218,21 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    check_attention(dev, gen, rows)
+    check_attention(dev, gen, rows, K1_SHAPES, "e2e")
+    check_attention(dev, gen, rows, SWIN_K1_SHAPES, "swin")
+    check_attention_fp32(dev, gen)
     check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES)
+    check_mlp(dev, gen, rows, "mlp_ln", SWIN_K3_SHAPES, "swin")
     check_mlp(dev, gen, rows, "mlp_ln_res", K4_SHAPES)
     check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", K3_SHAPES)
+    check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", SWIN_K3_SHAPES, "swin")
     check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", K4_SHAPES)
+    check_dense(dev, gen, rows)
     bad = []
+    per = lambda r: {"blockbench": "blockbench iteration",  # noqa: E731
+                     "swin": f"batch-{SWIN_BATCH} fine-tune step"}.get(
+        r["path"], "batch-16 step" if "bwd" in r["kernel"]
+        else "bucket-16 forward")
     for r in rows:
         lib = "n/a" if r["lib_ms"] is None else f"{r['lib_ms']:.3f}"
         check = (r["detail"] if "detail" in r
@@ -822,7 +1241,7 @@ def main() -> int:
               f"plain_ms={r['plain_ms']:.3f} library_ms={lib} "
               f"bound_ms={max(r['t_bytes'], r['t_ops']):.4f} "
               f"(bytes {r['t_bytes']:.4f}, operations {r['t_ops']:.4f}) "
-              f"×{r['per_fwd']}/{'step' if 'bwd' in r['kernel'] else 'forward'}",
+              f"×{r['per_fwd']}/{per(r)}",
               flush=True)
         if not r.get("ok", r["err"] <= (r["tol"] or 0.0)):
             bad.append(f"{r['kernel']} {r['shape']}")
@@ -833,10 +1252,19 @@ def main() -> int:
     from mvuld_tpu_torch.ops import fused_dense as fd
     from mvuld_tpu_torch.ops import window_attention as wa
     counters = [wa.window_attention_flat, wa.window_attention_flat_bwd,
-                fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd]
-    launches = serve_phase(dev)
-    for name, n in train_phase(dev, counters).items():
-        launches[name] = launches.get(name, 0) + n
+                wa.window_attention_flat_bwd_v1, fd.mlp_ln, fd.mlp_ln_bwd,
+                fd.mlp_ln_res, fd.mlp_ln_res_bwd, fd.dense_fwd, fd.dense_bwd]
+    launches = dict.fromkeys(KERNELS, 0)
+    e2e = [c for c in counters if c not in (wa.window_attention_flat_bwd_v1,
+                                            fd.dense_fwd, fd.dense_bwd)]
+    for phase in (lambda: serve_phase(dev), lambda: train_phase(dev, e2e),
+                  lambda: swin_phase(dev, counters),
+                  lambda: blockbench_phase(dev, counters)):
+        for name, n in phase().items():
+            launches[name] += n
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
     print(json.dumps({"kernels": summarise(rows, launches)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

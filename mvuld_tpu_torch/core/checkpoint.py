@@ -6,6 +6,8 @@ names: epoch checkpoints ``checkpoints/ckpt_epoch_{n}`` and best-F1
 checkpoints ``checkpoint-best-f1/best_f1_epoch_{n}``, each holding the
 model's state dict ("params", parameters and BatchNorm statistics), the
 optimizer state ("opt_state", or None), "step", "epoch" and "best_f1".
+A port checkpoint is one file; the JAX package's are orbax directories
+under the same names, which the helpers below pass over.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def _newest(dirpath: str, prefix: str) -> Optional[str]:
         return None
     cands = [os.path.join(dirpath, d) for d in os.listdir(dirpath)
              if d.startswith(prefix) and not d.endswith(".tmp")]
+    cands = [c for c in cands if os.path.isfile(c)]
     return max(cands, key=os.path.getmtime) if cands else None
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``mvuld_tpu/core/train_state.py`` (reference
 mvuld/main.py:251-426): one step is forward (``train=True``: dropout and
 DropPath masks from the step's generator, BatchNorm statistics from the
-batch and updated in place), cross-entropy with label smoothing, backward,
+batch and updated in place), cross-entropy with label smoothing or mixup's
+soft targets, backward,
 clip and the optimizer update. No loss scaling: bf16 activations with fp32
 parameters, as in the JAX package. The JAX package's K-steps-per-dispatch
 ``make_multi_train_step`` amortises TPU dispatch and has no counterpart
@@ -13,7 +14,7 @@ here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,21 +23,35 @@ from torch import nn
 from mvuld_tpu_torch.core.optim import Optimizer, global_norm
 
 
+Inputs = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
+
+
 def model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The model's keyword inputs from a device batch (token ids as int64,
-    the edge bitmask as a boolean adjacency)."""
+    """The tri-modal model's keyword inputs from a device batch (token ids
+    as int64, the edge bitmask as a boolean adjacency)."""
     return {"func_ids": batch["func_ids"].long(),
             "node_ids": batch["node_ids"].long(), "image": batch["image"],
             "pos": batch["pos"], "adj": batch["adj"] > 0,
             "node_mask": batch["node_mask"]}
 
 
+def image_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The image model's input (``SwinTransformerV2``) from a device batch."""
+    return {"x": batch["image"]}
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  label_smoothing: float = 0.0) -> torch.Tensor:
-    """Mean CE over fp32 log-softmax; smoothing mixes in the uniform
+                  label_smoothing: float = 0.0,
+                  soft_targets: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Mean CE over fp32 log-softmax; ``soft_targets`` (mixup's) take the
+    place of the integer labels, and smoothing mixes in the uniform
     distribution."""
     num_classes = logits.shape[-1]
-    targets = F.one_hot(labels.long(), num_classes).float()
+    if soft_targets is not None:
+        targets = soft_targets.float()
+    else:
+        targets = F.one_hot(labels.long(), num_classes).float()
     if label_smoothing > 0:
         targets = targets * (1 - label_smoothing) + label_smoothing / num_classes
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -44,13 +59,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
-               gen: Optional[torch.Generator], label_smoothing: float = 0.1
-               ) -> Dict[str, torch.Tensor]:
-    """One optimizer step on ``batch`` (device tensors: the model inputs and
-    "label"). Returns the metrics loss, grad_norm (before clipping) and acc
+               gen: Optional[torch.Generator], label_smoothing: float = 0.1,
+               inputs: Inputs = model_inputs) -> Dict[str, torch.Tensor]:
+    """One optimizer step on ``batch`` (device tensors: what ``inputs``
+    turns into the model's inputs, "label", and mixup's "soft_label" when
+    present). Returns the metrics loss, grad_norm (before clipping) and acc
     as device scalars, so the caller decides when to synchronise."""
-    logits = model(**model_inputs(batch), train=True, gen=gen)
-    loss = cross_entropy(logits, batch["label"], label_smoothing)
+    logits = model(**inputs(batch), train=True, gen=gen)
+    loss = cross_entropy(logits, batch["label"], label_smoothing,
+                         batch.get("soft_label"))
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.params, grads)]
@@ -61,10 +78,10 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]
-              ) -> torch.Tensor:
+def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor],
+              inputs: Inputs = model_inputs) -> torch.Tensor:
     """Inference logits (BatchNorm on its running statistics)."""
-    return model(**model_inputs(batch), train=False)
+    return model(**inputs(batch), train=False)
 
 
 @dataclasses.dataclass

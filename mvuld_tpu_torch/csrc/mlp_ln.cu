@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -48,12 +50,6 @@ size_t smem_bytes(int C) {
   // x tile bf16 + z accumulator fp32 + h chunk fp32 + h chunk bf16
   return (size_t)TM * C * 2 + (size_t)TM * C * 4 + (size_t)TM * HC * 4 +
          (size_t)TM * HC * 2;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <bool RES>
@@ -219,15 +215,6 @@ size_t bwd_smem_bytes(int C, int Hd) {
   // [BM][HC]); hs, dhs (bf16 [BM][HC]); col (fp32 Hd + 3C); rstd (fp32 BM)
   return (size_t)BM * C * (2 + 2 + 4 + 4) + (size_t)BM * HC * (4 + 4 + 2 + 2) +
          ((size_t)Hd + 3 * C + BM) * 4;
-}
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_grad(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * 0.39894228040143268f * expf(-0.5f * v * v);
 }
 
 template <bool RES>
@@ -433,16 +420,6 @@ int launch_bwd_rows(const BwdArgs& a, int G, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_rows<RES><<<G, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// out[l] = sum over s of part[s][l], s in order
-__global__ void sum_partials(const float* __restrict__ part,
-                             float* __restrict__ out, int S, size_t L) {
-  const size_t l = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  float t = 0.f;
-  for (int s = 0; s < S; ++s) t += part[(size_t)s * L + l];
-  out[l] = t;
 }
 
 // out[S][P][Q] = A[rows of group s]^T . B[rows of group s]; A [M, P] and

@@ -1,5 +1,5 @@
-// K1: SwinV2 flat-layout cosine window attention, forward, and K2, its
-// backward (the v2 backward of the training path).
+// K1: SwinV2 flat-layout cosine window attention, forward; K2, its v2
+// backward (the training path's default), and K5, its v1 backward.
 //
 // Replaces the Pallas TPU kernel `pallas_window_attention_flat`
 // (mvuld_tpu/ops/window_attention.py, body `_flat_fwd_kernel_factory`).
@@ -35,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -210,19 +212,17 @@ struct Geo {
   int N, C, ws, shift, nWh, nWw, H;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Query-side tile of window b, head h, rows i0..i0+63 (zero past N):
-// Qs = q^ (normalised), Gs = g, lr = log r - m, tt = rowsum(g*o), qn.
+// Qs = q^ (normalised), Gs = g, qn, lr = log r - m and tt, the row term
+// that ds subtracts from dp. K2 takes tt = rowsum(g*o) from the forward's
+// output o; K5 passes tsum (t' = r * sum dp*e from `bwd_rowstats`) and no
+// o. Without rsum (K5's first pass) lr = -m, so p_ds_tile's p is e itself,
+// and without o or tsum tt = 0, so its ds is e*dp.
 template <typename T>
 __device__ void stage_query(const T* qkv, const T* o, const T* g,
-                            const float* rsum, float mh, const Geo& G, int b,
-                            int h, int i0, float* Qs, float* Gs, float* lr,
-                            float* tt, float* qn) {
+                            const float* rsum, const float* tsum, float mh,
+                            const Geo& G, int b, int h, int i0, float* Qs,
+                            float* Gs, float* lr, float* tt, float* qn) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t C3 = 3 * (size_t)G.C;
   for (int r = warp; r < BT; r += THREADS / 32) {
@@ -232,16 +232,17 @@ __device__ void stage_query(const T* qkv, const T* o, const T* g,
       const size_t row = (size_t)b * G.N + i;
       q = to_f(qkv[row * C3 + h * 32 + lane]);
       gv = to_f(g[row * G.C + h * 32 + lane]);
-      ov = to_f(o[row * G.C + h * 32 + lane]);
+      if (o != nullptr) ov = to_f(o[row * G.C + h * 32 + lane]);
     }
     const float n = rsqrtf(warp_sum(q * q) + 1e-12f);
     const float go = warp_sum(gv * ov);
     Qs[r * LD + lane] = q * n;
     Gs[r * LD + lane] = gv;
     if (lane == 0) {
+      const size_t stat = ((size_t)b * G.H + h) * G.N + i;
       qn[r] = n;
-      tt[r] = go;
-      lr[r] = i < G.N ? logf(rsum[((size_t)b * G.H + h) * G.N + i]) - mh : 0.f;
+      tt[r] = (tsum != nullptr && i < G.N) ? tsum[stat] : go;
+      lr[r] = (rsum != nullptr && i < G.N) ? logf(rsum[stat]) - mh : -mh;
     }
   }
 }
@@ -332,8 +333,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(
     const T* __restrict__ qkv, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ shiftm,
     const T* __restrict__ o, const float* __restrict__ rsum,
-    const T* __restrict__ g, T* __restrict__ dqkv,
-    float* __restrict__ dscale_part, Geo G) {
+    const float* __restrict__ tsum, const T* __restrict__ g,
+    T* __restrict__ dqkv, float* __restrict__ dscale_part, Geo G) {
   extern __shared__ float sm[];
   float* Qs = sm;
   float* Gs = Qs + BT * LD;
@@ -348,7 +349,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * BT;
   const float sc = scale[h];
-  stage_query(qkv, o, g, rsum, shiftm[h], G, b, h, i0, Qs, Gs, lr, tt, qn);
+  stage_query(qkv, o, g, rsum, tsum, shiftm[h], G, b, h, i0, Qs, Gs, lr, tt,
+              qn);
 
   float acc[4][2];
 #pragma unroll
@@ -407,7 +409,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dkv(
     const T* __restrict__ qkv, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ shiftm,
     const T* __restrict__ o, const float* __restrict__ rsum,
-    const T* __restrict__ g, T* __restrict__ dqkv, Geo G) {
+    const float* __restrict__ tsum, const T* __restrict__ g,
+    T* __restrict__ dqkv, Geo G) {
   extern __shared__ float sm[];
   float* Qs = sm;
   float* Gs = Qs + BT * LD;
@@ -430,7 +433,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkv(
   for (int a = 0; a < 4; ++a) dv[a][0] = dv[a][1] = dk[a][0] = dk[a][1] = 0.f;
   for (int i0 = 0; i0 < G.N; i0 += BT) {
     __syncthreads();
-    stage_query(qkv, o, g, rsum, mh, G, b, h, i0, Qs, Gs, lr, tt, qn);
+    stage_query(qkv, o, g, rsum, tsum, mh, G, b, h, i0, Qs, Gs, lr, tt, qn);
     __syncthreads();
     float p[4][4], ds[4][4];
     p_ds_tile(Qs, Gs, Ks, Vs, lr, tt, bias, sc, G, b, h, i0, j0, p, ds);
@@ -487,7 +490,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dbias(
     const T* __restrict__ qkv, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ shiftm,
     const T* __restrict__ o, const float* __restrict__ rsum,
-    const T* __restrict__ g, float* __restrict__ dbias,
+    const float* __restrict__ tsum, const T* __restrict__ g,
+    float* __restrict__ dbias,
     const float* __restrict__ dscale_part, float* __restrict__ dscale,
     int Bn, int nqt, Geo G) {
   extern __shared__ float sm[];
@@ -509,7 +513,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dbias(
     for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
   for (int b = 0; b < Bn; ++b) {
     __syncthreads();
-    stage_query(qkv, o, g, rsum, mh, G, b, h, i0, Qs, Gs, lr, tt, qn);
+    stage_query(qkv, o, g, rsum, tsum, mh, G, b, h, i0, Qs, Gs, lr, tt, qn);
     stage_key(qkv, G, b, h, j0, Ks, Vs, nullptr);
     __syncthreads();
     float p[4][4], ds[4][4];
@@ -537,17 +541,105 @@ __global__ void __launch_bounds__(THREADS) bwd_dbias(
   }
 }
 
+// ---------------------------------------------------------------- K5
+//
+// K5 replaces `pallas_window_attention_flat_bwd` (body
+// `_flat_bwd_kernel_factory`, mvuld_tpu/ops/window_attention.py), the v1
+// backward: it keeps only (qkv, bias, scale) from the forward and rebuilds
+// the softmax statistics itself. Per window, head and query row, over all
+// N keys:
+//
+//   e = exp(s - m);  r = 1 / max(sum e, 1e-30);  t = sum dp*e;  t' = r*t
+//   ds = e * (r * (dp - r*t)) = p * (dp - t')     with p = e*r
+//
+// and the rest is K2's (dq^, dk^, dv = p^T g, dbias, dscale). The Pallas
+// kernel forms ds as e*(r*(dp - r*t)) and never r^2*t: the clamped r can
+// reach 1e30 and r^2 overflows fp32. Here r*t is formed once per row
+// (bounded: |r*t| <= max|dp|) and p = exp(s - m + log r), so no product
+// of r with r or with an unbounded term is ever taken.
+//
+// Design. `bwd_rowstats` is the extra pass: block (query tile, head,
+// window), looping over the key tiles with p_ds_tile at lr = -m and tt = 0
+// (so its p is e and its ds is e*dp), summing both per row in registers
+// and across the 16 threads of a row with shuffles, in key order. It
+// writes r and t' ([Bn, H, N] fp32 each), which the three K2 kernels then
+// read in place of the forward's row sums and rowsum(g*o). The pass
+// recomputes s and dp for the whole row once more: about 4 of K2's 18
+// FMA-flops per N^2*hd, so K5 costs about 1.2x K2. Its t comes from fp32
+// e*dp, not from the bf16 output o that K2 reads.
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) bwd_rowstats(
+    const T* __restrict__ qkv, const float* __restrict__ bias,
+    const float* __restrict__ scale, const float* __restrict__ shiftm,
+    const T* __restrict__ g, float* __restrict__ rsum,
+    float* __restrict__ tsum, Geo G) {
+  extern __shared__ float sm[];
+  float* Qs = sm;
+  float* Gs = Qs + BT * LD;
+  float* Ks = Gs + BT * LD;
+  float* Vs = Ks + BT * LD;
+  float* lr = Vs + BT * LD;
+  float* tt = lr + BT;
+  float* qn = tt + BT;
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * BT;
+  const float sc = scale[h];
+  stage_query<T>(qkv, nullptr, g, nullptr, nullptr, shiftm[h], G, b, h, i0,
+                 Qs, Gs, lr, tt, qn);
+  float se[4] = {0.f, 0.f, 0.f, 0.f}, st[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < G.N; j0 += BT) {
+    __syncthreads();
+    stage_key(qkv, G, b, h, j0, Ks, Vs, nullptr);
+    __syncthreads();
+    float e[4][4], edp[4][4];
+    p_ds_tile(Qs, Gs, Ks, Vs, lr, tt, bias, sc, G, b, h, i0, j0, e, edp);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float ue = 0.f, ut = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        ue += e[a][c];
+        ut += edp[a][c];
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {   // the 16 threads of a row
+        ue += __shfl_xor_sync(0xffffffffu, ue, off);
+        ut += __shfl_xor_sync(0xffffffffu, ut, off);
+      }
+      se[a] += ue;
+      st[a] += ut;
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = i0 + ty + 16 * a;
+      if (i < G.N) {
+        const size_t stat = ((size_t)b * G.H + h) * G.N + i;
+        const float r = 1.f / fmaxf(se[a], 1e-30f);
+        rsum[stat] = r;
+        tsum[stat] = r * st[a];
+      }
+    }
+  }
+}
+
 constexpr size_t TILE_F = (size_t)BT * LD;
 constexpr size_t SQ_F = (size_t)BT * LDS;
 constexpr size_t SMEM_DQ = (4 * TILE_F + SQ_F + 3 * BT + THREADS / 32) * 4;
 constexpr size_t SMEM_DKV = (4 * TILE_F + 2 * SQ_F + 4 * BT) * 4;
-constexpr size_t SMEM_DB = (4 * TILE_F + 3 * BT) * 4;
+constexpr size_t SMEM_DB = (4 * TILE_F + 3 * BT) * 4;   // also bwd_rowstats
 
+// K2 (o and rsum from the forward, tsum null) or, after bwd_rowstats, K5
+// (o null, rsum and tsum from the row pass).
 template <typename T>
 int launch_bwd(const void* qkv, const void* bias, const void* scale,
                const void* shiftm, const void* o, const void* rsum,
-               const void* g, void* dqkv, void* dbias, void* dscale,
-               void* dscale_part, int Bn, const Geo& G, cudaStream_t stream) {
+               const void* tsum, const void* g, void* dqkv, void* dbias,
+               void* dscale, void* dscale_part, int Bn, const Geo& G,
+               cudaStream_t stream) {
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(bwd_dq<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -566,18 +658,39 @@ int launch_bwd(const void* qkv, const void* bias, const void* scale,
   const float* mh = static_cast<const float*>(shiftm);
   const T* ov = static_cast<const T*>(o);
   const float* r = static_cast<const float*>(rsum);
+  const float* t = static_cast<const float*>(tsum);
   const T* gv = static_cast<const T*>(g);
   float* part = static_cast<float*>(dscale_part);
   bwd_dq<T><<<dim3(nt, G.H, Bn), THREADS, SMEM_DQ, stream>>>(
-      q, bi, sc, mh, ov, r, gv, static_cast<T*>(dqkv), part, G);
+      q, bi, sc, mh, ov, r, t, gv, static_cast<T*>(dqkv), part, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_dkv<T><<<dim3(nt, G.H, Bn), THREADS, SMEM_DKV, stream>>>(
-      q, bi, sc, mh, ov, r, gv, static_cast<T*>(dqkv), G);
+      q, bi, sc, mh, ov, r, t, gv, static_cast<T*>(dqkv), G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_dbias<T><<<dim3(nt, nt, G.H), THREADS, SMEM_DB, stream>>>(
-      q, bi, sc, mh, ov, r, gv, static_cast<float*>(dbias), part,
+      q, bi, sc, mh, ov, r, t, gv, static_cast<float*>(dbias), part,
       static_cast<float*>(dscale), Bn, nt, G);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_v1(const void* qkv, const void* bias, const void* scale,
+                  const void* shiftm, const void* g, void* dqkv, void* dbias,
+                  void* dscale, void* dscale_part, void* rsum, void* tsum,
+                  int Bn, const Geo& G, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_rowstats<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_DB));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (G.N + BT - 1) / BT;
+  bwd_rowstats<T><<<dim3(nt, G.H, Bn), THREADS, SMEM_DB, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(scale), static_cast<const float*>(shiftm),
+      static_cast<const T*>(g), static_cast<float*>(rsum),
+      static_cast<float*>(tsum), G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return launch_bwd<T>(qkv, bias, scale, shiftm, nullptr, rsum, tsum, g, dqkv,
+                       dbias, dscale, dscale_part, Bn, G, stream);
 }
 
 }  // namespace
@@ -609,9 +722,27 @@ extern "C" int window_attention_flat_bwd(
   const Geo G{N, C, ws, shift, nWh, nWw, H};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-             ? launch_bwd<__nv_bfloat16>(qkv, bias, scale, shiftm, o, rsum, g,
-                                         dqkv, dbias, dscale, dscale_part, Bn,
-                                         G, s)
-             : launch_bwd<float>(qkv, bias, scale, shiftm, o, rsum, g, dqkv,
-                                 dbias, dscale, dscale_part, Bn, G, s);
+             ? launch_bwd<__nv_bfloat16>(qkv, bias, scale, shiftm, o, rsum,
+                                         nullptr, g, dqkv, dbias, dscale,
+                                         dscale_part, Bn, G, s)
+             : launch_bwd<float>(qkv, bias, scale, shiftm, o, rsum, nullptr,
+                                 g, dqkv, dbias, dscale, dscale_part, Bn, G,
+                                 s);
+}
+
+// K5. Scratch: dscale_part as K2's; rsum and tsum [Bn, H, N] fp32 each.
+extern "C" int window_attention_flat_bwd_v1(
+    const void* qkv, const void* bias, const void* scale, const void* shiftm,
+    const void* g, void* dqkv, void* dbias, void* dscale, void* dscale_part,
+    void* rsum, void* tsum, int is_bf16, int Bn, int N, int C, int H, int ws,
+    int shift, int nWh, int nWw, void* stream) {
+  if (C / H != 32 || C % H != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geo G{N, C, ws, shift, nWh, nWw, H};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16
+             ? launch_bwd_v1<__nv_bfloat16>(qkv, bias, scale, shiftm, g, dqkv,
+                                            dbias, dscale, dscale_part, rsum,
+                                            tsum, Bn, G, s)
+             : launch_bwd_v1<float>(qkv, bias, scale, shiftm, g, dqkv, dbias,
+                                    dscale, dscale_part, rsum, tsum, Bn, G, s);
 }

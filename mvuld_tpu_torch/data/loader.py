@@ -15,25 +15,33 @@ Two iteration modes mirror the reference:
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 
 class ArrayDataset:
-    """A dataset backed by a dict of equal-length sequences / arrays."""
+    """A dataset backed by a dict of equal-length sequences / arrays, with an
+    optional per-item transform (e.g. image decode + augment)."""
 
-    def __init__(self, columns: Dict[str, Sequence]):
+    def __init__(self, columns: Dict[str, Sequence],
+                 transform: Optional[Callable[[Dict, np.random.RandomState],
+                                              Dict]] = None):
         lens = {k: len(v) for k, v in columns.items()}
         assert len(set(lens.values())) == 1, f"ragged columns: {lens}"
         self.columns = columns
+        self.transform = transform
         self.n = next(iter(lens.values()))
 
     def __len__(self) -> int:
         return self.n
 
-    def get(self, idx: int) -> Dict:
-        return {k: v[idx] for k, v in self.columns.items()}
+    def get(self, idx: int, rng: Optional[np.random.RandomState] = None
+            ) -> Dict:
+        item = {k: v[idx] for k, v in self.columns.items()}
+        if self.transform is not None:
+            item = self.transform(item, rng or np.random.RandomState(0))
+        return item
 
 
 def _collate(items) -> Dict[str, np.ndarray]:
@@ -51,7 +59,7 @@ def train_batches(ds: ArrayDataset, batch_size: int, epoch: int,
     n_batches = len(ds) // batch_size
     for b in range(n_batches):
         idx = order[b * batch_size:(b + 1) * batch_size]
-        yield _collate([ds.get(int(i)) for i in idx])
+        yield _collate([ds.get(int(i), rng) for i in idx])
 
 
 def eval_batches(ds: ArrayDataset, batch_size: int

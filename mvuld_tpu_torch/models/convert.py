@@ -309,11 +309,17 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     ``swin.layers.0.blocks.1.attn.cpb_mlp.0.weight`` →
     ``params/swin/layers_0_blocks_1/attn/cpb_fc1/kernel`` and
     ``fusion.graph.rs_gcn_0.W.1.running_var`` →
-    ``batch_stats/fusion/graph/rs_gcn_0/bn/var``. SwinV2 blocks take the
-    unscanned ``layers_{i}_blocks_{j}`` names."""
+    ``batch_stats/fusion/graph/rs_gcn_0/bn/var``, or of a
+    ``SwinTransformerV2`` alone (``params/layers_0_blocks_1/…``,
+    ``params/head/kernel``). SwinV2 blocks take the unscanned
+    ``layers_{i}_blocks_{j}`` names."""
+    from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
+
+    towers = ([("", model, "swin")] if isinstance(model, SwinTransformerV2)
+              else [(t, getattr(model, t), t)
+                    for t in ("swin", "text_encoder", "fusion")])
     out: Dict[str, str] = {}
-    for tower in ("swin", "text_encoder", "fusion"):
-        mod = getattr(model, tower)
+    for prefix, mod, rules in towers:
         modules = dict(mod.named_modules())
         for key in mod.state_dict():
             owner, _, leaf = key.rpartition(".")
@@ -322,7 +328,8 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
             coll = ("batch_stats" if leaf.startswith("running_")
                     else "params")
             jleaf = _jax_leaf(modules[owner], leaf)
-            path = _inverse_tower(tower, f"{owner}.{jleaf}" if owner
+            path = _inverse_tower(rules, f"{owner}.{jleaf}" if owner
                                   else jleaf)
-            out[f"{tower}.{key}"] = f"{coll}/{tower}/{path}"
+            out[f"{prefix}.{key}" if prefix else key] = (
+                f"{coll}/{prefix}/{path}" if prefix else f"{coll}/{path}")
     return out

@@ -15,8 +15,9 @@ compute dtype, the attention softmax and the CPB bias stay fp32.
 (``ops/window_attention.py``, K1) and ``use_pallas_mlp`` the fused MLP+LN
 kernel (``ops/fused_dense.py`` ``mlp_ln``, K3, stages with C ≤ 512), under
 the JAX package's flag names; with gradients enabled the attention runs as
-``flat_attention`` (K1 forward with row sums, K2 backward) and the MLP half
-as the ``mlp_ln`` autograd function (K3 forward, K3b backward). Off, the
+``flat_attention`` (K1 forward with row sums and K2 backward, or under
+``MVULD_ATTN_BWD=v1`` K1 forward and K5 backward) and the MLP half as the
+``mlp_ln`` autograd function (K3 forward, K3b backward). Off, the
 blocks run the plain composition of the JAX XLA branch (exact softmax, q/k
 divided by max(‖·‖, 1e-12)) and autograd differentiates it.
 
@@ -25,8 +26,13 @@ the per-block rates ``linspace(0, drop_path_rate, Σdepths)``, its masks
 drawn from ``gen`` for a whole stage before the stage runs, and
 ``torch.utils.checkpoint`` over the stages in ``remat_stages``. Under
 checkpointing the recomputed forward reuses the first forward's K1 output
-and row sums (the JAX remat policy's saved ``attn_out`` / ``attn_rowsum``),
-so K1 never runs twice and the DropPath masks are the same in both passes.
+(and, under v2, its row sums: the JAX remat policy's saved ``attn_out`` /
+``attn_rowsum``), so K1 never runs twice under either backward generation,
+and the DropPath masks are the same in both passes.
+
+``num_classes`` > 0 adds the classification head (``head``, fp32) and the
+forward returns its logits, the JAX model without ``return_features``: the
+SwinV2 fine-tune (``train/train_swin.py``) trains it.
 """
 
 from __future__ import annotations
@@ -232,8 +238,8 @@ class WindowAttentionV2(nn.Module):
         """x: [B, Hp, Wp, C] feature map (already shifted when applicable);
         returns the same layout. The kernel path derives the shift mask
         from ``shift``; the plain path adds ``mask``. ``store`` (kernel
-        path, checkpointed stages) keeps K1's (out, r) between the first
-        forward and its recomputation."""
+        path, checkpointed stages) keeps K1's (out, r) — r None under the
+        v1 backward — between the first forward and its recomputation."""
         B, Hp, Wp, C = x.shape
         ws, H, dt = self.window_size, self.num_heads, self.dtype
         hd = C // H
@@ -419,14 +425,15 @@ class SwinTransformerV2(nn.Module):
     """The image tower: patch embedding, four stages and the final norm,
     returning the mean-pooled embedding [B, num_features] (the JAX model
     with ``return_features=True``, the reference's ``forward_features``).
-    The classification head belongs to a later slice. ``window_resident``
-    is accepted for parity with the JAX constructor and changes nothing here
-    (see SwinBlockV2). ``remat_stages``: the stage indices checkpointed in
-    training (the JAX ``use_checkpoint`` with ``remat_stages``)."""
+    With ``num_classes`` > 0 the head's logits [B, num_classes] fp32
+    instead. ``window_resident`` is accepted for parity with the JAX
+    constructor and changes nothing here (see SwinBlockV2).
+    ``remat_stages``: the stage indices checkpointed in training (the JAX
+    ``use_checkpoint`` with ``remat_stages``)."""
 
     def __init__(self, config: SwinV2Config, use_pallas: bool = False,
                  use_pallas_mlp: bool = False, window_resident: bool = False,
-                 remat_stages: Tuple[int, ...] = ()):
+                 remat_stages: Tuple[int, ...] = (), num_classes: int = 0):
         super().__init__()
         c = self.config = config
         self.remat_stages = tuple(remat_stages)
@@ -449,6 +456,8 @@ class SwinTransformerV2(nn.Module):
             layers.append(BasicLayer(blocks, down))
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(c.num_features, eps=LN_EPS)
+        self.head = (nn.Linear(c.num_features, num_classes) if num_classes > 0
+                     else None)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -480,4 +489,5 @@ class SwinTransformerV2(nn.Module):
                     layer, x, drops, store, use_reentrant=False)
             else:
                 x = layer(x, drops)
-        return layer_norm(x, self.norm, c.dtype).mean(dim=1).float()
+        x = layer_norm(x, self.norm, c.dtype).mean(dim=1).float()
+        return x if self.head is None else self.head(x)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/mvuld_tpu_torch/lib<name>-<hash>.so`` at the root of the
-checkout (``build/`` is git-ignored); the hash covers the source text and the
-compiler flags, so an edited source rebuilds and an unchanged one loads from
+checkout (``build/`` is git-ignored); the hash covers the source text, the
+shared headers of ``csrc/`` (``*.cuh``) and the compiler flags, so an edited
+source or header rebuilds and an unchanged one loads from
 disk. ``build_all`` starts one nvcc process per source, all at once, and
 waits for them together.
 
@@ -48,9 +49,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,5 +1,6 @@
-"""Fused MLP + LayerNorm: the K3 (``mlp_ln``) and K4 (``mlp_ln_res``)
-kernels and their backward kernels K3b and K4b.
+"""Fused dense layers: the K3 (``mlp_ln``) and K4 (``mlp_ln_res``) MLP +
+LayerNorm kernels and their backward kernels K3b and K4b, and the K6 /
+K6b dense-with-epilogue kernels behind ``dense_act`` / ``dense_ln``.
 
 Counterparts of ``mvuld_tpu/ops/fused_dense.py`` ``mlp_ln`` (SwinBlockV2's
 post-norm MLP half, LayerNorm eps 1e-6) and ``mlp_ln_res`` (the RoBERTa
@@ -19,9 +20,21 @@ is the exact erf form; the Pallas kernels take a polynomial erf
 (|err| ≤ 1.5e-7, a Mosaic workaround) and differentiate it, so their GELU
 gradient differs from the exact one by about 1e-6.
 
-CUDA tensors run ``csrc/mlp_ln.cu`` (bf16 only; anything else raises); CPU
-tensors run the plain versions. The wrappers never fall back from one to
-the other.
+``dense_act`` / ``dense_ln`` are the counterparts of the JAX package's
+(one dense layer, its epilogue fused):
+
+  dense_act:   y = act(x@W + b)
+  dense_ln:    y = LN(act(x@W + b))·γ + β        (eps 1e-6)
+
+with W cast to x's dtype, z = x@W + b summed in fp32, GELU the exact erf
+form and y in x's dtype. Their backward recomputes z (K6b) and returns dz
+in x's dtype with the fp32 column sums db (dγ, dβ); dx = dz·Wᵀ and
+dW = xᵀ·dz are plain products with fp32 sums, as the JAX package leaves
+them to XLA with ``preferred_element_type=f32``.
+
+CUDA tensors run ``csrc/mlp_ln.cu`` and ``csrc/fused_dense.cu`` (bf16 only;
+anything else raises); CPU tensors run the plain versions. The wrappers
+never fall back from one to the other.
 """
 
 from __future__ import annotations
@@ -294,3 +307,224 @@ mlp_ln.launches = 0
 mlp_ln_res.launches = 0
 mlp_ln_bwd.launches = 0
 mlp_ln_res_bwd.launches = 0
+
+
+# ------------------------------------------------------- K6 / K6b: dense_*
+
+_DENSE_TM = 16                 # the kernels' row tile
+_SMEM_LIMIT = 227 * 1024       # shared memory one block may use on sm_90
+
+
+def _check_dense(x, w, b, gamma, beta, ln: bool):
+    K, N = w.shape
+    want = {"x": (x.shape[-1], K), "b": (tuple(b.shape), (N,))}
+    if ln:
+        want.update(gamma=(tuple(gamma.shape), (N,)),
+                    beta=(tuple(beta.shape), (N,)))
+    bad = {k: got for k, (got, exp) in want.items() if got != exp}
+    if bad:
+        raise ValueError(f"fused dense: shapes {bad} do not fit w "
+                         f"[K={K}, N={N}]")
+
+
+def _epilogue(z, act: str, ln: bool, gamma, beta):
+    a = gelu(z) if act == "gelu" else z
+    if not ln:
+        return a
+    zc = a - a.mean(-1, keepdim=True)
+    var = (zc * zc).mean(-1, keepdim=True)
+    return zc * torch.rsqrt(var + _LN_EPS) * gamma.float() + beta.float()
+
+
+def dense_fwd_plain(x, w, b, gamma=None, beta=None, act: str = "gelu",
+                    ln: bool = False):
+    """Plain PyTorch version of K6 on x [M, K]: [M, N] in x's dtype."""
+    z = x.float() @ w.to(x.dtype).float() + b.float()
+    return _epilogue(z, act, ln, gamma, beta).to(x.dtype)
+
+
+def dense_bwd_plain(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
+    """Plain PyTorch version of K6b on x [M, K], dy [M, N]: (dz [M, N] in
+    x's dtype, vecs [1 or 3, N] fp32: db, and dγ, dβ with ``ln``)."""
+    dt = x.dtype
+    z = x.float() @ w.to(dt).float() + b.float()
+    a = gelu(z) if act == "gelu" else z
+    d = dy.to(dt).float()
+    vecs = []
+    if ln:
+        zc = a - a.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + _LN_EPS)
+        zhat = zc * rstd
+        vecs = [(d * zhat).sum(0), d.sum(0)]
+        dg = d * gamma.float()
+        d = (dg - dg.mean(-1, keepdim=True)
+             - zhat * (dg * zhat).mean(-1, keepdim=True)) * rstd
+    if act == "gelu":
+        d = d * gelu_grad(z)
+    return d.to(dt), torch.stack([d.sum(0)] + vecs)
+
+
+def _dense_lib(name):
+    fn = getattr(_build.load("fused_dense"), name)
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([P] * 6 + [I] * 5 + [F, P] if name == "dense_act_ln_fwd"
+                       else [P] * 8 + [I] * 5 + [F, I, P])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_dense_kernel(x, K, N, ln, what, backward):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16)")
+    if K % 16 or N % 16:
+        raise ValueError(f"{what} kernel: K={K} and N={N} must be multiples "
+                         f"of 16")
+    tm = _DENSE_TM
+    smem = tm * K * 2 + tm * 128 * 4
+    if ln or backward:
+        smem += tm * N * 4
+    if backward:
+        smem += (3 if ln else 1) * N * 4 + tm * 16
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what} kernel: K={K}, N={N} need {smem} bytes of "
+                         f"shared memory (at most {_SMEM_LIMIT})")
+
+
+def _dense_operands(x, w, b, gamma, beta, ln):
+    dev = x.device
+    f32 = lambda v: v.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
+    wb = _aligned(w.to(device=dev, dtype=torch.bfloat16))
+    g = f32(gamma) if ln else f32(b)       # unread without LN
+    bt = f32(beta) if ln else g
+    return _aligned(x), wb, f32(b), g, bt
+
+
+def dense_fwd(x, w, b, gamma=None, beta=None, act: str = "gelu",
+              ln: bool = False):
+    """K6 on x [M, K]: act(x@W + b), then LN·γ + β with ``ln``; [M, N] in
+    x's dtype. CUDA tensors run ``csrc/fused_dense.cu`` (bf16), CPU tensors
+    ``dense_fwd_plain``."""
+    _check_dense(x, w, b, gamma, beta, ln)
+    if x.device.type == "cpu":
+        return dense_fwd_plain(x, w, b, gamma, beta, act, ln)
+    (M, K), N = x.shape, w.shape[1]
+    _check_dense_kernel(x, K, N, ln, "dense_fwd", False)
+    x2, wb, bf, gf, btf = _dense_operands(x, w, b, gamma, beta, ln)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _dense_lib("dense_act_ln_fwd")(
+        x2.data_ptr(), wb.data_ptr(), bf.data_ptr(), gf.data_ptr(),
+        btf.data_ptr(), out.data_ptr(), M, K, N, int(act == "gelu"), int(ln),
+        _LN_EPS, stream)
+    dense_fwd.launches += 1
+    _build.check(err, "dense_fwd")
+    return out
+
+
+def dense_bwd(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
+    """K6b on x [M, K], dy [M, N]: (dz [M, N] in x's dtype, vecs [1 or 3, N]
+    fp32: db, and dγ, dβ with ``ln``). CUDA tensors run
+    ``csrc/fused_dense.cu`` (bf16), CPU tensors ``dense_bwd_plain``."""
+    _check_dense(x, w, b, gamma, gamma, ln)
+    if x.device.type == "cpu":
+        return dense_bwd_plain(x, w, b, gamma, dy, act, ln)
+    (M, K), N = x.shape, w.shape[1]
+    _check_dense_kernel(x, K, N, ln, "dense_bwd", True)
+    dev = x.device
+    x2, wb, bf, gf, _ = _dense_operands(x, w, b, gamma, gamma, ln)
+    dy2 = dy.reshape(M, N).to(torch.bfloat16).contiguous()
+    nvec = 3 if ln else 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = min(-(-M // _DENSE_TM), 2 * sms)
+    dz = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    vecs = torch.empty((nvec, N), dtype=torch.float32, device=dev)
+    col_part = torch.empty((G, nvec * N), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _dense_lib("dense_act_ln_bwd")(
+        x2.data_ptr(), wb.data_ptr(), bf.data_ptr(), gf.data_ptr(),
+        dy2.data_ptr(), dz.data_ptr(), vecs.data_ptr(), col_part.data_ptr(),
+        M, K, N, int(act == "gelu"), int(ln), _LN_EPS, G, stream)
+    dense_bwd.launches += 1
+    _build.check(err, "dense_bwd")
+    return dz, vecs
+
+
+dense_fwd.launches = 0
+dense_bwd.launches = 0
+
+
+def _mm_f32(a, b):
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with a gradient: the cotangent is cast to each operand's
+    type and multiplied the same way (fp32 sums), each gradient returned in
+    its operand's type. PyTorch defines no derivative for the fp32-output
+    product itself."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return (_mm_f32(g.to(a.dtype), b.t()).to(a.dtype),
+                _mm_f32(a.t(), g.to(b.dtype)).to(b.dtype))
+
+
+def matmul_f32(a, b):
+    """a @ b of 2-d bf16 (or fp32) operands with fp32 sums and an fp32
+    result (``preferred_element_type=f32``): cuBLAS's bf16 product with an
+    fp32 output on the card, exact fp32 products of the same values on the
+    CPU; differentiable."""
+    return _MatmulF32.apply(a, b)
+
+
+class _FusedDense(torch.autograd.Function):
+    """K6 forward, K6b backward (recomputing z from x), then dx = dz·Wᵀ and
+    dW = xᵀ·dz with fp32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, act, ln):
+        K, N = w.shape
+        y = dense_fwd(x.reshape(-1, K), w, b, gamma, beta, act, ln)
+        ctx.save_for_backward(x, w, b, gamma)
+        ctx.act, ctx.ln = act, ln
+        return y.reshape(*x.shape[:-1], N)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, gamma = ctx.saved_tensors
+        K, N = w.shape
+        x2 = x.reshape(-1, K)
+        dz, vecs = dense_bwd(x2, w, b, gamma, dy.reshape(-1, N).to(x.dtype),
+                             ctx.act, ctx.ln)
+        wb = w.to(x.dtype)
+        dx = matmul_f32(dz, wb.t()).to(x.dtype).reshape(x.shape)
+        dw = matmul_f32(x2.t(), dz).to(w.dtype)
+        db = vecs[0].to(b.dtype)
+        if not ctx.ln:
+            return dx, dw, db, None, None, None, None
+        return (dx, dw, db, vecs[1].to(gamma.dtype), vecs[2].to(gamma.dtype),
+                None, None)
+
+
+def dense_act(x, w, b, act: str = "gelu"):
+    """act(x @ w + b), the activation fused into the product's epilogue
+    (K6, with K6b as its gradient). x [..., K], w [K, N] fp32, b [N];
+    returns [..., N] in x's dtype."""
+    return _FusedDense.apply(x, w, b, None, None, act, False)
+
+
+def dense_ln(x, w, b, gamma, beta, act: str = "none"):
+    """LayerNorm(act(x @ w + b))·γ + β, eps 1e-6 — the SwinV2 post-norm
+    pattern in one kernel (K6, with K6b as its gradient)."""
+    return _FusedDense.apply(x, w, b, gamma, beta, act, True)

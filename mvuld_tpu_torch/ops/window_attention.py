@@ -17,19 +17,26 @@ derived from the window id: two tokens of a window in the last window row
 or column of the rolled map attend only when they share a shift region,
 −100 otherwise.
 
-``window_attention_flat`` (K1) and ``window_attention_flat_bwd`` (K2, the
-JAX package's v2 backward ``pallas_window_attention_flat_bwd2``) run the
-CUDA kernels of ``csrc/window_attention_flat.cu`` for CUDA tensors and the
-plain versions for CPU tensors; they never fall back from one to the other.
-``flat_attention`` is the training entry: K1 with its reciprocal row sums
-r = 1/max(Σe, 1e-30) ([Bn, H, N] fp32) in the forward, K2 from the saved
-(qkv, bias, scale, out, r) in the backward, which never replays K1.
+``window_attention_flat`` (K1), ``window_attention_flat_bwd`` (K2, the
+JAX package's v2 backward ``pallas_window_attention_flat_bwd2``) and
+``window_attention_flat_bwd_v1`` (K5, its v1 backward
+``pallas_window_attention_flat_bwd``) run the CUDA kernels of
+``csrc/window_attention_flat.cu`` for CUDA tensors and the plain versions
+for CPU tensors; they never fall back from one to the other.
+``flat_attention`` is the training entry. Its backward generation follows
+``MVULD_ATTN_BWD`` as in the JAX package: v2 (the default) runs K1 with its
+reciprocal row sums r = 1/max(Σe, 1e-30) ([Bn, H, N] fp32) in the forward
+and K2 from the saved (qkv, bias, scale, out, r); v1 (``MVULD_ATTN_BWD=v1``)
+saves only (qkv, bias, scale) and K5 recomputes the softmax statistics.
+Neither backward replays K1.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -171,12 +178,46 @@ def window_attention_flat_bwd_plain(qkv, bias, logit_scale, o, r, g,
     return dqkv, ds.sum(0), rowq.sum((0, 2, 3)) / scale
 
 
+def window_attention_flat_bwd_v1_plain(qkv, bias, logit_scale, g,
+                                       shift: int = 0, nWh: int = 1,
+                                       nWw: int = 1):
+    """Plain PyTorch version of K5 (``_flat_bwd_kernel_factory``): from the
+    forward's inputs alone, returns (dqkv [Bn, N, 3C] in qkv's dtype,
+    dbias [H, N, N] fp32, dscale [H] fp32). The softmax is recomputed as
+    e = exp(s − m) with r = 1/max(Σe, 1e-30) and t = Σ dp·e, and
+    ds = e·(r·(dp − r·t)) in that order: r may reach 1e30, and r² would
+    overflow fp32."""
+    Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    hd = C // H
+    qh, kh, v, qn, kn = _normalised_qkv(qkv, Bn, N, H, hd)
+    scale, m = shift_and_scale(logit_scale, bias)
+    gh = _heads(g, Bn, N, H, hd)
+    s_cos = qh @ kh.transpose(-1, -2)
+    s = s_cos * scale[:, None, None] + (bias.float() - m[:, None, None])
+    e = torch.exp(_add_shift_mask(s, qkv, ws, shift, nWh, nWw))
+    r = 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    dp = gh @ v.transpose(-1, -2)
+    t = (dp * e).sum(-1, keepdim=True)
+    ds = e * (r * (dp - r * t))
+    dqh = (ds @ kh) * scale[:, None, None]
+    dkh = (ds.transpose(-1, -2) @ qh) * scale[:, None, None]
+    dv = e.transpose(-1, -2) @ (r * gh)
+    dq = (dqh - qh * (qh * dqh).sum(-1, keepdim=True)) * qn
+    dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
+    dqkv = torch.stack([dq, dk, dv], 2)                    # [Bn, H, 3, N, hd]
+    dqkv = dqkv.permute(0, 3, 2, 1, 4).reshape(Bn, N, 3 * C).to(qkv.dtype)
+    return dqkv, ds.sum(0), (ds * s_cos).sum((0, 2, 3))
+
+
+_N_PTRS = {"window_attention_flat_fwd": 6, "window_attention_flat_bwd": 11,
+           "window_attention_flat_bwd_v1": 11}
+
+
 def _lib(name):
     lib = _build.load("window_attention_flat")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptr = 6 if name == "window_attention_flat_fwd" else 11
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+        fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name]
                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -273,8 +314,51 @@ def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
     return dqkv, dbias, dscale
 
 
+def window_attention_flat_bwd_v1(qkv, bias, logit_scale, g, shift: int = 0,
+                                 nWh: int = 1, nWw: int = 1):
+    """Flat-layout window attention v1 backward (K5): (dqkv [Bn, N, 3C] in
+    qkv's dtype, dbias [H, N, N] fp32, dscale [H] fp32) from the forward's
+    inputs and the output gradient ``g`` alone.
+
+    CUDA tensors run ``bwd_rowstats`` and then K2's three kernels of
+    ``csrc/window_attention_flat.cu`` on its row statistics; CPU tensors
+    run ``window_attention_flat_bwd_v1_plain``."""
+    Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    if tuple(g.shape) != (Bn, N, C):
+        raise ValueError(f"window_attention_flat_bwd_v1: g {tuple(g.shape)} "
+                         f"does not fit [Bn={Bn}, N={N}, C={C}]")
+    if qkv.device.type == "cpu":
+        return window_attention_flat_bwd_v1_plain(qkv, bias, logit_scale, g,
+                                                  shift, nWh, nWw)
+    _check_cuda(qkv, Bn, C, H, "window_attention_flat_bwd_v1")
+    dev, dt = qkv.device, qkv.dtype
+    qkv, g = qkv.contiguous(), g.to(dt).contiguous()
+    bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dqkv = torch.empty_like(qkv)
+    dbias, dscale = torch.empty((H, N, N), **f32), torch.empty((H,), **f32)
+    part = torch.empty((Bn * H * -(-N // 64),), **f32)
+    rsum, tsum = torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib("window_attention_flat_bwd_v1")(
+        qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
+        g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
+        part.data_ptr(), rsum.data_ptr(), tsum.data_ptr(),
+        int(dt == torch.bfloat16), Bn, N, C, H, ws, int(shift), int(nWh),
+        int(nWw), stream)
+    window_attention_flat_bwd_v1.launches += 1
+    _build.check(err, "window_attention_flat_bwd_v1")
+    return dqkv, dbias, dscale
+
+
 window_attention_flat.launches = 0
 window_attention_flat_bwd.launches = 0
+window_attention_flat_bwd_v1.launches = 0
+
+
+def _flat_bwd_v2_default() -> bool:
+    """v2 backward unless ``MVULD_ATTN_BWD=v1`` (the JAX package's switch)."""
+    return os.environ.get("MVULD_ATTN_BWD", "v2").lower() != "v1"
 
 
 class _FlatAttention(torch.autograd.Function):
@@ -302,12 +386,40 @@ class _FlatAttention(torch.autograd.Function):
                 None, None, None, None)
 
 
-def flat_attention(qkv, bias, scale, shift: int = 0, nWh: int = 1,
-                   nWw: int = 1, saved=None):
-    """Differentiable flat window attention (K1 forward, K2 backward).
+class _FlatAttentionV1(torch.autograd.Function):
+    """K1 forward; K5 backward from (qkv, bias, scale) alone, as the JAX v1
+    VJP saves only the kernel's inputs."""
 
-    Returns (out, r). ``saved``, a previous call's (out, r) on the same
-    inputs, skips K1: under activation checkpointing the recomputed forward
-    reuses the first forward's output and row sums, as the JAX remat policy
-    saves ``attn_out`` / ``attn_rowsum``."""
-    return _FlatAttention.apply(qkv, bias, scale, shift, nWh, nWw, saved)
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, saved):
+        out = (window_attention_flat(qkv, bias, scale, shift, nWh, nWw)
+               if saved is None else saved[0].detach())
+        ctx.geom = (shift, nWh, nWw)
+        ctx.save_for_backward(qkv, bias, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, scale = ctx.saved_tensors
+        dqkv, dbias, dscale = window_attention_flat_bwd_v1(
+            qkv, bias, scale, g, *ctx.geom)
+        return (dqkv, dbias.to(bias.dtype), dscale.to(scale.dtype),
+                None, None, None, None)
+
+
+def flat_attention(qkv, bias, scale, shift: int = 0, nWh: int = 1,
+                   nWw: int = 1, saved=None, bwd_v2: Optional[bool] = None):
+    """Differentiable flat window attention: K1 forward, K2 (``bwd_v2``,
+    the default unless ``MVULD_ATTN_BWD=v1``) or K5 backward.
+
+    Returns (out, r), r the row sums under v2 and None under v1.
+    ``saved``, a previous call's (out, r) on the same inputs, skips K1:
+    under activation checkpointing the recomputed forward reuses the first
+    forward's output (and row sums), as the JAX remat policy saves
+    ``attn_out`` / ``attn_rowsum``."""
+    if bwd_v2 is None:
+        bwd_v2 = _flat_bwd_v2_default()
+    if bwd_v2:
+        return _FlatAttention.apply(qkv, bias, scale, shift, nWh, nWw, saved)
+    return (_FlatAttentionV1.apply(qkv, bias, scale, shift, nWh, nWw, saved),
+            None)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -27,7 +27,8 @@ from mvuld_tpu_torch.core.checkpoint import (restore, resume_ladder,
                                              save_checkpoint)
 from mvuld_tpu_torch.core.logger import AverageMeter, WindowRate, create_logger
 from mvuld_tpu_torch.core.metrics import format_metrics, get_metrics_logits
-from mvuld_tpu_torch.core.train_state import (EarlyStopper, eval_step,
+from mvuld_tpu_torch.core.train_state import (EarlyStopper, Inputs,
+                                              eval_step, model_inputs,
                                               train_step)
 from mvuld_tpu_torch.data.loader import ArrayDataset, eval_batches, train_batches
 
@@ -48,14 +49,16 @@ def to_device(batch: Dict[str, np.ndarray], device,
 
 
 def run_eval(model, ds: ArrayDataset, batch_size: int, device,
-             device_data=None) -> Dict[str, float]:
+             device_data=None, inputs: Inputs = model_inputs
+             ) -> Dict[str, float]:
     """Logits over the eval set (the padded final batch masked out) and
     the metric suite on the host."""
     all_logits, all_labels = [], []
     for batch in eval_batches(ds, batch_size):
         valid = batch.pop("_valid")
         labels = np.asarray(batch["label"])
-        logits = eval_step(model, to_device(batch, device, device_data))
+        logits = eval_step(model, to_device(batch, device, device_data),
+                           inputs)
         keep = valid > 0
         all_logits.append(logits.float().cpu().numpy()[keep])
         all_labels.append(labels[keep])
@@ -77,9 +80,22 @@ def _snapshot(model, opt, full: bool) -> Dict:
 def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         device, test_ds: Optional[ArrayDataset] = None, output_dir: str = "",
         logger=None, device_data: Optional[Dict] = None,
-        eval_device_data: Optional[Dict] = None) -> Dict:
+        eval_device_data: Optional[Dict] = None,
+        batch_hook: Optional[Callable] = None,
+        patience: Optional[int] = None,
+        label_smoothing: Optional[float] = None,
+        inputs: Inputs = model_inputs) -> Dict:
     """Run the training loop; returns {best_f1, best_epoch, history,
-    test_metrics}. ``eval_device_data``: {"val": cols, "test": cols}."""
+    test_metrics}. ``eval_device_data``: {"val": cols, "test": cols}.
+    ``batch_hook(batch, epoch, it)`` rewrites each host train batch before
+    it goes to the device (mixup); ``patience`` overrides
+    TRAIN.EARLY_STOP_PATIENCE and ``label_smoothing``
+    MODEL.LABEL_SMOOTHING; ``inputs`` maps a device batch onto the model's
+    inputs (``core/train_state.py``)."""
+    if device_data is not None and batch_hook is not None:
+        raise ValueError("device_data mode ships index batches; batch_hook "
+                         "(host-side augmentation) cannot apply — disable "
+                         "one of them")
     logger = logger or create_logger(output_dir)
     if output_dir:
         # the resolved config beside the checkpoints: the predict CLI
@@ -87,7 +103,9 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         from mvuld_tpu_torch.config import save_config
         save_config(cfg, output_dir)
     batch_size = cfg.DATA.BATCH_SIZE
-    stopper = EarlyStopper(patience=cfg.TRAIN.EARLY_STOP_PATIENCE)
+    stopper = EarlyStopper(patience=patience or cfg.TRAIN.EARLY_STOP_PATIENCE)
+    if label_smoothing is None:
+        label_smoothing = cfg.MODEL.LABEL_SMOOTHING
     best_save_full = cfg.TRAIN.BEST_SAVE != "params"
     gen = torch.Generator(device=device).manual_seed(cfg.SEED)
     best, history = None, []
@@ -111,9 +129,11 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         loss_meter, speed_meter = AverageMeter(), WindowRate()
         for it, raw in enumerate(train_batches(train_ds, batch_size, epoch,
                                                cfg.SEED)):
+            if batch_hook is not None:
+                raw = batch_hook(raw, epoch, it)
             metrics = train_step(model, opt, to_device(raw, device,
                                                        device_data),
-                                 gen, cfg.MODEL.LABEL_SMOOTHING)
+                                 gen, label_smoothing, inputs)
             speed_meter.add(batch_size)
             if it % cfg.PRINT_FREQ == 0:
                 loss = float(metrics["loss"])     # syncs — only on print
@@ -122,7 +142,7 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
                             f"({speed_meter.read():.1f} samples/s)")
 
         val_metrics = run_eval(model, val_ds, batch_size, device,
-                               eval_dd.get("val"))
+                               eval_dd.get("val"), inputs)
         history.append({"epoch": epoch, **val_metrics})
         logger.info(f"epoch {epoch} VAL  {format_metrics(val_metrics)} "
                     f"({time.time() - t_epoch:.1f}s)")
@@ -149,7 +169,7 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
            "history": history}
     if test_ds is not None:
         test_metrics = run_eval(model, test_ds, batch_size, device,
-                                eval_dd.get("test"))
+                                eval_dd.get("test"), inputs)
         logger.info(f"TEST {format_metrics(test_metrics)}")
         out["test_metrics"] = test_metrics
     if output_dir:

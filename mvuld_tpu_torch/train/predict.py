@@ -9,9 +9,13 @@ per power-of-two shape bucket. Split in two so each half can run alone:
     (the same arrays as the JAX package's);
   * ``serve`` — the bucketed forward on ``device``, returning P(vul).
 
-Weights come from an ``.npz`` of the JAX run's variables (flattened with
-``/`` keys, see ``models/convert.py``): ``--ckpt``, by default
-``RUN_DIR/variables.npz``. On CUDA the attention kernel always runs and the
+Weights come from the checkpoint the JAX CLI would take: ``--ckpt``, else
+the run's newest best-F1 checkpoint, else its newest epoch checkpoint —
+here the port trainer's own (``core/checkpoint.py``), restored with
+``restore``. A run with no port checkpoint (a JAX run) serves from an
+``.npz`` of its variables flattened with ``/`` keys (``models/convert.py``),
+``RUN_DIR/variables.npz`` or a ``--ckpt`` ending in ``.npz``. On CUDA the
+attention kernel always runs and the
 fused MLP kernels follow the run's ``TRAIN.FUSED_MLP``, as the JAX package
 gates its Pallas kernels on the TPU; on the CPU every layer runs plain.
 
@@ -189,8 +193,10 @@ def main(argv=None) -> List[Dict]:
                         help="train_e2e output dir (config.json + "
                              "tokenizer.json)")
     parser.add_argument("--ckpt", default=None,
-                        help=".npz of the run's JAX variables with '/' keys "
-                             "(default: RUN_DIR/variables.npz)")
+                        help="a port checkpoint, or an .npz of a JAX run's "
+                             "variables with '/' keys (default: the run's "
+                             "best-F1, then newest epoch checkpoint, then "
+                             "RUN_DIR/variables.npz)")
     parser.add_argument("--east-ckpt", default=None,
                         help="EAST checkpoint for OCR node positions (not "
                              "ported yet: raises NotImplementedError)")
@@ -214,6 +220,9 @@ def main(argv=None) -> List[Dict]:
     args = parser.parse_args(argv)
 
     from mvuld_tpu_torch.config import load_saved_config
+    from mvuld_tpu_torch.core.checkpoint import (auto_resume_helper,
+                                                 resume_bestf1_helper,
+                                                 restore)
     from mvuld_tpu_torch.data.tokenizer import CodeTokenizer
     from mvuld_tpu_torch.models.convert import jax_variables_to_torch
     from mvuld_tpu_torch.train.train_e2e import build_e2e_model
@@ -228,11 +237,14 @@ def main(argv=None) -> List[Dict]:
             f"{tok_path} missing — the run predates tokenizer persistence; "
             "re-run train_e2e or copy the training tokenizer here")
     tok = CodeTokenizer.load(tok_path)
-    ckpt = args.ckpt or os.path.join(run_dir, "variables.npz")
+    ckpt = (args.ckpt or resume_bestf1_helper(run_dir)
+            or auto_resume_helper(run_dir)
+            or os.path.join(run_dir, "variables.npz"))
     if not os.path.exists(ckpt):
         raise FileNotFoundError(
-            f"{ckpt} missing — export the JAX run's variables to an .npz "
-            "with '/' keys (README, PyTorch/CUDA port)")
+            f"no port checkpoint under {run_dir} and {ckpt} missing — train "
+            "with the port's train_e2e, or export the JAX run's variables to "
+            "an .npz with '/' keys (README, PyTorch/CUDA port)")
 
     # ---- gather sources
     sources: List[Tuple[str, str]] = []
@@ -266,8 +278,11 @@ def main(argv=None) -> List[Dict]:
     model, _rcfg, _scfg = build_e2e_model(
         cfg, tok.vocab_size, node_capacity=cap, use_pallas=on_gpu,
         roberta_pallas_mlp=fused, use_pallas_mlp=fused)
-    with np.load(ckpt) as flat:
-        jax_variables_to_torch(dict(flat), model)
+    if ckpt.endswith(".npz"):
+        with np.load(ckpt) as flat:
+            jax_variables_to_torch(dict(flat), model)
+    else:
+        restore(ckpt, model)
     model.to(device).eval()
 
     t0 = time.time()

@@ -8,6 +8,11 @@
   shift 2 on a 2×2 window grid. fp32; both sides compute the same
   formulas in another summation order, so 1e-5 absolute on values of
   order one.
+- K5 (``window_attention_flat_bwd_v1_plain``, the v1 backward) against
+  ``pallas_window_attention_flat_bwd`` in interpret mode, and
+  ``flat_attention(bwd_v2=False)`` against ``jax.vjp`` of
+  ``window_attention_flat(bwd_v2=False)``, on the same geometries and at
+  the same 1e-5; and the port's two generations against each other.
 - K3b / K4b (the ``mlp_ln`` / ``mlp_ln_res`` autograd functions, whose
   backward on the CPU is ``mlp_ln_bwd_plain``) against ``jax.vjp`` of the
   Pallas ``mlp_ln`` / ``mlp_ln_res`` in interpret mode, K4b with the same
@@ -98,6 +103,61 @@ def test_flat_attention_grads_match_jax_vjp(geom):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_plain_k5_matches_pallas_interpret(geom):
+    qkv, bias, scale, g = _attn_inputs(seed=13)
+    want = jwa.pallas_window_attention_flat_bwd(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(scale),
+        jnp.asarray(g), interpret=True, **geom)
+    t = [torch.as_tensor(a) for a in (qkv, bias, scale, g)]
+    dqkv, dbias, dscale = wa.window_attention_flat_bwd_v1(*t, **geom)
+    C = qkv.shape[-1] // 3
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(dqkv[..., i * C:(i + 1) * C].numpy(),
+                                   np.asarray(want[i]), **ATTN_TOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(dbias.numpy(), np.asarray(want[3]),
+                               **ATTN_TOL)
+    np.testing.assert_allclose(dscale.numpy(), np.asarray(want[4]),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_flat_attention_v1_grads_match_jax_vjp_and_v2(geom):
+    qkv, bias, scale, g = _attn_inputs(seed=14)
+    fn = lambda q, b, s: jwa.window_attention_flat(  # noqa: E731
+        q, b, s, interpret=True, bwd_v2=False, **geom)
+    jout, vjp = jax.vjp(fn, jnp.asarray(qkv), jnp.asarray(bias),
+                        jnp.asarray(scale))
+    want = vjp(jnp.asarray(g))
+    geo = (geom.get("shift", 0), geom.get("nWh", 1), geom.get("nWw", 1))
+    grads = {}
+    for v2 in (False, True):
+        t = [torch.tensor(a, requires_grad=True) for a in (qkv, bias, scale)]
+        out, r = wa.flat_attention(*t, *geo, bwd_v2=v2)
+        assert (r is None) == (not v2)
+        grads[v2] = torch.autograd.grad(out, t, torch.as_tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **ATTN_TOL)
+    for a, b, c, name in zip(grads[False], want, grads[True],
+                             ("dqkv", "dbias", "dscale")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), **ATTN_TOL,
+                                   err_msg=name)
+
+
+def test_flat_attention_follows_mvuld_attn_bwd(monkeypatch):
+    """``MVULD_ATTN_BWD=v1`` selects K5, as it selects the v1 backward in
+    the JAX package; unset, v2."""
+    qkv, bias, scale, _ = _attn_inputs(seed=15)
+    t = [torch.as_tensor(a) for a in (qkv, bias, scale)]
+    monkeypatch.setenv("MVULD_ATTN_BWD", "v1")
+    assert wa.flat_attention(*t)[1] is None
+    monkeypatch.delenv("MVULD_ATTN_BWD")
+    assert wa.flat_attention(*t)[1] is not None
+
+
 def _mlp_inputs(lead, C=32, Hd=128, seed=0):
     rng = np.random.RandomState(seed)
     f = lambda *s, sc=1.0: (sc * rng.randn(*s)).astype(np.float32)  # noqa: E731
@@ -143,8 +203,8 @@ def test_mlp_ln_res_unread_mask_at_keep_one():
 
 
 def test_backward_wrappers_never_fall_back_off_the_cpu():
-    """K2 and K3b/K4b on a non-CPU tensor launch or raise (meta tensors
-    stand in for a device here)."""
+    """K2, K5, K3b/K4b and K6b on a non-CPU tensor launch or raise (meta
+    tensors stand in for a device here)."""
     m = torch.device("meta")
     z = lambda *s: torch.zeros(*s, device=m)  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
@@ -155,5 +215,12 @@ def test_backward_wrappers_never_fall_back_off_the_cpu():
     for fn in (fd.mlp_ln_bwd, fd.mlp_ln_res_bwd):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(z(8, 16), z(8, 16), *w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        wa.window_attention_flat_bwd_v1(z(4, 16, 96), z(1, 16, 16), z(1),
+                                        z(4, 16, 32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd.dense_bwd(z(8, 16), z(16, 32), z(32), z(32), z(8, 32))
     assert wa.window_attention_flat_bwd.launches == 0
+    assert wa.window_attention_flat_bwd_v1.launches == 0
     assert fd.mlp_ln_bwd.launches == 0 and fd.mlp_ln_res_bwd.launches == 0
+    assert fd.dense_bwd.launches == 0

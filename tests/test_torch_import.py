@@ -51,6 +51,9 @@ for name in ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "pandas",
     sys.modules[name] = None
 import mvuld_tpu_torch
 import mvuld_tpu_torch.train.predict
+import mvuld_tpu_torch.train.train_swin
+import mvuld_tpu_torch.tools.blockbench
+import mvuld_tpu_torch.models.swin_convert
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
@@ -97,7 +100,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     a device here)."""
     import torch
 
-    from mvuld_tpu_torch.ops.fused_dense import mlp_ln, mlp_ln_res
+    from mvuld_tpu_torch.ops.fused_dense import dense_fwd, mlp_ln, mlp_ln_res
     from mvuld_tpu_torch.ops.window_attention import window_attention_flat
     m = torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -110,8 +113,12 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     for fn in (mlp_ln, mlp_ln_res):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(*args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dense_fwd(torch.zeros(8, 16, device=m), torch.zeros(16, 32, device=m),
+                  torch.zeros(32, device=m))
     assert window_attention_flat.launches == 0
     assert mlp_ln.launches == 0 and mlp_ln_res.launches == 0
+    assert dense_fwd.launches == 0
 
 
 def test_trainer_starts_from_a_prebuilt_cache_without_host_extras(tmp_path):

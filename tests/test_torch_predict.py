@@ -5,6 +5,10 @@ checkpoint of a tiny model, as tests/test_predict.py builds it) also gets
 ``variables.npz``: the same variables flattened with '/' keys, which is
 what the port reads. Both CLIs run on the same .c sources at fp32 with the
 plain layers (the JAX CLI's CPU path; the port's ``--device cpu``).
+
+A run trained by the port's own ``train_e2e`` CLI holds port checkpoints
+and no ``variables.npz``: ``predict --run-dir`` serves its best-F1
+checkpoint, with the P(vul) of that checkpoint restored by hand.
 """
 
 import json
@@ -221,3 +225,37 @@ def test_east_ckpt_not_ported_yet(run_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="EAST"):
         main(["--run-dir", run_dir, *paths, "--device", "cpu",
               "--east-ckpt", "ckpt", "--workdir", str(tmp_path / "w")])
+
+
+def test_predict_serves_a_port_training_run(tmp_path):
+    from mvuld_tpu_torch.config import load_saved_config
+    from mvuld_tpu_torch.core.checkpoint import restore, resume_bestf1_helper
+    from mvuld_tpu_torch.data.tokenizer import CodeTokenizer
+    from mvuld_tpu_torch.train.predict import (_resolve_run_dir,
+                                               build_request, serve)
+    from mvuld_tpu_torch.train.predict import main as predict
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+    from mvuld_tpu_torch.train.train_e2e import main as train
+
+    out = str(tmp_path / "run")
+    train(["--synthetic", "24", "--batch-size", "8", "--output", out,
+           "--device", "cpu", "--opts", *TOY_OPTS, "TRAIN.EPOCHS", "1"])
+    run = _resolve_run_dir(out)
+    assert not os.path.exists(os.path.join(run, "variables.npz"))
+    sources = [("f1", C1), ("f2", C2), ("f3", C3)]
+    paths = _write_sources(tmp_path, sources)
+    got = predict(["--run-dir", out, *paths, "--device", "cpu",
+                   "--batch-size", "4", "--workdir", str(tmp_path / "w")])
+
+    cfg = load_saved_config(run)
+    tok = CodeTokenizer.load(os.path.join(run, "tokenizer.json"))
+    model = build_e2e_model(cfg, tok.vocab_size)[0]
+    restore(resume_bestf1_helper(run), model)
+    model.eval()
+    import torch
+    arrs, rows = build_request(sources, cfg, tok, str(tmp_path / "w2"))
+    want = serve(model, arrs, 4, torch.device("cpu"))
+    assert [r["id"] for r in got] == ["f1", "f2", "f3"]
+    np.testing.assert_array_equal(
+        [r["p_vul"] for r in got],
+        [round(float(want[r["_slot"]]), 6) for r in rows])
