@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
      K3b, K4b at the shapes one batch-16 training step gives them; K1, K2,
      K5 (also against K2), K3 and K3b at the shapes one batch-64 SwinV2
      fine-tune step gives them (the plain attention versions over chunks
-     of windows there); and K6/K6b at blockbench's stage-3 shapes;
+     of windows there); K6/K6b at blockbench's stage-3 shapes; and the
+     head-layout K8/K8b (mask operand) and map-layout K7/K7b (mask
+     synthesised, fp32 outputs) at the bucket-16 geometry of every stage,
+     plus one fp32 case and K7/K7b with bf16 product operands;
   3. serve 37 seeded requests at full width (SwinV2-Base-448 window 28,
      UniXcoder-base, the multi_defect_new_gcn head) through the kernels,
      counting each kernel's launches, then again through the plain layers,
@@ -43,7 +46,18 @@ Phases, in order; any failure exits non-zero:
   6. the block microbenchmark (``tools/blockbench.py``): its five variants
      of the stage-3 MLP half, fwd_bwd at batch 64, one JSON line each, the
      K6/K6b launches counted in v3's run;
-  7. print the kernels JSON line, the card line, and the result line last.
+  7. the op entry points: ``window_attention_map`` and ``window_attention``
+     forward and backward through autograd at stage-1 (shifted) and stage-3
+     full width, K7/K7b/K8/K8b launches counted, the map and head layouts
+     held against each other on the same numbers re-laid and both against
+     ``flat_attention`` (K1/K2);
+  8. the staged path at full width from seeded arrays: a warm-up and three
+     AdamW steps of the text classifier (``build_text_training``,
+     UniXcoder-base, batch 16 × 512 tokens), the trained encoder and
+     SwinV2-Base-448 as frozen featurizers filling the fusion cache columns
+     (``encode_cache_columns``), and ``train_fusion.main`` on those caches
+     with the splits resident on the card;
+  9. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -109,6 +123,15 @@ GRAD_NOISE = 3.0         # … against fp32, or this × the plain bf16 path's
 DENSE_SHAPES = [("fc1_gelu", 64 * 784, 512, 2048, "gelu", False),
                 ("fc2_ln", 64 * 784, 2048, 512, "none", True)]
 VEC_TOL = 1e-3           # K6b's fp32 column sums, relative L2
+
+# the staged path: functions cached and trained on (train / val / test),
+# encoder batch, fusion batch and epochs
+STAGED_SPLITS = (128, 16, 16)
+ENCODE_BATCH = 32
+FUSION_BATCH = 32
+FUSION_EPOCHS = 3
+# the op entry points' pass: these K1_SHAPES rows, once each
+OPS_SHAPES = ((1, 14), (3, 0))         # (stage, shift)
 
 # the published 448 image config
 # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
@@ -387,6 +410,233 @@ def check_attention_fp32(dev, gen):
     if not err32 <= 1e-4:
         raise AssertionError(f"K1 fp32 disagrees with its plain version: "
                              f"{err32}")
+
+
+def _layout_inputs(dev, gen, Bn, N, C, H, nW1, dtype):
+    """Seeded map-layout inputs of one stage: qkv [B, Hp, Wp, 3, H, hd],
+    bias, per-head scale, and the output gradient as an fp32 map whose
+    values are bf16 numbers (so both layouts read the same g)."""
+    import torch
+
+    ws, hd, nW = math.isqrt(N), C // H, nW1 * nW1
+    B, Hp = Bn // nW, nW1 * ws
+    qkv = torch.randn(B, Hp, Hp, 3, H, hd, device=dev, generator=gen
+                      ).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev,
+                                          generator=gen))
+    ls = math.log(10.0) + 0.1 * torch.randn(H, device=dev, generator=gen)
+    g = torch.randn(B, Hp, Hp, H, hd, device=dev, generator=gen
+                    ).to(torch.bfloat16).float()
+    return qkv, bias, ls, g, ws, hd, nW
+
+
+def _abs_errs(got, want):
+    return [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+
+
+def check_layouts(dev, gen, rows):
+    """K8/K8b (head layout, the shift mask as a [nW, N, N] operand) and
+    K7/K7b (map layout read in place, mask synthesised, fp32 outputs) at
+    every stage's bucket-16 shape, bf16 inputs, against their plain versions
+    over chunks of windows. Tolerances as K1/K2's: bf16 outputs two bf16
+    ulps at the largest value, fp32 outputs 1e-4 of the largest; dbias 1e-4
+    and dscale 1e-3 of their largest. Library yardstick: SDPA with a float
+    mask (and its backward with the mask's gradient), once per shape. The
+    rows of OPS_SHAPES are the ones the op entry points' pass runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+    for stage, Bn, N, C, H, shift, nW1, _ in K1_SHAPES:
+        qkv, bias, ls, g, ws, hd, nW = _layout_inputs(
+            dev, gen, Bn, N, C, H, nW1, torch.bfloat16)
+        per_fwd = int((stage, shift) in OPS_SHAPES)
+        shape = f"stage{stage} Bn={Bn} N={N} C={C} H={H} shift={shift}"
+        q, k, v = (t.to(torch.bfloat16).contiguous()
+                   for t in wa._map_to_windows(qkv, ws))
+        gh = wa._heads_map_to_windows(g, ws).to(torch.bfloat16)
+        mask = (torch.as_tensor(wa.window_region_mask(ws, shift, nW1, nW1),
+                                device=dev) if shift else None)
+        chunks = lambda fn, n_summed=0: by_windows(  # noqa: E731
+            fn, Bn, nW, H, N, n_summed)
+        imgs = lambda w: slice(w.start // nW, w.stop // nW)  # noqa: E731
+
+        # library yardstick (timed only), as for K1/K2
+        qn = q.float() * torch.rsqrt((q.float() ** 2).sum(-1, keepdim=True)
+                                     + 1e-12)
+        kn = k.float() * torch.rsqrt((k.float() ** 2).sum(-1, keepdim=True)
+                                     + 1e-12)
+        shp = (Bn // nW, nW, H, N, hd)
+        qs = (qn * ls[:, None, None]).to(torch.bfloat16).reshape(shp)
+        ks, vs = kn.to(torch.bfloat16).reshape(shp), v.reshape(shp)
+        del qn, kn
+        fmask = bias[None, None]
+        if shift:
+            fmask = fmask + mask[None, :, None]
+        fmask = fmask.to(torch.bfloat16)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=fmask, scale=1.0), 5)
+        leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        mask_g = fmask.detach().requires_grad_()
+        try:
+            lo = F.scaled_dot_product_attention(*leaves, attn_mask=mask_g,
+                                                scale=1.0)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lo, leaves + [mask_g], gh.reshape(shp), retain_graph=True), 3)
+            del lo
+        except RuntimeError as e:
+            print(f"{shape}: SDPA backward with a mask gradient does not run "
+                  f"here ({str(e)[:120]})", flush=True)
+            lib_bwd = None
+        del leaves, mask_g, qs, ks, vs, fmask
+
+        elems = Bn * H * N * hd
+        sq = H * N * N * 4
+        ops_f = max(4 * elems * N / FP32_FLOP_S, Bn * H * N * N / SFU_EXP_S)
+        ops_b = max(10 * elems * N / FP32_FLOP_S, Bn * H * N * N / SFU_EXP_S)
+        mask_bytes = 0 if mask is None else mask.numel() * 4
+
+        def row(kernel, err, tol, ok, detail, ms, plain_ms, lib, nbytes, ops):
+            rows.append(dict(kernel=kernel, shape=shape, path="ops",
+                             per_fwd=per_fwd, err=err, tol=tol, ok=ok,
+                             detail=detail, ms=ms, plain_ms=plain_ms,
+                             lib_ms=lib, t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                             t_ops=ops * 1e3))
+
+        # K8: q, k, v and the mask as operands
+        got = wa.window_attention_fwd(q, k, v, bias, ls, mask)
+        (want,) = chunks(lambda w: (wa.window_attention_plain(
+            q[w], k[w], v[w], bias, ls, mask),))
+        torch.cuda.synchronize()
+        err, tol = _abs_errs([got], [want])[0], bf16_tol(want.float())
+        row("window_attention_fwd", err, tol, err <= tol,
+            f"max_abs_err={err:.3e} (tol {tol:.3e})",
+            time_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ls, mask),
+                    5),
+            time_ms(lambda: chunks(lambda w: (wa.window_attention_plain(
+                q[w], k[w], v[w], bias, ls, mask),)), 3),
+            lib_fwd, 4 * elems * 2 + sq + mask_bytes, ops_f)
+        del got, want
+
+        # K8b
+        k8b_plain = lambda: chunks(  # noqa: E731
+            lambda w: wa.window_attention_bwd_plain(
+                q[w], k[w], v[w], bias, ls, gh[w], mask), 2)
+        got = wa.window_attention_bwd(q, k, v, bias, ls, gh, mask)
+        want = k8b_plain()
+        torch.cuda.synchronize()
+        errs = _abs_errs(got, want)
+        tols = [bf16_tol(t.float()) for t in want[:3]] + [
+            1e-4 * big(want[3]), 1e-3 * big(want[4])]
+        worst = max(range(5), key=lambda i: errs[i] / tols[i])
+        row("window_attention_bwd", errs[worst], tols[worst],
+            all(e <= t for e, t in zip(errs, tols)),
+            " ".join(f"{n} {e:.2e}/{t:.2e}" for n, e, t in zip(
+                ("dq", "dk", "dv", "dbias", "dscale"), errs, tols)),
+            time_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ls, gh,
+                                                    mask), 3),
+            time_ms(k8b_plain, 2), lib_bwd,
+            7 * elems * 2 + 2 * sq + mask_bytes + H * 4, ops_b)
+        del got, want
+
+        # K7: the map read in place, fp32 out
+        k7_plain = lambda: chunks(  # noqa: E731
+            lambda w: (wa.window_attention_map_plain(
+                qkv[imgs(w)], bias, ls, shift),))
+        got = wa.window_attention_map_fwd(qkv, bias, ls, shift)
+        (want,) = k7_plain()
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"K7 output dtype {got.dtype}")
+        err, tol = _abs_errs([got], [want])[0], 1e-4 * big(want)
+        row("window_attention_map_fwd", err, tol, err <= tol,
+            f"max_abs_err={err:.3e} (tol {tol:.3e})",
+            time_ms(lambda: wa.window_attention_map_fwd(qkv, bias, ls, shift),
+                    5),
+            time_ms(k7_plain, 3), lib_fwd,
+            3 * elems * 2 + elems * 4 + sq, ops_f)
+        del got, want
+
+        # K7b: fp32 dqkv in qkv's layout
+        k7b_plain = lambda: chunks(  # noqa: E731
+            lambda w: wa.window_attention_map_bwd_plain(
+                qkv[imgs(w)], bias, ls, g[imgs(w)], shift), 2)
+        got = wa.window_attention_map_bwd(qkv, bias, ls, g, shift)
+        want = k7b_plain()
+        torch.cuda.synchronize()
+        if got[0].dtype != torch.float32:
+            raise AssertionError(f"K7b dqkv dtype {got[0].dtype}")
+        errs = _abs_errs(got, want)
+        tols = [1e-4 * big(want[0]), 1e-4 * big(want[1]), 1e-3 * big(want[2])]
+        worst = max(range(3), key=lambda i: errs[i] / tols[i])
+        row("window_attention_map_bwd", errs[worst], tols[worst],
+            all(e <= t for e, t in zip(errs, tols)),
+            " ".join(f"{n} {e:.2e}/{t:.2e}" for n, e, t in zip(
+                ("dqkv", "dbias", "dscale"), errs, tols)),
+            time_ms(lambda: wa.window_attention_map_bwd(qkv, bias, ls, g,
+                                                        shift), 3),
+            time_ms(k7b_plain, 2), lib_bwd,
+            3 * elems * 2 + elems * 4 + 3 * elems * 4 + 2 * sq + H * 4, ops_b)
+        del got, want, qkv, q, k, v, g, gh
+
+
+def check_layouts_variants(dev, gen):
+    """The four kernels on fp32 inputs (stage 2, shift 14; everything within
+    1e-4 of the largest value, dscale 1e-3), and K7/K7b with bf16 product
+    operands (``mxu_bf16``, stage 3): kernel and plain version round the
+    same operands to bf16, and a value on a rounding boundary may go either
+    way, so outputs within two bf16 ulps of the largest value."""
+    import torch
+
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+
+    def report(label, got, want, rels):
+        errs = _abs_errs(got, want)
+        tols = [r * big(w) for r, w in zip(rels, want)]
+        print(f"{label}: " + " ".join(f"{e:.2e}/{t:.2e}"
+                                      for e, t in zip(errs, tols)),
+              flush=True)
+        if not all(e <= t for e, t in zip(errs, tols)):
+            raise AssertionError(f"{label} disagrees with its plain version")
+
+    stage, Bn, N, C, H, shift, nW1, _ = K1_SHAPES[3]
+    qkv, bias, ls, g, ws, hd, nW = _layout_inputs(dev, gen, Bn, N, C, H, nW1,
+                                                  torch.float32)
+    q, k, v = (t.contiguous() for t in wa._map_to_windows(qkv, ws))
+    gh = wa._heads_map_to_windows(g, ws)
+    mask = wa.window_region_mask(ws, shift, nW1, nW1)
+    report("K8 fp32 stage2 shift=14",
+           [wa.window_attention_fwd(q, k, v, bias, ls, mask)],
+           [wa.window_attention_plain(q, k, v, bias, ls, mask)], [1e-4])
+    report("K8b fp32 stage2 shift=14 (dq dk dv dbias dscale)",
+           wa.window_attention_bwd(q, k, v, bias, ls, gh, mask),
+           wa.window_attention_bwd_plain(q, k, v, bias, ls, gh, mask),
+           [1e-4] * 4 + [1e-3])
+    report("K7 fp32 stage2 shift=14",
+           [wa.window_attention_map_fwd(qkv, bias, ls, shift)],
+           [wa.window_attention_map_plain(qkv, bias, ls, shift)], [1e-4])
+    report("K7b fp32 stage2 shift=14 (dqkv dbias dscale)",
+           wa.window_attention_map_bwd(qkv, bias, ls, g, shift),
+           wa.window_attention_map_bwd_plain(qkv, bias, ls, g, shift),
+           [1e-4, 1e-4, 1e-3])
+    del qkv, q, k, v, g, gh
+
+    stage, Bn, N, C, H, shift, nW1, _ = K1_SHAPES[4]
+    qkv, bias, ls, g, ws, hd, nW = _layout_inputs(dev, gen, Bn, N, C, H, nW1,
+                                                  torch.bfloat16)
+    ulps = 2.0 ** -6
+    report("K7 mxu_bf16 stage3",
+           [wa.window_attention_map_fwd(qkv, bias, ls, 0, True)],
+           [wa.window_attention_map_plain(qkv, bias, ls, 0, True)], [ulps])
+    report("K7b mxu_bf16 stage3 (dqkv dbias dscale)",
+           wa.window_attention_map_bwd(qkv, bias, ls, g, 0, True),
+           wa.window_attention_map_bwd_plain(qkv, bias, ls, g, 0, True),
+           [ulps, 1e-3, 1e-2])
 
 
 def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
@@ -1071,9 +1321,277 @@ def blockbench_phase(dev, counters):
     return total
 
 
+def ops_phase(dev, counters):
+    """The op entry points, the main path of K7/K7b/K8/K8b: with seeded
+    qkv, bias, scale and output weights at the OPS_SHAPES rows of K1_SHAPES
+    (stage 1 shifted, stage 3), ``window_attention_map`` and
+    ``window_attention`` run forward and backward through autograd on a
+    scalar loss, launches counted. The map and head layouts run the same
+    numbers re-laid and must agree: outputs within two bf16 ulps of the
+    largest value (the head layout's output is bf16 and its p is rounded to
+    bf16), gradients within two bf16 ulps, dbias 1e-4 and dscale 1e-3 of
+    their largest. Both are then held against ``flat_attention`` (K1/K2,
+    the fixed-shift softmax with a clamped row sum; its K2 takes the row
+    term from the bf16 output): outputs within two bf16 ulps, gradients
+    within relative L2 2e-2."""
+    import torch
+
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+    total = dict.fromkeys(_counts(counters), 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for stage, Bn, N, C, H, shift, nW1, _ in K1_SHAPES:
+        if (stage, shift) not in OPS_SHAPES:
+            continue
+        qkv, bias, ls, w, ws, hd, nW = _layout_inputs(
+            dev, gen, Bn, N, C, H, nW1, torch.bfloat16)
+        B, Hp = qkv.shape[0], qkv.shape[1]
+        q, k, v = (t.to(torch.bfloat16).contiguous()
+                   for t in wa._map_to_windows(qkv, ws))
+        wh = wa._heads_map_to_windows(w, ws)
+        mask = wa.window_region_mask(ws, shift, nW1, nW1) if shift else None
+        leaves = [t.requires_grad_() for t in (qkv, bias, ls)]
+        hleaves = [t.requires_grad_() for t in (q, k, v)]
+
+        _reset(counters)
+        t0 = time.perf_counter()
+        out_m = wa.window_attention_map(*leaves, shift)
+        gm = torch.autograd.grad((out_m * w).sum(), leaves)
+        out_h = wa.window_attention(*hleaves, bias, ls, mask)
+        gh = torch.autograd.grad((out_h.float() * wh).sum(),
+                                 hleaves + [bias, ls])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts(counters)
+        for name, n in counts.items():
+            total[name] += n
+        if any(n != 1 for n in counts.values()):
+            raise AssertionError(f"op entry points launched {counts}, want "
+                                 f"each kernel once")
+        if out_m.dtype != torch.float32 or gm[0].dtype != torch.bfloat16 \
+                or out_h.dtype != torch.bfloat16:
+            raise AssertionError("entry point dtypes: map out "
+                                 f"{out_m.dtype}, dqkv {gm[0].dtype}, head "
+                                 f"out {out_h.dtype}")
+
+        # the map layout against the head layout (the hard check)
+        out_hm = wa._windows_to_map(out_h.detach().float(), B, Hp, Hp, ws)
+        dqkv_h = wa._windows_to_map(torch.stack([t.float() for t in gh[:3]]),
+                                    B, Hp, Hp, ws)
+        pairs = [("out", out_hm, out_m.detach(), bf16_tol(out_m.detach())),
+                 ("dqkv", dqkv_h, gm[0].float(), bf16_tol(gm[0].float())),
+                 ("dbias", gh[3], gm[1], 1e-4 * big(gm[1])),
+                 ("dscale", gh[4], gm[2], 1e-3 * big(gm[2]))]
+        errs = [(n, float((a - b).abs().max()), t) for n, a, b, t in pairs]
+        label = f"ops stage{stage} Bn={Bn} N={N} H={H} shift={shift}"
+        print(f"{label}: forward + backward of both entry points "
+              f"{ms:.1f} ms, launches {counts}; head vs map layout "
+              + " ".join(f"{n} {e:.2e}/{t:.2e}" for n, e, t in errs),
+              flush=True)
+        if not all(e <= t for _, e, t in errs):
+            raise AssertionError(f"{label}: the head and map layouts "
+                                 f"disagree: {errs}")
+
+        # both against the flat layout's K1/K2 (their launches are a
+        # comparison, not this phase's path)
+        flat = qkv.detach().reshape(B, nW1, ws, nW1, ws, 3 * C).permute(
+            0, 1, 3, 2, 4, 5).reshape(Bn, N, 3 * C).requires_grad_()
+        out_f, _ = wa.flat_attention(flat, bias, ls, shift, nW1, nW1,
+                                     bwd_v2=True)
+        wf = w.reshape(B, nW1, ws, nW1, ws, C).permute(0, 1, 3, 2, 4, 5
+                                                       ).reshape(Bn, N, C)
+        gf = torch.autograd.grad((out_f.float() * wf).sum(), [flat, bias, ls])
+        out_fm = out_f.detach().float().reshape(B, nW1, nW1, ws, ws, H, hd
+                                                ).permute(0, 1, 3, 2, 4, 5, 6
+                                                          ).reshape(out_m.shape)
+        dq_fm = gf[0].float().reshape(B, nW1, nW1, ws, ws, 3, H, hd).permute(
+            0, 1, 3, 2, 4, 5, 6, 7).reshape(qkv.shape)
+        torch.cuda.synchronize()
+        o_err, o_tol = float((out_fm - out_m.detach()).abs().max()), \
+            bf16_tol(out_m.detach())
+        l2 = [rel_l2(dq_fm, gm[0]), rel_l2(gf[1], gm[1]), rel_l2(gf[2], gm[2])]
+        print(f"{label}: flat layout (K1/K2, fixed-shift softmax) vs map "
+              f"layout: out {o_err:.2e}/{o_tol:.2e}, gradient rel L2 dqkv "
+              f"{l2[0]:.2e} dbias {l2[1]:.2e} dscale {l2[2]:.2e} (tol 2e-2)",
+              flush=True)
+        if not (o_err <= o_tol and max(l2) <= 2e-2):
+            raise AssertionError(f"{label}: the flat and map layouts "
+                                 f"disagree")
+        del qkv, q, k, v, w, wh, out_m, out_h, gm, gh, flat, out_f, gf
+        torch.cuda.empty_cache()
+    return total
+
+
+def staged_phase(dev):
+    """The staged path at full width from seeded arrays. (a) The text
+    stage: ``build_text_training`` with UniXcoder-base takes a warm-up and
+    TRAIN_STEPS AdamW steps at batch 16 × 512 tokens. (b) The trained
+    encoder and SwinV2-Base-448 (plain layers, as the pipeline builds them)
+    as frozen featurizers fill the cache columns of sum(STAGED_SPLITS)
+    seeded functions through ``encode_cache_columns``. (c)
+    ``train_fusion.main`` trains ``multi_defect_new_gcn`` from those caches
+    with TRAIN.DEVICE_DATA and TRAIN.DEVICE_EVAL on; then one fusion step is
+    profiled. A non-finite loss or an out-of-memory error fails the run."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.schedule import build_schedule
+    from mvuld_tpu_torch.core.train_state import train_step
+    from mvuld_tpu_torch.data.loader import ArrayDataset
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.fusion_zoo import build_fusion_model
+    from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2, SwinV2Config
+    from mvuld_tpu_torch.train import precompute
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_fusion import (edge_bits, fusion_inputs,
+                                                    load_cached_datasets)
+    from mvuld_tpu_torch.train.train_fusion import main as fusion_main
+    from mvuld_tpu_torch.train.train_text import build_text_training
+
+    work = tempfile.mkdtemp(prefix="mvuld_staged_")
+    opts = MODEL_OPTS + ["DATA.BATCH_SIZE", BATCH, "SEED", 0]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output=work))
+    n = sum(STAGED_SPLITS)
+    arrs = requests(cfg, n, seed=5)
+    labels = (np.arange(n) % 2).astype(np.int32)
+
+    # (a) the text stage
+    ds = {"train": ArrayDataset({"input_ids": arrs["func_ids"],
+                                 "label": labels})}
+    run = build_text_training(cfg, ds, VOCAB, dev)
+    batch = to_device({"input_ids": arrs["func_ids"][:BATCH],
+                       "label": labels[:BATCH]}, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(run.step(batch, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+    ms = statistics.median(times[1:]) * 1e3
+    n_params = sum(p.numel() for p in run.model.parameters())
+    print(f"staged text: UniXcoder classifier ({n_params / 1e6:.1f}M params), "
+          f"batch {BATCH} × {cfg.DATA.FUNC_TOKENS} tokens, {TRAIN_STEPS} "
+          f"steps after a warm-up, median {ms:.1f} ms/step = "
+          f"{BATCH / ms * 1e3:.2f} functions/s (steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms; warm-up "
+          f"{times[0] * 1e3:.1f} ms), peak memory {peak:.2f} GiB, "
+          f"loss/grad_norm {[(round(a, 4), round(g, 3)) for a, g in vals]} "
+          f"[{card_line()}]", flush=True)
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"staged text: non-finite loss/grad_norm {vals}")
+    profile_run(f"staged text train step (batch {BATCH})",
+                lambda: run.step(batch, gen))
+    embedder = run.model
+    del run, batch
+    torch.cuda.empty_cache()
+
+    # (b) the caches, through the frozen featurizers
+    swin = SwinTransformerV2(SwinV2Config.from_cfg(cfg))
+    init_jax_like(swin, torch.Generator().manual_seed(0))
+    cols = precompute.empty_cache_columns(n, cfg)
+    for key in ("pos", "adj", "node_mask"):
+        cols[key][...] = arrs[key]
+    rows_, nodes = np.nonzero(arrs["node_mask"] > 0)
+    line_ids = arrs["node_ids"][rows_, nodes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    precompute.encode_cache_columns(
+        cols, func_ids=arrs["func_ids"], line_ids=line_ids,
+        line_index=np.stack([rows_, nodes], 1), images=arrs["image"],
+        text_encoder=precompute.frozen_text_encoder(embedder, dev),
+        swin_encoder=precompute.frozen_swin_encoder(swin, dev),
+        encode_batch=ENCODE_BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"staged cache: {n} functions, {len(line_ids)} line texts of "
+          f"{cfg.DATA.NODE_TOKENS} tokens and {n} images of "
+          f"{cfg.DATA.IMG_SIZE}² encoded in batches of {ENCODE_BATCH} in "
+          f"{secs:.2f}s = {n / secs:.2f} functions/s; text_emb "
+          f"{cols['text_emb'].shape}, node_emb {cols['node_emb'].shape}, "
+          f"img_emb {cols['img_emb'].shape} [{card_line()}]", flush=True)
+    for key in ("text_emb", "node_emb", "img_emb"):
+        if not (np.isfinite(cols[key]).all() and cols[key].any()):
+            raise AssertionError(f"staged cache: {key} is empty or not finite")
+    if cols["node_emb"][arrs["node_mask"] == 0].any() \
+            or not (cols["token_ids"][rows_, nodes] == line_ids).all():
+        raise AssertionError("staged cache: line columns misplaced")
+    del embedder, swin
+    torch.cuda.empty_cache()
+    cols["label"] = labels
+    cols["ids"] = np.arange(n, dtype=np.int64)
+    cache_dir = os.path.join(work, "cache")
+    os.makedirs(cache_dir)
+    lo = 0
+    for part, k in zip(("train", "val", "test"), STAGED_SPLITS):
+        np.savez(os.path.join(cache_dir, f"{part}.npz"),
+                 **{key: v[lo:lo + k] for key, v in cols.items()})
+        lo += k
+
+    # (c) the fusion stage through its CLI, the splits on the card
+    fopts = opts + ["TRAIN.DEVICE_DATA", True, "TRAIN.DEVICE_EVAL", True,
+                    "TRAIN.EPOCHS", FUSION_EPOCHS, "PRINT_FREQ", 1,
+                    "SAVE_FREQ", 0, "TRAIN.BEST_SAVE", "params"]
+    out = os.path.join(work, "fusion")
+    try:
+        t0 = time.time()
+        res = fusion_main(["--cache-dir", cache_dir, "--batch-size",
+                           str(FUSION_BATCH), "--output", out, "--device",
+                           dev.type, "--opts", *_opts_args(fopts)])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        fcfg = get_config(SimpleNamespace(
+            cfg=None, opts=fopts + ["DATA.BATCH_SIZE", FUSION_BATCH],
+            output=out))
+        with open(os.path.join(fcfg.OUTPUT, "log_rank0.txt")) as f:
+            lines = [line for line in f if ": loss " in line]
+        losses = [float(x.split(": loss ")[1].split()[0]) for x in lines]
+        rates = [float(x.split("(")[-1].split()[0]) for x in lines]
+        train = load_cached_datasets(
+            {"train": os.path.join(cache_dir, "train.npz")})["train"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    steps = FUSION_EPOCHS * (STAGED_SPLITS[0] // FUSION_BATCH)
+    rate = statistics.median(rates[1:])
+    print(f"staged fusion: train_fusion.main, {FUSION_EPOCHS} epochs of "
+          f"{steps // FUSION_EPOCHS} steps at batch {FUSION_BATCH} + eval in "
+          f"{secs:.1f}s, device-resident splits; logged median "
+          f"{rate:.1f} functions/s = {FUSION_BATCH / rate * 1e3:.2f} ms/step; "
+          f"losses {losses}; val "
+          f"{[{k: round(v, 4) for k, v in h.items() if k in ('acc', 'f1', 'roc_auc')} for h in res['history']]}"
+          f"; test { {k: round(v, 4) for k, v in res['test_metrics'].items() if k in ('acc', 'f1')} } "
+          f"[{card_line()}]", flush=True)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"staged fusion losses: {losses}")
+    if not all(np.isfinite(h["f1"]) for h in res["history"]):
+        raise AssertionError(f"staged fusion metrics: {res['history']}")
+
+    # one fusion step under the profiler
+    model = build_fusion_model(fcfg)
+    init_jax_like(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    opt = build_optimizer(fcfg, build_schedule(fcfg, 4, FUSION_BATCH), model)
+    fb = to_device({k: np.asarray(v)[:FUSION_BATCH]
+                    for k, v in train.columns.items()}, dev)
+    inputs = fusion_inputs(edge_bits(fcfg.DATA.GTYPE))
+    step = lambda: train_step(model, opt, fb, gen,  # noqa: E731
+                              fcfg.MODEL.LABEL_SMOOTHING, inputs)
+    step()
+    profile_run(f"staged fusion train step (batch {FUSION_BATCH})", step)
+
+
 def _category(name: str) -> str:
     if "flat_fwd" in name:
         return "K1 window_attention_flat"
+    if "attn_fwd" in name:
+        return "K7/K8 window attention forward (exact softmax)"
     if "bwd_rowstats" in name:
         return "K5 window_attention_flat_bwd_v1 (row pass)"
     if "bwd_dq" in name or "bwd_dkv" in name or "bwd_dbias" in name:
@@ -1151,20 +1669,32 @@ KERNELS = {
                   "mvuld_tpu/ops/fused_dense.py:74"),
     "dense_bwd": ("mvuld_tpu_torch/csrc/fused_dense.cu",
                   "mvuld_tpu/ops/fused_dense.py:165"),
+    "window_attention_fwd": ("mvuld_tpu_torch/csrc/window_attention.cu",
+                             "mvuld_tpu/ops/window_attention.py:96"),
+    "window_attention_bwd": ("mvuld_tpu_torch/csrc/window_attention.cu",
+                             "mvuld_tpu/ops/window_attention.py:189"),
+    "window_attention_map_fwd": ("mvuld_tpu_torch/csrc/window_attention.cu",
+                                 "mvuld_tpu/ops/window_attention.py:440"),
+    "window_attention_map_bwd": ("mvuld_tpu_torch/csrc/window_attention.cu",
+                                 "mvuld_tpu/ops/window_attention.py:627"),
 }
 
 
 # the path whose rows give a kernel's times in the kernels line: its first
 # main path (K1-K4b the e2e model's, whose rows earlier slices reported)
 SUMMARY_PATH = {"window_attention_flat_bwd_v1": "swin",
-                "dense_fwd": "blockbench", "dense_bwd": "blockbench"}
+                "dense_fwd": "blockbench", "dense_bwd": "blockbench",
+                "window_attention_fwd": "ops", "window_attention_bwd": "ops",
+                "window_attention_map_fwd": "ops",
+                "window_attention_map_bwd": "ops"}
 
 
 def summarise(rows, launches):
     """One entry per kernel. Times: Σ over the shapes of its summary path
     of (launches per bucket-16 forward, per batch-16 training step for the
     attention and MLP backward kernels, per batch-64 fine-tune step for K5,
-    or per blockbench iteration for K6/K6b) × ms per launch; its largest
+    per blockbench iteration for K6/K6b, or per pass of the op entry
+    points for K7-K8b) × ms per launch; its largest
     error over every path. ``launches``: every counted main-path run's
     launches."""
     out = []
@@ -1209,7 +1739,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.time()
-    _build.build_all(["window_attention_flat", "mlp_ln", "fused_dense"])
+    _build.build_all(["window_attention_flat", "window_attention", "mlp_ln",
+                      "fused_dense"])
     print(f"build: {time.time() - t0:.1f}s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -1221,6 +1752,8 @@ def main() -> int:
     check_attention(dev, gen, rows, K1_SHAPES, "e2e")
     check_attention(dev, gen, rows, SWIN_K1_SHAPES, "swin")
     check_attention_fp32(dev, gen)
+    check_layouts(dev, gen, rows)
+    check_layouts_variants(dev, gen)
     check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES)
     check_mlp(dev, gen, rows, "mlp_ln", SWIN_K3_SHAPES, "swin")
     check_mlp(dev, gen, rows, "mlp_ln_res", K4_SHAPES)
@@ -1230,6 +1763,7 @@ def main() -> int:
     check_dense(dev, gen, rows)
     bad = []
     per = lambda r: {"blockbench": "blockbench iteration",  # noqa: E731
+                     "ops": "entry-point pass",
                      "swin": f"batch-{SWIN_BATCH} fine-tune step"}.get(
         r["path"], "batch-16 step" if "bwd" in r["kernel"]
         else "bucket-16 forward")
@@ -1257,11 +1791,15 @@ def main() -> int:
     launches = dict.fromkeys(KERNELS, 0)
     e2e = [c for c in counters if c not in (wa.window_attention_flat_bwd_v1,
                                             fd.dense_fwd, fd.dense_bwd)]
+    layouts = [wa.window_attention_fwd, wa.window_attention_bwd,
+               wa.window_attention_map_fwd, wa.window_attention_map_bwd]
     for phase in (lambda: serve_phase(dev), lambda: train_phase(dev, e2e),
                   lambda: swin_phase(dev, counters),
-                  lambda: blockbench_phase(dev, counters)):
+                  lambda: blockbench_phase(dev, counters),
+                  lambda: ops_phase(dev, layouts)):
         for name, n in phase().items():
             launches[name] += n
+    staged_phase(dev)
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

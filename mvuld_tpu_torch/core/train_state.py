@@ -40,6 +40,12 @@ def image_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {"x": batch["image"]}
 
 
+def _logits(out):
+    """A model's logits: its output, or the first of a tuple (the text
+    classifier also returns its sentence embedding)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   label_smoothing: float = 0.0,
                   soft_targets: Optional[torch.Tensor] = None
@@ -65,7 +71,7 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
     turns into the model's inputs, "label", and mixup's "soft_label" when
     present). Returns the metrics loss, grad_norm (before clipping) and acc
     as device scalars, so the caller decides when to synchronise."""
-    logits = model(**inputs(batch), train=True, gen=gen)
+    logits = _logits(model(**inputs(batch), train=True, gen=gen))
     loss = cross_entropy(logits, batch["label"], label_smoothing,
                          batch.get("soft_label"))
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
@@ -81,7 +87,7 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
 def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor],
               inputs: Inputs = model_inputs) -> torch.Tensor:
     """Inference logits (BatchNorm on its running statistics)."""
-    return model(**inputs(batch), train=False)
+    return _logits(model(**inputs(batch), train=False))
 
 
 @dataclasses.dataclass

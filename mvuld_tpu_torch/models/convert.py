@@ -7,7 +7,9 @@ that dict from any nested mapping of arrays, so exporting takes
 ``np.savez(path, **flatten_variables(variables))`` in the JAX environment.
 ``jax_variables_to_torch`` loads it into an ``EndToEndMVulD`` or into one of
 its towers (``SwinTransformerV2``, ``RobertaEncoder``,
-``MultiDefectAblation``), with the layout rules:
+``MultiDefectAblation``), or into a ``UniXcoderClassifier`` /
+``UniXcoderEmbedder`` (``encoder/…`` and ``classifier``), with the layout
+rules:
 
   Dense ``kernel`` [in, out]       → ``weight`` [out, in]
   Conv ``kernel`` HWIO             → ``weight`` OIHW
@@ -131,6 +133,15 @@ def _roberta(path: List[str], arr: np.ndarray) -> Mapped:
     yield from _prefixed(f"encoder.layer.{m[1]}.", _leaf(mods + rest, arr))
 
 
+def _unixcoder(path: List[str], arr: np.ndarray) -> Mapped:
+    if path[0] == "encoder":
+        yield from _prefixed("encoder.", _roberta(path[1:], arr))
+    elif path[0] == "classifier":
+        yield from _leaf(path, arr)
+    else:
+        raise KeyError(f"unknown UniXcoder variable {'/'.join(path)}")
+
+
 # ------------------------------------------------------------------ fusion
 
 def _fusion(path: List[str], arr: np.ndarray) -> Mapped:
@@ -163,9 +174,12 @@ def _rules(model: nn.Module):
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.roberta import RobertaEncoder
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
+    from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
 
     if isinstance(model, SwinTransformerV2):
         return _swin
+    if isinstance(model, UniXcoderEmbedder):
+        return _unixcoder
     if isinstance(model, RobertaEncoder):
         return _roberta
     if isinstance(model, MultiDefectAblation):
@@ -297,7 +311,7 @@ def _jax_leaf(mod: nn.Module, leaf: str) -> str:
 
 def _inverse_tower(tower: str, name: str) -> str:
     rules = {"swin": _INV_SWIN_BLOCK + _INV_SWIN, "text_encoder": _INV_ROBERTA,
-             "fusion": _INV_FUSION}[tower]
+             "fusion": _INV_FUSION, "leaf": []}[tower]
     for pat, rep in rules:
         name = re.sub(pat, rep, name)
     return name.replace(".", "/")
@@ -311,13 +325,26 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     ``fusion.graph.rs_gcn_0.W.1.running_var`` →
     ``batch_stats/fusion/graph/rs_gcn_0/bn/var``, or of a
     ``SwinTransformerV2`` alone (``params/layers_0_blocks_1/…``,
-    ``params/head/kernel``). SwinV2 blocks take the unscanned
+    ``params/head/kernel``), of a ``MultiDefectAblation`` alone
+    (``params/graph/rs_gcn_0/W/kernel``), or of a ``UniXcoderClassifier`` /
+    ``UniXcoderEmbedder`` (``params/encoder/layer_0/…``,
+    ``params/classifier/kernel``). SwinV2 blocks take the unscanned
     ``layers_{i}_blocks_{j}`` names."""
+    from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
+    from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
 
-    towers = ([("", model, "swin")] if isinstance(model, SwinTransformerV2)
-              else [(t, getattr(model, t), t)
-                    for t in ("swin", "text_encoder", "fusion")])
+    if isinstance(model, SwinTransformerV2):
+        towers = [("", model, "swin")]
+    elif isinstance(model, MultiDefectAblation):
+        towers = [("", model, "fusion")]
+    elif isinstance(model, UniXcoderEmbedder):
+        towers = [("encoder", model.encoder, "text_encoder")]
+        if hasattr(model, "classifier"):
+            towers.append(("classifier", model.classifier, "leaf"))
+    else:
+        towers = [(t, getattr(model, t), t)
+                  for t in ("swin", "text_encoder", "fusion")]
     out: Dict[str, str] = {}
     for prefix, mod, rules in towers:
         modules = dict(mod.named_modules())

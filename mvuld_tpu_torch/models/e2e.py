@@ -38,11 +38,11 @@ class EndToEndMVulD(nn.Module):
                  use_pallas: bool = False, use_pallas_mlp: bool = False,
                  window_resident: bool = False,
                  node_capacity: Optional[int] = None,
-                 swin_remat_stages: tuple = ()):
+                 swin_remat_stages: tuple = (), text_remat: bool = False):
         super().__init__()
         self.text_config, self.swin_config = text_config, swin_config
         self.node_capacity = node_capacity
-        self.text_encoder = RobertaEncoder(text_config)
+        self.text_encoder = RobertaEncoder(text_config, remat=text_remat)
         self.swin = SwinTransformerV2(swin_config, use_pallas=use_pallas,
                                       use_pallas_mlp=use_pallas_mlp,
                                       window_resident=window_resident,

@@ -14,7 +14,9 @@ Module paths follow the JAX tree (``img_proj``, ``graph.gats.gat``,
 ``graph.rs_gcn_{i}``, ``final_bn`` …); the leaf modules carry the
 reference's torch layouts (dgl GATConv, Rs_GCN Conv1d + BatchNorm1d,
 BatchNorm1d running statistics). The head runs in fp32, as in JAX. The
-other registry keys of the zoo belong to a later slice. ``train`` takes
+other registry keys of the zoo belong to a later slice:
+``build_fusion_model`` builds this key from a config and raises for the
+rest. ``train`` takes
 BatchNorm statistics from the batch (flax semantics, ``batch_norm``) and
 draws the 0.2 feature dropout of the GATs, the GAT stack and the hidden
 stack from ``gen``. Torch BatchNorm1d
@@ -155,3 +157,23 @@ class MultiDefectAblation(nn.Module):
                  self.text_proj(text_emb.float(), train)]
         fused = batch_norm(torch.cat(feats, dim=-1), self.final_bn, train)
         return self.final_fc(fused).float()
+
+
+def build_fusion_model(cfg, arch=None, **overrides) -> MultiDefectAblation:
+    """The fusion architecture selected by ``arch`` or MODEL.MULTI.ARCH,
+    sized from MODEL.MULTI, MODEL.NUM_CLASSES, DATA.MAX_NODES and
+    DATA.NODE_NUMERIC. Only ``multi_defect_new_gcn`` is ported."""
+    arch = arch or cfg.MODEL.MULTI.ARCH
+    if arch != "multi_defect_new_gcn":
+        raise NotImplementedError(
+            f"fusion architecture {arch!r}: the port builds "
+            f"multi_defect_new_gcn only (the JAX registry's other keys are "
+            f"ROADMAP Queue 1 item 3, the rest of the model zoo)")
+    m = cfg.MODEL.MULTI
+    kw = dict(num_classes=cfg.MODEL.NUM_CLASSES, hidden=m.HIDDEN,
+              img_dim=m.IMG_DIM, text_dim=m.TEXT_DIM,
+              num_rs_gcn=m.NUM_RS_GCN, num_hidden=m.NUM_HIDDEN_FC,
+              max_nodes=cfg.DATA.MAX_NODES,
+              pos_dim=4 + 2 * int(cfg.DATA.NODE_NUMERIC))
+    kw.update(overrides)
+    return MultiDefectAblation(**kw)

@@ -13,6 +13,10 @@ Given a generator, ``forward`` trains: dropout at ``dropout_rate`` on the
 embeddings, the attention probabilities, the attention output and the MLP
 output — on the kernel path the last is K4's {0,1} keep-mask of hidden's
 shape and dtype, drawn where the plain path draws its dropout mask.
+``remat`` checkpoints each layer in training (``torch.utils.checkpoint``,
+the JAX ``RobertaEncoder(remat=True)``): a layer's activations are rebuilt
+in the backward pass, with the generator put back to where the layer began
+so that the rebuilt layer draws the same dropout masks.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvuld_tpu_torch.models.dropout import dropout, keep_mask
 from mvuld_tpu_torch.models.swin_v2 import layer_norm, linear
@@ -138,6 +143,29 @@ class TransformerLayer(nn.Module):
         return layer_norm(hidden + mlp, ln, c.dtype)
 
 
+def checkpointed_layer(layer: nn.Module, hidden: torch.Tensor,
+                       attn_bias: torch.Tensor, gen) -> torch.Tensor:
+    """``layer(hidden, attn_bias, gen)`` under activation checkpointing. The
+    recomputation rewinds ``gen`` to the layer's start, replays its draws and
+    then puts ``gen`` back where the backward pass found it."""
+    start = gen.get_state() if gen is not None else None
+    first = [True]
+
+    def run(h, b):
+        if first[0] or gen is None:
+            first[0] = False
+            return layer(h, b, gen)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return layer(h, b, gen)
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, hidden, attn_bias, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class Embeddings(nn.Module):
     def __init__(self, config: RobertaConfig):
         super().__init__()
@@ -162,9 +190,10 @@ class RobertaEncoder(nn.Module):
     (encoder-only; the decoder-only ``causal`` mode comes with the UniXcoder
     generation port)."""
 
-    def __init__(self, config: RobertaConfig):
+    def __init__(self, config: RobertaConfig, remat: bool = False):
         super().__init__()
         self.config = config
+        self.remat = remat
         self.embeddings = Embeddings(config)
         self.encoder = Encoder(config)
 
@@ -182,8 +211,10 @@ class RobertaEncoder(nn.Module):
         # additive key-side mask, broadcast over heads and query positions
         attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
                                 ).float()
+        remat = self.remat and torch.is_grad_enabled() and hidden.requires_grad
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias, gen)
+            hidden = (checkpointed_layer(layer, hidden, attn_bias, gen)
+                      if remat else layer(hidden, attn_bias, gen))
         return hidden
 
 

@@ -460,9 +460,12 @@ class SwinTransformerV2(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None,
+                return_features: bool = False) -> torch.Tensor:
         """``train``: DropPath from ``gen`` and checkpointing of
-        ``remat_stages``."""
+        ``remat_stages``. ``return_features``: the pooled embedding even
+        when the model has a head (the frozen featurizer of a fine-tuned
+        classifier)."""
         c = self.config
         if train and c.drop_rate > 0:
             raise ValueError("the port trains with MODEL.DROP_RATE 0 (the "
@@ -490,4 +493,4 @@ class SwinTransformerV2(nn.Module):
             else:
                 x = layer(x, drops)
         x = layer_norm(x, self.norm, c.dtype).mean(dim=1).float()
-        return x if self.head is None else self.head(x)
+        return x if self.head is None or return_features else self.head(x)

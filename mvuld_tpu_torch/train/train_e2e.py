@@ -52,35 +52,6 @@ def _load_cache(cache_path: str, cfg, img_size: int, logger=None
     return None
 
 
-def render_corpus(df, img_dir: str, pos_dir: str, gtype: str = "all",
-                  logger=None) -> Dict[int, str]:
-    """Render every function's CPG to PNG + norm-pos pickle (idempotent);
-    unparseable functions and graphs under two nodes are dropped. Returns
-    {_id: image path}."""
-    from mvuld_tpu_torch.tools.cpg import extract_line_cpg
-    from mvuld_tpu_torch.tools.render import render_cpg, save_norm_pos
-
-    os.makedirs(img_dir, exist_ok=True)
-    os.makedirs(pos_dir, exist_ok=True)
-    paths = {}
-    for _id, code in zip(df._id.tolist(), df.func_before.tolist()):
-        img_path = os.path.join(img_dir, f"{int(_id)}.png")
-        pos_path = os.path.join(pos_dir, f"{int(_id)}.pkl")
-        if not (os.path.exists(img_path) and os.path.exists(pos_path)):
-            cpg = extract_line_cpg(code)
-            if cpg is None:
-                continue
-            g = cpg.filtered(gtype)
-            if len(g.nodes) < 2:
-                continue
-            _img, pos = render_cpg(g, out_path=img_path)
-            save_norm_pos(pos, pos_path)
-        paths[int(_id)] = img_path
-    if logger:
-        logger.info(f"rendered {len(paths)}/{len(df)} graphs → {img_dir}")
-    return paths
-
-
 def build_e2e_cache(df, cfg, tok, cache_path: str, img_size: int,
                     logger=None) -> Dict:
     """Token ids + resized images + graph arrays per partition (npz)."""
@@ -89,6 +60,7 @@ def build_e2e_cache(df, cfg, tok, cache_path: str, img_size: int,
     from mvuld_tpu_torch.data.transforms import load_image, resize_normalize
     from mvuld_tpu_torch.tools.cpg import dep_context_lines, extract_line_cpg
     from mvuld_tpu_torch.tools.render import load_norm_pos
+    from mvuld_tpu_torch.train.precompute import render_corpus
 
     arrs = _load_cache(cache_path, cfg, img_size, logger)
     if arrs is not None:
@@ -141,16 +113,6 @@ def build_e2e_cache(df, cfg, tok, cache_path: str, img_size: int,
     return arrs
 
 
-def get_or_train_tokenizer(df, path: Optional[str], vocab_size: int = 8192):
-    from mvuld_tpu_torch.data.tokenizer import CodeTokenizer
-    if path and os.path.exists(path):
-        return CodeTokenizer.load(path)
-    tok = CodeTokenizer.train(df.func_before.tolist(), vocab_size=vocab_size)
-    if path:
-        tok.save(path)
-    return tok
-
-
 def build_e2e_model(cfg, vocab_size: int, node_capacity=None, **overrides):
     """EndToEndMVulD + its Roberta/Swin configs from one resolved config, so
     a finished run's config.json rebuilds the exact parameter tree (the
@@ -158,7 +120,9 @@ def build_e2e_model(cfg, vocab_size: int, node_capacity=None, **overrides):
     the text encoder's fused MLP (K4); the other overrides are
     EndToEndMVulD keywords (``use_pallas``, ``use_pallas_mlp``,
     ``window_resident``). TRAIN.USE_CHECKPOINT with TRAIN.REMAT_STAGES
-    (empty: every stage) picks the checkpointed SwinV2 stages."""
+    (empty: every stage) picks the checkpointed SwinV2 stages;
+    TRAIN.TEXT_REMAT (auto: follow TRAIN.USE_CHECKPOINT) checkpoints the
+    RoBERTa layers."""
     import torch
 
     from mvuld_tpu_torch.models.e2e import EndToEndMVulD
@@ -184,7 +148,9 @@ def build_e2e_model(cfg, vocab_size: int, node_capacity=None, **overrides):
                   num_hidden=cfg.MODEL.MULTI.NUM_HIDDEN_FC,
                   max_nodes=cfg.DATA.MAX_NODES,
                   pos_dim=4 + 2 * int(cfg.DATA.NODE_NUMERIC),
-                  node_capacity=node_capacity, swin_remat_stages=remat)
+                  node_capacity=node_capacity, swin_remat_stages=remat,
+                  text_remat={"auto": bool(cfg.TRAIN.USE_CHECKPOINT),
+                              "on": True, "off": False}[cfg.TRAIN.TEXT_REMAT])
     kwargs.update(overrides)
     return EndToEndMVulD(rcfg, scfg, **kwargs), rcfg, scfg
 
@@ -242,10 +208,6 @@ def main(argv=None) -> dict:
     cfg = get_config(args)
     logger = create_logger(cfg.OUTPUT)
     device = resolve_device(args.device)
-    if cfg.TRAIN.TEXT_REMAT == "on" or (cfg.TRAIN.TEXT_REMAT == "auto"
-                                        and cfg.TRAIN.USE_CHECKPOINT):
-        raise ValueError("the port does not checkpoint the RoBERTa layers: "
-                         "set TRAIN.TEXT_REMAT off")
 
     # the tokenizer persists next to the checkpoints: the predict CLI must
     # tokenize new functions with the training vocabulary
@@ -256,6 +218,7 @@ def main(argv=None) -> dict:
         vocab = vocab_size_of(tok_path)
         n_functions = len(cache["label"])
     else:
+        from mvuld_tpu_torch.train.train_text import get_or_train_tokenizer
         df = _corpus(args, cfg)
         tok = get_or_train_tokenizer(df, tok_path, vocab_size=4096)
         cache = build_e2e_cache(df, cfg, tok, cache_path, cfg.DATA.IMG_SIZE,

@@ -37,7 +37,7 @@ def build_image_datasets(cfg, df, img_dir, pos_dir, logger):
     from mvuld_tpu_torch.data.loader import ArrayDataset
     from mvuld_tpu_torch.data.transforms import (load_image, resize_normalize,
                                                  train_transform)
-    from mvuld_tpu_torch.train.train_e2e import render_corpus
+    from mvuld_tpu_torch.train.precompute import render_corpus
 
     paths = render_corpus(df, img_dir, pos_dir, cfg.DATA.GTYPE, logger)
     size = cfg.DATA.IMG_SIZE
@@ -225,12 +225,14 @@ def main(argv=None) -> dict:
                            device, inputs=image_inputs)
         logger.info(f"TEST(only) {metrics}")
         return {"test_metrics": metrics}
-    return fit(cfg=cfg, model=run.model, opt=run.opt,
-               train_ds=datasets["train"],
-               val_ds=datasets.get("val", datasets["train"]), device=device,
-               test_ds=datasets.get("test"), output_dir=cfg.OUTPUT,
-               logger=logger, batch_hook=run.batch_hook, patience=10,
-               label_smoothing=run.label_smoothing, inputs=image_inputs)
+    result = fit(cfg=cfg, model=run.model, opt=run.opt,
+                 train_ds=datasets["train"],
+                 val_ds=datasets.get("val", datasets["train"]), device=device,
+                 test_ds=datasets.get("test"), output_dir=cfg.OUTPUT,
+                 logger=logger, batch_hook=run.batch_hook, patience=10,
+                 label_smoothing=run.label_smoothing, inputs=image_inputs)
+    result["model"] = run.model       # the best-F1 state, as ``fit`` left it
+    return result
 
 
 if __name__ == "__main__":

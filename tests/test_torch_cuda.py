@@ -4,7 +4,8 @@ Each test skips when no CUDA device is present (decided in the ``dev``
 fixture, never at import). On the card (``tests/conftest.py`` imports JAX,
 which the GPU machine need not have):
   python -m pytest --noconftest tests/test_torch_cuda.py -q
-Kernels: K1, K2, K5 (attention), K3/K3b, K4/K4b (MLP + LayerNorm), K6/K6b
+Kernels: K1, K2, K5 (flat attention), K7/K7b (map layout), K8/K8b (head
+layout with a mask operand), K3/K3b, K4/K4b (MLP + LayerNorm), K6/K6b
 (dense with its epilogue). Tolerances: fp32 attention 1e-4 (both compute
 in fp32, another summation order); bf16 outputs two bf16 ulps at the
 largest value (both round one fp32 result to bf16).
@@ -269,3 +270,136 @@ def test_matmul_f32_and_its_gradient_on_the_card(dev):
     assert ga.dtype == torch.bfloat16 and gb.dtype == torch.bfloat16
     assert _rel_l2(ga, ones @ b.float().t()) <= 1e-2
     assert _rel_l2(gb, a.float().t() @ ones) <= 1e-2
+
+
+def _attn_inputs(dev, seed, H, N, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev, generator=g))
+    ls = 10.0 + torch.rand(H, device=dev, generator=g)
+    return g, bias, ls
+
+
+def _grad_tols(want, dtype):
+    """dq/dk/dv (or dqkv) fp32 1e-4 of the largest, bf16 two ulps; dbias
+    1e-4 and dscale 1e-3 of their largest (sums over every window)."""
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+    first = [1e-4 * big(t) if dtype == torch.float32 else _bf16_tol(t)
+             for t in want[:-2]]
+    return first + [1e-4 * big(want[-2]), 1e-3 * big(want[-1])]
+
+
+# (Bn, ws, nW of the mask or 0): N not a multiple of the 64-row tile, fewer
+# mask windows than windows
+HEAD_GEOMS = [(6, 4, 0), (8, 8, 4), (9, 7, 3), (4, 9, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", HEAD_GEOMS,
+                         ids=["ws4", "ws8_mask4", "ws7_mask3", "ws9_mask2"])
+def test_head_layout_kernels_match_plain(dev, geom, dtype):
+    """K8 and K8b against their plain versions, mask operand included (a
+    0 / −100 shift mask for a 2×2 grid where nW is 4, random otherwise)."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    Bn, ws, nW = geom
+    H, hd, N = 2, 32, ws * ws
+    g, bias, ls = _attn_inputs(dev, 10, H, N, dtype)
+    q, k, v, gout = (torch.randn(Bn, H, N, hd, device=dev, generator=g
+                                 ).to(dtype) for _ in range(4))
+    mask = None
+    if nW == 4:
+        mask = torch.as_tensor(wa.window_region_mask(ws, ws // 2, 2, 2),
+                               device=dev)
+    elif nW:
+        mask = -100.0 * (torch.rand(nW, N, N, device=dev, generator=g) < 0.3)
+    n0 = (wa.window_attention_fwd.launches, wa.window_attention_bwd.launches)
+    got = wa.window_attention_fwd(q, k, v, bias, ls, mask)
+    want = wa.window_attention_plain(q, k, v, bias, ls, mask)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else _bf16_tol(want)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    grads = wa.window_attention_bwd(q, k, v, bias, ls, gout, mask)
+    wants = wa.window_attention_bwd_plain(q, k, v, bias, ls, gout, mask)
+    assert (wa.window_attention_fwd.launches,
+            wa.window_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    for a, b, t in zip(grads, wants, _grad_tols(wants, dtype)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= t
+
+
+# (B, window rows, window columns, ws, shift)
+MAP_GEOMS = [(2, 1, 1, 4, 0), (2, 2, 2, 8, 4), (1, 3, 2, 7, 3)]
+
+
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["fp32", "mxu_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", MAP_GEOMS,
+                         ids=["ws4", "ws8_shift4", "ws7_ragged_shift3"])
+def test_map_layout_kernels_match_plain(dev, geom, dtype, mxu_bf16):
+    """K7 and K7b read the map in place: fp32 outputs whatever the input
+    dtype, within 1e-4 of the largest value of their plain versions (with
+    ``mxu_bf16`` both round the same operands to bf16 and a value on a
+    rounding boundary may go either way, so two bf16 ulps there)."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    B, nWh, nWw, ws, shift = geom
+    H, hd, N = 3, 32, ws * ws
+    g, bias, ls = _attn_inputs(dev, 11, H, N, dtype)
+    qkv = torch.randn(B, nWh * ws, nWw * ws, 3, H, hd, device=dev,
+                      generator=g).to(dtype)
+    gout = torch.randn(B, nWh * ws, nWw * ws, H, hd, device=dev, generator=g)
+    rel = 2.0 ** -6 if mxu_bf16 else 1e-4
+    big = lambda t: float(t.abs().max())  # noqa: E731
+    got = wa.window_attention_map_fwd(qkv, bias, ls, shift, mxu_bf16)
+    want = wa.window_attention_map_plain(qkv, bias, ls, shift, mxu_bf16)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= rel * big(want)
+    grads = wa.window_attention_map_bwd(qkv, bias, ls, gout, shift, mxu_bf16)
+    wants = wa.window_attention_map_bwd_plain(qkv, bias, ls, gout, shift,
+                                              mxu_bf16)
+    assert grads[0].dtype == torch.float32
+    for a, b, r in zip(grads, wants, (rel, rel, max(rel, 1e-3))):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= r * big(b)
+
+
+def test_window_attention_entry_points_backward_on_card(dev):
+    """Autograd through both entry points launches K8b / K7b, casts dqkv
+    back to qkv's dtype, and the two layouts agree on the same numbers."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    B, nW1, ws, shift, H, hd = 2, 2, 8, 4, 2, 32
+    N = ws * ws
+    g, bias, ls = _attn_inputs(dev, 12, H, N, torch.bfloat16)
+    qkv = torch.randn(B, nW1 * ws, nW1 * ws, 3, H, hd, device=dev,
+                      generator=g).to(torch.bfloat16).requires_grad_()
+    bias.requires_grad_()
+    ls.requires_grad_()
+    n0 = (wa.window_attention_map_bwd.launches, wa.window_attention_bwd.launches)
+    out = wa.window_attention_map(qkv, bias, ls, shift)
+    w = torch.randn(out.shape, device=dev, generator=g)
+    gm = torch.autograd.grad((out * w).sum(), (qkv, bias, ls))
+    assert out.dtype == torch.float32 and gm[0].dtype == torch.bfloat16
+    q, k, v = (t.to(torch.bfloat16).requires_grad_()
+               for t in wa._map_to_windows(qkv.detach(), ws))
+    mask = wa.window_region_mask(ws, shift, nW1, nW1)
+    out_h = wa.window_attention(q, k, v, bias, ls, mask)
+    wh = wa._heads_map_to_windows(w, ws)
+    gh = torch.autograd.grad((out_h.float() * wh).sum(), (q, k, v, bias, ls))
+    assert (wa.window_attention_map_bwd.launches,
+            wa.window_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    out_hm = wa._windows_to_map(out_h.float(), B, nW1 * ws, nW1 * ws, ws)
+    assert float((out_hm - out).detach().abs().max()) <= _bf16_tol(out.detach())
+    dqkv_h = wa._windows_to_map(torch.stack([t.float() for t in gh[:3]]),
+                                B, nW1 * ws, nW1 * ws, ws)
+    assert _rel_l2(dqkv_h, gm[0]) <= 2e-2       # two bf16 roundings apart
+    assert _rel_l2(gh[3], gm[1]) <= 2e-2 and _rel_l2(gh[4], gm[2]) <= 2e-2
+
+
+def test_new_attention_kernels_reject_other_head_dims(dev):
+    from mvuld_tpu_torch.ops import window_attention as wa
+    q = torch.zeros(2, 2, 16, 8, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention_fwd(q, q, q, torch.zeros(2, 16, 16, device=dev),
+                                torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention_map_fwd(torch.zeros(1, 4, 4, 3, 2, 8, device=dev),
+                                    torch.zeros(2, 16, 16, device=dev),
+                                    torch.ones(2, device=dev))

@@ -1,5 +1,5 @@
 """The port stands alone: it imports no JAX and nothing of ``mvuld_tpu``,
-and needs none of the host extras (PIL, yaml, pandas, tokenizers) to
+and needs none of the host extras (PIL, yaml, pandas, cv2, tokenizers) to
 import. ``chip_smoke.py`` refuses to run without a CUDA device."""
 
 import ast
@@ -47,13 +47,19 @@ def test_package_imports_with_jax_and_host_extras_blocked():
     code = """
 import pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "pandas",
-             "tokenizers", "matplotlib"):
+             "tokenizers", "matplotlib", "cv2"):
     sys.modules[name] = None
 import mvuld_tpu_torch
 import mvuld_tpu_torch.train.predict
 import mvuld_tpu_torch.train.train_swin
 import mvuld_tpu_torch.tools.blockbench
 import mvuld_tpu_torch.models.swin_convert
+import mvuld_tpu_torch.models.unixcoder
+import mvuld_tpu_torch.tools.storage
+import mvuld_tpu_torch.train.precompute
+import mvuld_tpu_torch.train.train_text
+import mvuld_tpu_torch.train.train_fusion
+import mvuld_tpu_torch.train.pipeline
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
@@ -116,6 +122,22 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         dense_fwd(torch.zeros(8, 16, device=m), torch.zeros(16, 32, device=m),
                   torch.zeros(32, device=m))
+    from mvuld_tpu_torch.ops import window_attention as wa
+    q = torch.zeros(4, 2, 16, 32, device=m)
+    qkv = torch.zeros(1, 8, 8, 3, 2, 32, device=m)
+    bias, ls = torch.zeros(2, 16, 16, device=m), torch.ones(2, device=m)
+    for call in (lambda: wa.window_attention_fwd(q, q, q, bias, ls),
+                 lambda: wa.window_attention_bwd(q, q, q, bias, ls, q),
+                 lambda: wa.window_attention(q, q, q, bias, ls),
+                 lambda: wa.window_attention_map_fwd(qkv, bias, ls, 2),
+                 lambda: wa.window_attention_map_bwd(qkv, bias, ls,
+                                                     qkv[:, :, :, 0], 2),
+                 lambda: wa.window_attention_map(qkv, bias, ls)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert not any(f.launches for f in (
+        wa.window_attention_fwd, wa.window_attention_bwd,
+        wa.window_attention_map_fwd, wa.window_attention_map_bwd))
     assert window_attention_flat.launches == 0
     assert mlp_ln.launches == 0 and mlp_ln_res.launches == 0
     assert dense_fwd.launches == 0
