@@ -50,7 +50,7 @@ Phases, in order; any failure exits non-zero:
      forward and backward through autograd at stage-1 (shifted) and stage-3
      full width, K7/K7b/K8/K8b launches counted, the map and head layouts
      held against each other on the same numbers re-laid and both against
-     ``flat_attention`` (K1/K2);
+     ``flat_attention`` (K1/K2); a profile of one K8b and one K7b launch;
   8. the staged path at full width from seeded arrays: a warm-up and three
      AdamW steps of the text classifier (``build_text_training``,
      UniXcoder-base, batch 16 × 512 tokens), the trained encoder and
@@ -439,7 +439,9 @@ def check_layouts(dev, gen, rows):
     """K8/K8b (head layout, the shift mask as a [nW, N, N] operand) and
     K7/K7b (map layout read in place, mask synthesised, fp32 outputs) at
     every stage's bucket-16 shape, bf16 inputs, against their plain versions
-    over chunks of windows. Tolerances as K1/K2's: bf16 outputs two bf16
+    over chunks of windows. The backward kernels' bound is taken at the
+    tensor-core and special-function rates (they run on the tensor cores),
+    the forward kernels' at the fp32 rate as before. Tolerances as K1/K2's: bf16 outputs two bf16
     ulps at the largest value, fp32 outputs 1e-4 of the largest; dbias 1e-4
     and dscale 1e-3 of their largest. Library yardstick: SDPA with a float
     mask (and its backward with the mask's gradient), once per shape. The
@@ -496,7 +498,11 @@ def check_layouts(dev, gen, rows):
         elems = Bn * H * N * hd
         sq = H * N * N * 4
         ops_f = max(4 * elems * N / FP32_FLOP_S, Bn * H * N * N / SFU_EXP_S)
-        ops_b = max(10 * elems * N / FP32_FLOP_S, Bn * H * N * N / SFU_EXP_S)
+        # K8b/K7b run their products on the tensor cores, so their bound is
+        # the least time the card needs for the work whatever implements
+        # it: 10·Bn·H·N²·hd flops at the bf16 tensor-core rate, or one exp
+        # per logit at the special-function rate (both "operations")
+        ops_b = max(10 * elems * N / BF16_TC_FLOP_S, Bn * H * N * N / SFU_EXP_S)
         mask_bytes = 0 if mask is None else mask.numel() * 4
 
         def row(kernel, err, tol, ok, detail, ms, plain_ms, lib, nbytes, ops):
@@ -637,6 +643,12 @@ def check_layouts_variants(dev, gen):
            wa.window_attention_map_bwd(qkv, bias, ls, g, 0, True),
            wa.window_attention_map_bwd_plain(qkv, bias, ls, g, 0, True),
            [ulps, 1e-3, 1e-2])
+    # what the split operands cost against one bf16 product per term
+    ms = [time_ms(lambda m=m: wa.window_attention_map_bwd(qkv, bias, ls, g, 0,
+                                                          m), 5)
+          for m in (False, True)]
+    print(f"K7b stage3: split operands {ms[0]:.3f} ms, mxu_bf16 {ms[1]:.3f} ms "
+          f"[{card_line()}]", flush=True)
 
 
 def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
@@ -1418,6 +1430,12 @@ def ops_phase(dev, counters):
         if not (o_err <= o_tol and max(l2) <= 2e-2):
             raise AssertionError(f"{label}: the flat and map layouts "
                                  f"disagree")
+        # where a backward launch spends its time, by kernel
+        with torch.no_grad():
+            profile_run(f"{label} K8b", lambda: wa.window_attention_bwd(
+                q, k, v, bias, ls, wh.to(torch.bfloat16), mask))
+            profile_run(f"{label} K7b", lambda: wa.window_attention_map_bwd(
+                qkv, bias, ls, w, shift))
         del qkv, q, k, v, w, wh, out_m, out_h, gm, gh, flat, out_f, gf
         torch.cuda.empty_cache()
     return total
@@ -1592,6 +1610,8 @@ def _category(name: str) -> str:
         return "K1 window_attention_flat"
     if "attn_fwd" in name:
         return "K7/K8 window attention forward (exact softmax)"
+    if "exact_bwd" in name or "prep_operands" in name:
+        return "K7b/K8b window attention backward (exact softmax)"
     if "bwd_rowstats" in name:
         return "K5 window_attention_flat_bwd_v1 (row pass)"
     if "bwd_dq" in name or "bwd_dkv" in name or "bwd_dbias" in name:
@@ -1622,19 +1642,22 @@ def profile_run(label: str, fn) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
-    busy = sum(by_kernel.values())
+    for _ in range(2):      # a trace now and then comes back without device
+        with profile(activities=[ProfilerActivity.CPU,     # events: once more
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms = e.time_range.elapsed_us() / 1e3
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
+        if by_kernel:
+            break
+    busy = max(sum(by_kernel.values()), 1e-9)
     cats = {}
     for name, ms in by_kernel.items():
         cats[_category(name)] = cats.get(_category(name), 0.0) + ms
@@ -1743,9 +1766,13 @@ def main() -> int:
                       "fused_dense"])
     print(f"build: {time.time() - t0:.1f}s", flush=True)
     for name, log in _build.BUILD_LOG.items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                # the mangled kernel name and template arguments
+                entry = line.split("'")[1].split("_cu_")[-1].split("EEv")[0]
             if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+                print(f"ptxas {name} {entry[-48:]}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []

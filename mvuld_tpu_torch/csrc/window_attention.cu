@@ -32,28 +32,62 @@
 // 64 x 64 tile of p in shared memory and adds p.v. p is formed whole before
 // the second product because the bf16 variants round p itself (K8 rounds p
 // to v's type, `mxu_bf16` rounds every product operand), and a rounded
-// unnormalised e would not be that number. The backward's first kernel
-// (`bwd_rowstats`) is the same walk with dp beside s: per row it writes
-// lr = -(max + log sum) and t = sum(dp * p); the three kernels after it form
-// p = exp(s + lr), ds = p * (dp - t) for their tile, each owning one
-// reduction (dq over keys, dk/dv over queries, dbias and dscale over every
-// window in a fixed order), so no sum needs an atomic. dscale is the direct
-// sum of ds * s_cos, per (key tile, query tile, head) block and then over
-// the blocks of a head in a fixed order.
+// unnormalised e would not be that number. Its products are fp32 FMAs on
+// 4 x 4 register micro-tiles: about 6*N^2*hd FMA-flops per window and head
+// (s twice) against the bound's 4.
 //
-// Products are fp32 FMAs on 4 x 4 register micro-tiles; with `round_ops`
-// (`mxu_bf16`) q^, k^, v, g, p and ds are rounded to bf16 where they are
-// staged and the sums stay fp32, which is what the TPU kernel's bf16 MXU
-// operands compute. Head dim 32 (SwinV2's). Written to be right and simple:
-// about 6*N^2*hd FMA-flops per window and head forward (s twice) against the
-// bound's 4, and about 22 backward (s and dp by each of four kernels)
-// against 10.
+// The backward (K8b, K7b) runs on the bf16 tensor cores (attn_mma.cuh).
+// What bounds it: 10*N^2*hd flops per window and head are 0.2 ms of the
+// tensor cores at SwinV2-Base-448's stage 1 (Bn 256, H 4, N 784), one exp
+// per logit 0.15 ms of the special-function units, the operands 0.13 ms of
+// device memory; what it really pays is the per-logit work around the
+// products (bias and mask reads from L2, the exp, the bf16 splits) and the
+// copies of operand tiles into shared memory. The design:
+//   - `prep_operands` normalises q and k in fp32 and writes every product
+//     operand once as bf16 terms in the head layout, whatever the input
+//     layout and type. With `round_ops` (`mxu_bf16`) only the first term of
+//     each is used, one MMA per product: operands rounded to bf16, sums
+//     fp32, the TPU kernel's bf16 MXU arithmetic. Otherwise the operands
+//     are split: q^ and k^ into three terms and six MMAs per logit product
+//     (their error is multiplied by the scale, up to 100, ahead of the
+//     exp), p, ds, and v, g where they are fp32, into two terms and three
+//     MMAs; v and g that already are bf16 have one term.
+//   - one pass over the logits per reduction: row statistics (lr = -(max +
+//     log sum exp) in log2 units, t = sum(dp * p)), dq over the keys,
+//     dk/dv over the queries, dbias and dscale over the windows. Each pass
+//     forms s and dp of a 16 x 16 block with `mma.sync.m16n8k16`, keeps p
+//     and ds in the accumulator registers, and feeds them, packed to bf16,
+//     straight back as the A fragment of the second product: no tile of
+//     logits passes through shared memory and no sum needs an atomic. dq
+//     and dk/dv are two kernels because the second product of one needs
+//     the block the other holds transposed (the dk/dv pass forms s^T).
+//   - a block owns 16 W rows of a window and head, W warps of 16 rows, the
+//     ceil(N / 16) strips spread evenly over the fewest blocks of at most
+//     8 warps: N = 784 is 7 blocks of 7 warps, N = 196 two of 7 (13
+//     strips), N = 49 one of 4, and the walk over the other side goes in
+//     steps of 16 up to ceil16(N), so nothing is ragged beyond N's own
+//     last strip. Tiles of 64 rows arrive through `cp.async`, double
+//     buffered; rows are 80 bytes apart so `ldmatrix` has no bank conflict.
+//   - the mask costs no per-logit integer work: band flags per token (in
+//     the shift band's columns / rows) are staged once per block and a
+//     logit compares two flags under the window's mask; bias and a mask
+//     operand are read as 8-byte pairs along the keys, one 16 x 16 block
+//     ahead of their use.
+//   - dbias is summed over windows in accumulator fragments by a block that
+//     owns a 16 W x 64 tile of one head (its bias in registers) and walks
+//     a chunk of the windows in order; chunks and dscale's per-block sums
+//     are added by `sum_partials` in a fixed order, so two runs and the two
+//     layouts give the same bits.
+// Head dim 32 (SwinV2's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attn_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -132,38 +166,25 @@ __device__ __forceinline__ float logit(const Geo& G, const WinMask& W,
   return x;
 }
 
-// Query-side tile of window b, head h, rows i0..i0+63 (zero past N): Qs = q^
-// (rounded under round_ops), qn, and where given Gs = g and the row
-// statistics lr, tt.
-template <typename T, typename TO>
-__device__ void stage_query(const T* q, const TO* g, const float* lr_g,
-                            const float* tt_g, const Geo& G, int b, int h,
-                            int i0, float* Qs, float* Gs, float* lr, float* tt,
-                            float* qn) {
+// Query tile of window b, head h, rows i0..i0+63 (zero past N): Qs = q^
+// (rounded under round_ops).
+template <typename T>
+__device__ void stage_query(const T* q, const Geo& G, int b, int h, int i0,
+                            float* Qs) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BT; r += THREADS / 32) {
     const int i = i0 + r;
-    float qv = 0.f, gv = 0.f;
-    if (i < G.N) {
-      qv = to_f(q[at(G.in, b, h, i) + lane]);
-      if (g != nullptr) gv = to_f(g[at(G.out, b, h, i) + lane]);
-    }
+    const float qv = i < G.N ? to_f(q[at(G.in, b, h, i) + lane]) : 0.f;
     const float n = rsqrtf(warp_sum(qv * qv) + 1e-12f);
     Qs[r * LD + lane] = rnd(qv * n, G.round_ops);
-    if (Gs != nullptr) Gs[r * LD + lane] = rnd(gv, G.round_ops);
-    if (lane == 0) {
-      const size_t stat = ((size_t)b * G.H + h) * G.N + i;
-      qn[r] = n;
-      if (lr != nullptr) lr[r] = (lr_g != nullptr && i < G.N) ? lr_g[stat] : 0.f;
-      if (tt != nullptr) tt[r] = (tt_g != nullptr && i < G.N) ? tt_g[stat] : 0.f;
-    }
   }
 }
 
-// Key-side tile: Ks = k^, Vs = v (rounded under round_ops), kn; zero past N.
+// Key tile: Ks = k^ and, where given, Vs = v (rounded under round_ops);
+// zero past N.
 template <typename T>
 __device__ void stage_key(const T* k, const T* v, const Geo& G, int b, int h,
-                          int j0, float* Ks, float* Vs, float* kn) {
+                          int j0, float* Ks, float* Vs) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BT; r += THREADS / 32) {
     const int j = j0 + r;
@@ -176,41 +197,29 @@ __device__ void stage_key(const T* k, const T* v, const Geo& G, int b, int h,
     const float n = rsqrtf(warp_sum(kv * kv) + 1e-12f);
     Ks[r * LD + lane] = rnd(kv * n, G.round_ops);
     if (Vs != nullptr) Vs[r * LD + lane] = rnd(vv, G.round_ops);
-    if (kn != nullptr && lane == 0) kn[r] = n;
   }
 }
 
-// This thread's 4 x 4 micro-tile of s_cos = q^.k^ and, with DP, dp = g.v:
-// rows ty + 16a of the query tile, columns tx + 16c of the key tile.
-template <bool DP>
-__device__ __forceinline__ void dots(const float* Qs, const float* Gs,
-                                     const float* Ks, const float* Vs,
-                                     float s[4][4], float dp[4][4]) {
+// This thread's 4 x 4 micro-tile of s_cos = q^.k^: rows ty + 16a of the
+// query tile, columns tx + 16c of the key tile.
+__device__ __forceinline__ void dots(const float* Qs, const float* Ks,
+                                     float s[4][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+    for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < 32; ++d) {
-    float qa[4], ga[4], kc[4], vc[4];
+    float qa[4], kc[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = Qs[(ty + 16 * a) * LD + d];
-      if (DP) ga[a] = Gs[(ty + 16 * a) * LD + d];
-    }
+    for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * LD + d];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kc[c] = Ks[(tx + 16 * c) * LD + d];
-      if (DP) vc[c] = Vs[(tx + 16 * c) * LD + d];
-    }
+    for (int c = 0; c < 4; ++c) kc[c] = Ks[(tx + 16 * c) * LD + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] += qa[a] * kc[c];
-        if (DP) dp[a][c] += ga[a] * vc[c];
-      }
+      for (int c = 0; c < 4; ++c) s[a][c] += qa[a] * kc[c];
   }
 }
 
@@ -236,11 +245,9 @@ __device__ __forceinline__ void logits(const Geo& G, const WinMask& W,
 
 // One key tile's step of the running row statistics: the 16 threads of a
 // row (adjacent lanes) agree on the tile's maximum, rescale what they hold
-// and add the tile's exp sums (and, with dp, the sums of exp * dp).
-template <bool DP>
-__device__ __forceinline__ void online_step(const float x[4][4],
-                                            const float dp[4][4], float m[4],
-                                            float l[4], float st[4]) {
+// and add the tile's exp sums.
+__device__ __forceinline__ void online_step(const float x[4][4], float m[4],
+                                            float l[4]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     float tmax = fmaxf(fmaxf(x[a][0], x[a][1]), fmaxf(x[a][2], x[a][3]));
@@ -248,21 +255,13 @@ __device__ __forceinline__ void online_step(const float x[4][4],
     for (int off = 1; off < 16; off <<= 1)
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
     const float mn = fmaxf(m[a], tmax);
-    float ue = 0.f, ut = 0.f;
+    float ue = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float e = expf(x[a][c] - mn);
-      ue += e;
-      if (DP) ut += e * dp[a][c];
-    }
+    for (int c = 0; c < 4; ++c) ue += expf(x[a][c] - mn);
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
+    for (int off = 1; off < 16; off <<= 1)
       ue += __shfl_xor_sync(0xffffffffu, ue, off);
-      if (DP) ut += __shfl_xor_sync(0xffffffffu, ut, off);
-    }
-    const float cf = expf(m[a] - mn);   // 0 on the first tile (m = -inf)
-    l[a] = l[a] * cf + ue;
-    if (DP) st[a] = st[a] * cf + ut;
+    l[a] = l[a] * expf(m[a] - mn) + ue;   // the factor is 0 on the first tile
     m[a] = mn;
   }
 }
@@ -279,14 +278,12 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(
   float* Ks = Qs + BT * LD;
   float* Vs = Ks + BT * LD;
   float* P = Vs + BT * LD;          // [BT][LDS]
-  float* qn = P + BT * LDS;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * BT;
   const float sc = scale[h];
   const WinMask W = win_mask(G, mask, b);
-  stage_query<T, TO>(q, nullptr, nullptr, nullptr, G, b, h, i0, Qs, nullptr,
-                     nullptr, nullptr, qn);
+  stage_query<T>(q, G, b, h, i0, Qs);
 
   float m[4], l[4];
 #pragma unroll
@@ -296,12 +293,12 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(
   }
   for (int j0 = 0; j0 < G.N; j0 += BT) {      // first walk: max and sum
     __syncthreads();
-    stage_key<T>(k, v, G, b, h, j0, Ks, nullptr, nullptr);
+    stage_key<T>(k, v, G, b, h, j0, Ks, nullptr);
     __syncthreads();
     float s[4][4], x[4][4];
-    dots<false>(Qs, nullptr, Ks, nullptr, s, x);   // no dp: x is scratch
+    dots(Qs, Ks, s);
     logits(G, W, bias, sc, h, i0, j0, s, x);
-    online_step<false>(x, x, m, l, l);             // no dp sums either
+    online_step(x, m, l);
   }
 
   float acc[4][2];
@@ -309,10 +306,10 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(
   for (int a = 0; a < 4; ++a) acc[a][0] = acc[a][1] = 0.f;
   for (int j0 = 0; j0 < G.N; j0 += BT) {      // second walk: p and p.v
     __syncthreads();
-    stage_key<T>(k, v, G, b, h, j0, Ks, Vs, nullptr);
+    stage_key<T>(k, v, G, b, h, j0, Ks, Vs);
     __syncthreads();
     float s[4][4], x[4][4];
-    dots<false>(Qs, nullptr, Ks, nullptr, s, x);
+    dots(Qs, Ks, s);
     logits(G, W, bias, sc, h, i0, j0, s, x);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -343,300 +340,592 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(
 }
 
 // --------------------------------------------------------------- backward
+//
+// Five kernels on the helpers of attn_mma.cuh. `prep_operands` normalises q
+// and k in fp32 and writes every product operand once as bf16 terms in the
+// head layout (q^, k^ three terms, v and g one or two), so the kernels
+// after it copy tiles with `cp.async` and do no staging arithmetic.
+// `exact_bwd_rows` serves three of them: a block owns 16 W "own" rows of
+// one window and head (W warps, 16 rows each: queries for ROWSTATS and DQ,
+// keys for DKV), keeps their A fragments in registers and walks the other
+// side in double-buffered tiles of TK rows, 16 at a time: s and dp of a
+// 16 x 16 block on the tensor cores, the logits and p, ds in registers,
+// and the second products straight from those registers. `exact_bwd_sums`
+// owns a 16 W x TJ tile of one head and walks a range of windows.
 
-// Row statistics of the recomputed softmax: lr = -(max + log sum exp), so
-// that p = exp(s + lr), and t = sum(dp * p). [Bn, H, N] fp32 each.
+constexpr int TK = 64;     // other-side rows per tile
+constexpr int TJ = 64;     // key columns of a dbias tile
+constexpr int MAXW = 8;    // warps per block at most
+constexpr int PX = 3;      // terms of q^ and k^ (six products per logit)
+enum { ROWSTATS = 0, DQ = 1, DKV = 2 };
+
+// bf16 terms of a product operand of this type
+template <typename T> struct Terms { static constexpr int n = 2; };
+template <> struct Terms<__nv_bfloat16> { static constexpr int n = 1; };
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The staged operands: term p of each at + p * stride, rows [Bn, H, N] of
+// 32 bf16 back to back; qn, kn [Bn, H, N] the normalisation factors.
+struct Staged {
+  __nv_bfloat16 *q, *k, *v, *g;
+  size_t stride;
+  float *qn, *kn;
+};
+
+// One thread per eight values of a (window, head, token) row.
 template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS) bwd_rowstats(
+__global__ void __launch_bounds__(256) prep_operands(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ mask, const TO* __restrict__ g,
-    float* __restrict__ lr_g, float* __restrict__ tt_g, Geo G) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Gs = Qs + BT * LD;
-  float* Ks = Gs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* qn = Vs + BT * LD;
+    const TO* __restrict__ g, Staged S, int Bn, Geo G) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = idx >> 2, total = (size_t)Bn * G.H * G.N;
+  const int c = static_cast<int>(idx & 3);
+  const bool in = row < total;          // whole quads; the shuffles need all
+  const size_t rr = in ? row : 0;
+  const int i = static_cast<int>(rr % G.N), h = static_cast<int>(rr / G.N % G.H);
+  const int b = static_cast<int>(rr / G.N / G.H);
+  const size_t src = at(G.in, b, h, i) + 8 * c, dst = rr * HD + 8 * c;
+  float x[8];
+  load8(q + src, x);
+  float n = normalise8(x);
+  if (in) {
+    store_terms<PX>(x, S.q + dst, S.stride);
+    if (c == 0) S.qn[rr] = n;
+  }
+  load8(k + src, x);
+  n = normalise8(x);
+  if (!in) return;
+  store_terms<PX>(x, S.k + dst, S.stride);
+  if (c == 0) S.kn[rr] = n;
+  load8(v + src, x);
+  store_terms<Terms<T>::n>(x, S.v + dst, S.stride);
+  load8(g + at(G.out, b, h, i) + 8 * c, x);
+  store_terms<Terms<TO>::n>(x, S.g + dst, S.stride);
+}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * BT;
-  const float sc = scale[h];
-  const WinMask W = win_mask(G, mask, b);
-  stage_query<T, TO>(q, g, nullptr, nullptr, G, b, h, i0, Qs, Gs, nullptr,
-                     nullptr, qn);
-  float m[4], l[4], st[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -CUDART_INF_F;
-    l[a] = st[a] = 0.f;
-  }
-  for (int j0 = 0; j0 < G.N; j0 += BT) {
-    __syncthreads();
-    stage_key<T>(k, v, G, b, h, j0, Ks, Vs, nullptr);
-    __syncthreads();
-    float s[4][4], dp[4][4], x[4][4];
-    dots<true>(Qs, Gs, Ks, Vs, s, dp);
-    logits(G, W, bias, sc, h, i0, j0, s, x);
-    online_step<true>(x, dp, m, l, st);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = i0 + ty + 16 * a;
-      if (i < G.N) {
-        const size_t stat = ((size_t)b * G.H + h) * G.N + i;
-        lr_g[stat] = -(m[a] + logf(l[a]));
-        tt_g[stat] = st[a] / l[a];
+// The logit source of the exact softmax: x = s_cos * scale + (bias + mask),
+// p = 2^(x log2e + lr2) with lr2 = -(row max + log2 of the row sum) in
+// log2 units. The synthesised shift mask compares per-token band flags
+// (1: column in the shift band, 2: row in it) under the window's `wm`
+// (1: last window column, 2: last window row; 0: no mask), so a logit
+// costs an xor and a test, no division.
+struct ExactLogits {
+  const float* bias;            // bias[h]
+  const float* mask;            // this window's mask operand, or null
+  const unsigned char* flags;   // [N16] in shared memory
+  float sc;
+  int N, wm;
+
+  // `from` ([N, N]) at the accumulator quad (ra, c), (ra, c+1), (rb, c),
+  // (rb, c+1). KEYROWS: rows are keys and columns queries (the transposed
+  // block). Rows and columns past N read a clamped address.
+  template <bool KEYROWS>
+  __device__ __forceinline__ void fetch(const float* from, int ra, int rb, int c,
+                                        float (&a)[4]) const {
+    const int rac = min(ra, N - 1), rbc = min(rb, N - 1);
+    if (!KEYROWS && !(N & 1)) {           // two neighbouring keys: 8-byte loads
+      const int cc = min(c, N - 2);
+      const float2 u = *reinterpret_cast<const float2*>(from + (size_t)rac * N + cc);
+      const float2 w = *reinterpret_cast<const float2*>(from + (size_t)rbc * N + cc);
+      a[0] = u.x; a[1] = u.y; a[2] = w.x; a[3] = w.y;
+    } else {
+      const int c0 = min(c, N - 1), c1 = min(c + 1, N - 1);
+      if (KEYROWS) {
+        a[0] = from[(size_t)c0 * N + rac]; a[1] = from[(size_t)c1 * N + rac];
+        a[2] = from[(size_t)c0 * N + rbc]; a[3] = from[(size_t)c1 * N + rbc];
+      } else {
+        a[0] = from[(size_t)rac * N + c0]; a[1] = from[(size_t)rac * N + c1];
+        a[2] = from[(size_t)rbc * N + c0]; a[3] = from[(size_t)rbc * N + c1];
       }
     }
   }
-}
 
-// The micro-tile's p, ds and s_cos from the staged tiles and row statistics
-// (zero outside N x N).
-__device__ __forceinline__ void p_ds_tile(
-    const float* Qs, const float* Gs, const float* Ks, const float* Vs,
-    const float* lr, const float* tt, const float* bias, float sc,
-    const Geo& G, const WinMask& W, int h, int i0, int j0, float p[4][4],
-    float ds[4][4], float s[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float dp[4][4];
-  dots<true>(Qs, Gs, Ks, Vs, s, dp);
+  // bias + mask operand of the quad: what a logit adds to s_cos * scale
+  template <bool KEYROWS>
+  __device__ __forceinline__ void addends(int ra, int rb, int c, float (&a)[4]) const {
+    fetch<KEYROWS>(bias, ra, rb, c, a);
+    if (mask != nullptr) {
+      float m[4];
+      fetch<KEYROWS>(mask, ra, rb, c, m);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, i = i0 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      float pv = 0.f;
-      if (i < G.N && j < G.N)
-        pv = expf(logit(G, W, bias, sc, h, i, j, s[a][c]) + lr[r]);
-      p[a][c] = pv;
-      ds[a][c] = pv * (dp[a][c] - tt[r]);
+      for (int e = 0; e < 4; ++e) a[e] += m[e];
     }
+  }
+
+  // the quad's logits from its s_cos and addends; fa, fb the rows' band
+  // flags; with `edge` a column past N gives -inf (p = 0)
+  __device__ __forceinline__ void logits(int c, int fa, int fb, const float (&s)[4],
+                                         const float (&a)[4], float (&x)[4],
+                                         bool edge) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = fmaf(s[e], sc, a[e]);
+    if (wm != 0) {
+      const int f0 = flags[c], f1 = flags[c + 1];
+      if ((fa ^ f0) & wm) x[0] += -100.f;
+      if ((fa ^ f1) & wm) x[1] += -100.f;
+      if ((fb ^ f0) & wm) x[2] += -100.f;
+      if ((fb ^ f1) & wm) x[3] += -100.f;
+    }
+    if (edge) {
+      if (c >= N) x[0] = x[2] = -CUDART_INF_F;
+      if (c + 1 >= N) x[1] = x[3] = -CUDART_INF_F;
+    }
+  }
+
+  __device__ __forceinline__ float p(float x, float lr2) const {
+    return fast_exp2(fmaf(x, LOG2E, lr2));
+  }
+};
+
+// band flags of every token of a window (zero when no mask is synthesised)
+__device__ __forceinline__ void stage_flags(const Geo& G, bool synth, int N16,
+                                            unsigned char* flags) {
+  for (int i = threadIdx.x; i < N16; i += blockDim.x) {
+    int f = 0;
+    if (synth && i < G.N)
+      f = (i % G.ws >= G.ws - G.shift ? 1 : 0) | (i / G.ws >= G.ws - G.shift ? 2 : 0);
+    flags[i] = static_cast<unsigned char>(f);
   }
 }
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS) bwd_dq(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ mask, const TO* __restrict__ g,
-    const float* __restrict__ lr_g, const float* __restrict__ tt_g,
-    TO* __restrict__ dq, Geo G) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Gs = Qs + BT * LD;
-  float* Ks = Gs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* DS = Vs + BT * LD;        // [BT][LDS]
-  float* lr = DS + BT * LDS;
-  float* tt = lr + BT;
-  float* qn = tt + BT;
+__device__ __forceinline__ int window_bands(const Geo& G, bool synth, int b) {
+  if (!synth) return 0;
+  const int wid = b % (G.nWh * G.nWw);
+  return (wid % G.nWw == G.nWw - 1 ? 1 : 0) | (wid / G.nWw == G.nWh - 1 ? 2 : 0);
+}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * BT;
-  const float sc = scale[h];
-  const WinMask W = win_mask(G, mask, b);
-  stage_query<T, TO>(q, g, lr_g, tt_g, G, b, h, i0, Qs, Gs, lr, tt, qn);
+template <typename TO>
+struct BwdP {
+  Staged S;
+  const float *bias, *scale, *mask;
+  float *lr, *tt;            // [Bn, H, N]: lr2 and t = sum(dp * p)
+  TO *dq, *dk, *dv;
+};
 
-  float acc[4][2];
+// The gradient of the normalised rows back through x^ = x * rsqrt(sum x^2):
+// out = (acc*sc - x^ (x^ . acc*sc)) * n for the warp's rows rl (quad row g)
+// and rl + 8 of the block's own tile, x^ summed from its staged terms, n
+// the rows' factors. A null pointer skips that row's store.
+template <typename TO>
+__device__ __forceinline__ void store_normalised(const float (&acc)[4][4], float sc,
+                                                 const __nv_bfloat16* ownX, int so,
+                                                 int rl, float na, float nb,
+                                                 TO* out_a, TO* out_b) {
+  const int t4 = threadIdx.x & 3;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) acc[a][0] = acc[a][1] = 0.f;
-  for (int j0 = 0; j0 < G.N; j0 += BT) {
-    __syncthreads();   // staging done / previous tile consumed
-    stage_key<T>(k, v, G, b, h, j0, Ks, Vs, nullptr);
-    __syncthreads();
-    float p[4][4], ds[4][4], s[4][4];
-    p_ds_tile(Qs, Gs, Ks, Vs, lr, tt, bias, sc, G, W, h, i0, j0, p, ds, s);
+  for (int r = 0; r < 2; ++r) {
+    const int row = rl + 8 * r;
+    float2 xv[4];
+    float dot = 0.f;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int nt = 0; nt < 4; ++nt) {
+      xv[nt] = staged_pair<PX>(ownX, so, row, 8 * nt + 2 * t4);
+      dot += xv[nt].x * (acc[nt][2 * r] * sc) + xv[nt].y * (acc[nt][2 * r + 1] * sc);
+    }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    const float n = r == 0 ? na : nb;
+    TO* out = r == 0 ? out_a : out_b;
+    if (out == nullptr) continue;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        DS[(ty + 16 * a) * LDS + tx + 16 * c] = rnd(ds[a][c], G.round_ops);
-    __syncthreads();
-    for (int j = 0; j < BT; ++j) {
-      const float k0 = Ks[j * LD + tx], k1 = Ks[j * LD + tx + 16];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float dsv = DS[(ty + 16 * a) * LDS + j];
-        acc[a][0] += dsv * k0;
-        acc[a][1] += dsv * k1;
+    for (int nt = 0; nt < 4; ++nt)
+      store2(out + 8 * nt + 2 * t4, (acc[nt][2 * r] * sc - xv[nt].x * dot) * n,
+             (acc[nt][2 * r + 1] * sc - xv[nt].y * dot) * n);
+  }
+}
+
+// ROWSTATS: lr2 and t of the block's query rows. DQ: dq of them. DKV: dk
+// and dv of the block's key rows. PV, PG: the terms of v and g. Grid (own
+// tiles, H, Bn), 32 W threads.
+template <int PV, int PG, typename TO, int MODE>
+__global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G) {
+  constexpr bool KEYS = MODE == DKV;
+  constexpr int PYO = KEYS ? PV : PG, PYT = KEYS ? PG : PV;   // own, other v or g
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int W = blockDim.x >> 5, R = 16 * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // with a mask operand, neighbouring blocks take the windows that share a
+  // mask slice (window z % images of slice z / images), so it stays in L2
+  const int images = G.nWmask > 0 ? gridDim.z / G.nWmask : 1;
+  const int b = G.nWmask > 0 ? (blockIdx.z % images) * G.nWmask + blockIdx.z / images
+                             : blockIdx.z;
+  const int h = blockIdx.y, own0 = blockIdx.x * R;
+  const int N = G.N, N16 = (N + 15) & ~15;
+  const int so = R * LDB, st = TK * LDB;
+  constexpr int OTH = (PX + PYT) * TK * LDB;       // one buffer of the other side
+  __nv_bfloat16* ownX = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ownY = ownX + PX * so;
+  __nv_bfloat16* oth = ownY + PYO * so;            // [2][OTH]: x terms, then y
+  float* oth_lr = reinterpret_cast<float*>(oth + 2 * OTH);     // [2][TK]
+  float* oth_tt = oth_lr + 2 * TK;                             // [2][TK]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(oth_tt + 2 * TK);
+
+  const bool split = !G.round_ops, p_split = !G.round_p;
+  const bool synth = A.mask == nullptr && G.shift > 0;
+  const int nx = split ? PX : 1, nyo = split ? PYO : 1, nyt = split ? PYT : 1;
+  const float sc = A.scale[h];
+  const size_t row0 = ((size_t)b * G.H + h) * N;
+  const Staged& S = A.S;
+  const __nv_bfloat16* xo = (KEYS ? S.k : S.q) + row0 * HD;
+  const __nv_bfloat16* xt = (KEYS ? S.q : S.k) + row0 * HD;
+  const __nv_bfloat16* yo = (KEYS ? S.v : S.g) + row0 * HD;
+  const __nv_bfloat16* yt = (KEYS ? S.g : S.v) + row0 * HD;
+
+  auto fetch_tile = [&](int t) {
+    const int o0 = t * TK, rows = min(TK, N16 - o0);
+    __nv_bfloat16* buf = oth + (t & 1) * OTH;
+    copy_rows_async<PX>(xt, S.stride, nx, o0, rows, N, buf, st);
+    copy_rows_async<PYT>(yt, S.stride, nyt, o0, rows, N, buf + PX * st, st);
+    if (KEYS) {
+      for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+        const bool in = o0 + i < N;
+        const size_t at_i = row0 + (in ? o0 + i : 0);
+        cp_async4(oth_lr + (t & 1) * TK + i, A.lr + at_i, in);
+        cp_async4(oth_tt + (t & 1) * TK + i, A.tt + at_i, in);
       }
     }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {     // dq^ into Ks (free now)
-    Ks[(ty + 16 * a) * LD + tx] = acc[a][0] * sc;
-    Ks[(ty + 16 * a) * LD + tx + 16] = acc[a][1] * sc;
-  }
-  __syncthreads();
-  // through the normalisation, with the unrounded q^ re-read from q
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BT; r += THREADS / 32) {
-    const int i = i0 + r;
-    if (i >= G.N) continue;         // whole warps leave together
-    const size_t a = at(G.in, b, h, i) + lane;
-    const float qh = to_f(q[a]) * qn[r], dqh = Ks[r * LD + lane];
-    const float rowq = warp_sum(qh * dqh);
-    store(dq + a, (dqh - qh * rowq) * qn[r]);
-  }
-}
+  };
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS) bwd_dkv(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ mask, const TO* __restrict__ g,
-    const float* __restrict__ lr_g, const float* __restrict__ tt_g,
-    TO* __restrict__ dk, TO* __restrict__ dv, Geo G) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Gs = Qs + BT * LD;
-  float* Ks = Gs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* P = Vs + BT * LD;          // [BT][LDS]
-  float* DS = P + BT * LDS;         // [BT][LDS]
-  float* lr = DS + BT * LDS;
-  float* tt = lr + BT;
-  float* qn = tt + BT;
-  float* kn = qn + BT;
+  // every term of the own x^: the epilogue rebuilds x^ from them
+  copy_rows_async<PX>(xo, S.stride, PX, own0, R, N, ownX, so);
+  copy_rows_async<PYO>(yo, S.stride, nyo, own0, R, N, ownY, so);
+  fetch_tile(0);
+  cp_async_commit();
+  stage_flags(G, synth, N16, flags);
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * BT;
-  const float sc = scale[h];
-  const WinMask W = win_mask(G, mask, b);
-  stage_key<T>(k, v, G, b, h, j0, Ks, Vs, kn);
-
-  float dva[4][2], dka[4][2];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) dva[a][0] = dva[a][1] = dka[a][0] = dka[a][1] = 0.f;
-  for (int i0 = 0; i0 < G.N; i0 += BT) {
-    __syncthreads();
-    stage_query<T, TO>(q, g, lr_g, tt_g, G, b, h, i0, Qs, Gs, lr, tt, qn);
-    __syncthreads();
-    float p[4][4], ds[4][4], s[4][4];
-    p_ds_tile(Qs, Gs, Ks, Vs, lr, tt, bias, sc, G, W, h, i0, j0, p, ds, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        P[(ty + 16 * a) * LDS + tx + 16 * c] = rnd(p[a][c], G.round_p);
-        DS[(ty + 16 * a) * LDS + tx + 16 * c] = rnd(ds[a][c], G.round_ops);
-      }
-    __syncthreads();
-    // this thread: key rows ty + 16a, dims tx and tx + 16
-    for (int i = 0; i < BT; ++i) {
-      const float g0 = Gs[i * LD + tx], g1 = Gs[i * LD + tx + 16];
-      const float q0 = Qs[i * LD + tx], q1 = Qs[i * LD + tx + 16];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float pv = P[i * LDS + ty + 16 * a];
-        const float dsv = DS[i * LDS + ty + 16 * a];
-        dva[a][0] += pv * g0;
-        dva[a][1] += pv * g1;
-        dka[a][0] += dsv * q0;
-        dka[a][1] += dsv * q1;
-      }
+  const ExactLogits LG{A.bias + (size_t)h * N * N,
+                       A.mask == nullptr ? nullptr
+                                         : A.mask + (size_t)(b % G.nWmask) * N * N,
+                       flags, sc, N, window_bands(G, synth, b)};
+  const bool active = own0 + 16 * warp < N;     // else a strip of padding
+  const int ra = own0 + 16 * warp + g8, rb = ra + 8;
+  uint32_t ax[PX][2][4], ay[PYO][2][4];
+  int fa = 0, fb = 0;
+  float lr[2] = {-CUDART_INF_F, -CUDART_INF_F}, tt[2] = {0.f, 0.f};   // p = 0 past N
+  float add_next[2][4];
+  if (active) {
+    if (MODE == DQ) {
+      if (ra < N) { lr[0] = A.lr[row0 + ra]; tt[0] = A.tt[row0 + ra]; }
+      if (rb < N) { lr[1] = A.lr[row0 + rb]; tt[1] = A.tt[row0 + rb]; }
     }
-  }
-  __syncthreads();
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, j = j0 + r;
-    P[r * LD + tx] = dka[a][0] * sc;       // dk^ into P (free now)
-    P[r * LD + tx + 16] = dka[a][1] * sc;
-    if (j < G.N) {
-      TO* dvp = dv + at(G.in, b, h, j);
-      store(dvp + tx, dva[a][0]);
-      store(dvp + tx + 16, dva[a][1]);
-    }
+    for (int nt = 0; nt < 2; ++nt)
+      LG.addends<KEYS>(ra, rb, 8 * nt + 2 * t4, add_next[nt]);
   }
-  __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BT; r += THREADS / 32) {
-    const int j = j0 + r;
-    if (j >= G.N) continue;
-    const size_t a = at(G.in, b, h, j) + lane;
-    const float kh = to_f(k[a]) * kn[r], dkh = P[r * LD + lane];
-    const float rowk = warp_sum(kh * dkh);
-    store(dk + a, (dkh - kh * rowk) * kn[r]);
-  }
-}
 
-// dbias[h] tile (i0, j0) summed over every window in window order, and this
-// block's share of dscale[h] = sum ds * s_cos, written to
-// part[(query tile * tiles + key tile) * H + h].
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS) bwd_dbias(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ mask, const TO* __restrict__ g,
-    const float* __restrict__ lr_g, const float* __restrict__ tt_g,
-    float* __restrict__ dbias, float* __restrict__ part, int Bn, Geo G) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Gs = Qs + BT * LD;
-  float* Ks = Gs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* lr = Vs + BT * LD;
-  float* tt = lr + BT;
-  float* qn = tt + BT;
-  float* red = qn + BT;             // [THREADS / 32]
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int j0 = blockIdx.x * BT, i0 = blockIdx.y * BT, h = blockIdx.z;
-  const float sc = scale[h];
-  float acc[4][4];
+  float acc1[4][4], acc2[4][4];       // DQ: dq^. DKV: dv, dk^
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-  float dsc = 0.f;
-  for (int b = 0; b < Bn; ++b) {
-    const WinMask W = win_mask(G, mask, b);
+    for (int e = 0; e < 4; ++e) acc1[a][e] = acc2[a][e] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, ts[2] = {0.f, 0.f};
+
+  const int ntiles = (N16 + TK - 1) / TK;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) fetch_tile(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile t (and the own rows) have landed
     __syncthreads();
-    stage_query<T, TO>(q, g, lr_g, tt_g, G, b, h, i0, Qs, Gs, lr, tt, qn);
-    stage_key<T>(k, v, G, b, h, j0, Ks, Vs, nullptr);
-    __syncthreads();
-    float p[4][4], ds[4][4], s[4][4];
-    p_ds_tile(Qs, Gs, Ks, Vs, lr, tt, bias, sc, G, W, h, i0, j0, p, ds, s);
+    if (t == 0 && active) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int p = 0; p < PX; ++p) load_a(ax[p], ownX + p * so, 16 * warp);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[a][c] += ds[a][c];
-        dsc += ds[a][c] * s[a][c];
+      for (int p = 0; p < PYO; ++p) load_a(ay[p], ownY + p * so, 16 * warp);
+      fa = flags[ra];
+      fb = flags[rb];
+    }
+    const int o0 = t * TK, rows = min(TK, N16 - o0);
+    const __nv_bfloat16* othX = oth + (t & 1) * OTH;
+    const __nv_bfloat16* othY = othX + PX * st;
+    const float* tlr = oth_lr + (t & 1) * TK;
+    const float* ttt = oth_tt + (t & 1) * TK;
+
+    for (int sub = 0; active && sub < rows; sub += 16) {
+      float s[2][4], dp[2][4], x[2][4], add[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add[nt][e] = add_next[nt][e];
+        // the next 16 columns' addends, in flight during this block's MMAs
+        LG.addends<KEYS>(ra, rb, o0 + sub + 16 + 8 * nt + 2 * t4, add_next[nt]);
       }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        mma_terms_nk<PX, PX>(s[nt], ax, othX, st, sub + 8 * nt, split);
+        mma_terms_nk<PYO, PYT>(dp[nt], ay, othY, st, sub + 8 * nt, split);
+      }
+      const bool edge = o0 + sub + 16 > N;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        LG.logits(o0 + sub + 8 * nt + 2 * t4, fa, fb, s[nt], add[nt], x[nt], edge);
+
+      if (MODE == ROWSTATS) {
+        // this thread's four columns of each row: a running maximum (in
+        // log2 units), the sum of 2^(y - max) and of that times dp
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float y0 = x[0][2 * r] * LOG2E, y1 = x[0][2 * r + 1] * LOG2E;
+          const float y2 = x[1][2 * r] * LOG2E, y3 = x[1][2 * r + 1] * LOG2E;
+          const float tmax = fmaxf(fmaxf(y0, y1), fmaxf(y2, y3));
+          if (tmax > m[r]) {
+            const float cf = fast_exp2(m[r] - tmax);
+            l[r] *= cf;
+            ts[r] *= cf;
+            m[r] = tmax;
+          }
+          const float e0 = fast_exp2(y0 - m[r]), e1 = fast_exp2(y1 - m[r]);
+          const float e2 = fast_exp2(y2 - m[r]), e3 = fast_exp2(y3 - m[r]);
+          l[r] += (e0 + e1) + (e2 + e3);
+          ts[r] += (e0 * dp[0][2 * r] + e1 * dp[0][2 * r + 1]) +
+                   (e2 * dp[1][2 * r] + e3 * dp[1][2 * r + 1]);
+        }
+      } else if (MODE == DQ) {
+        float ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[nt][e] = LG.p(x[nt][e], lr[e >> 1]) * (dp[nt][e] - tt[e >> 1]);
+        uint32_t hi[4], lo[4];
+        acc_to_a(ds, hi, lo);
+        mma_terms_kn<2>(acc1, hi, lo, othX, st, sub, split, split);
+      } else {
+        float p[2][4], ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int c = sub + 8 * nt + 2 * t4;
+          const float2 lc = *reinterpret_cast<const float2*>(tlr + c);
+          const float2 tc = *reinterpret_cast<const float2*>(ttt + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[nt][e] = LG.p(x[nt][e], (e & 1) ? lc.y : lc.x);
+            ds[nt][e] = p[nt][e] * (dp[nt][e] - ((e & 1) ? tc.y : tc.x));
+          }
+        }
+        uint32_t hi[4], lo[4];
+        acc_to_a(p, hi, lo);
+        mma_terms_kn<PYT>(acc1, hi, lo, othY, st, sub, p_split, split);
+        acc_to_a(ds, hi, lo);
+        mma_terms_kn<2>(acc2, hi, lo, othX, st, sub, split, split);
+      }
+    }
+    __syncthreads();                  // tile t is consumed
   }
+  if (!active) return;
+
+  if (MODE == ROWSTATS) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
+    for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (i < G.N && j < G.N) dbias[((size_t)h * G.N + i) * G.N + j] = acc[a][c];
+      for (int off = 1; off < 4; off <<= 1) {     // the row's four threads
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float to = __shfl_xor_sync(0xffffffffu, ts[r], off);
+        const float mn = fmaxf(m[r], mo);
+        const float ca = fast_exp2(m[r] - mn), cb = fast_exp2(mo - mn);
+        l[r] = l[r] * ca + lo * cb;
+        ts[r] = ts[r] * ca + to * cb;
+        m[r] = mn;
+      }
+      const int i = r == 0 ? ra : rb;
+      if (t4 == 0 && i < N) {
+        A.lr[row0 + i] = -(m[r] + log2f(l[r]));
+        A.tt[row0 + i] = ts[r] / l[r];
+      }
+    }
+  } else {
+    const float* norm = KEYS ? S.kn : S.qn;
+    TO* grad = KEYS ? A.dk : A.dq;
+    store_normalised<TO>(KEYS ? acc2 : acc1, sc, ownX, so, 16 * warp + g8,
+                         ra < N ? norm[row0 + ra] : 0.f,
+                         rb < N ? norm[row0 + rb] : 0.f,
+                         ra < N ? grad + at(G.in, b, h, ra) : nullptr,
+                         rb < N ? grad + at(G.in, b, h, rb) : nullptr);
+    if (KEYS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = r == 0 ? ra : rb;
+        if (j >= N) continue;
+        TO* out = A.dv + at(G.in, b, h, j);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          store2(out + 8 * nt + 2 * t4, acc1[nt][2 * r], acc1[nt][2 * r + 1]);
+      }
     }
   }
-  dsc = warp_sum(dsc);
-  if (tid % 32 == 0) red[tid / 32] = dsc;
+}
+
+// dbias and dscale: the block owns query rows 16 W * blockIdx.y.. and key
+// columns TJ * blockIdx.x.. of head blockIdx.z / nchunk and adds ds over
+// the windows of chunk blockIdx.z % nchunk (`per` windows each) in window
+// order, in accumulator fragments; the windows' tiles arrive double
+// buffered, the tile's bias sits in registers. It writes its tile to
+// dst[chunk][h] ([nchunk, H, N, N]; dbias itself when nchunk is 1) and its
+// share of dscale[h] = sum ds * s_cos to
+// part[((chunk * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * H + h];
+// `sum_partials` adds the chunks and the blocks of a head in a fixed order.
+template <int PV, int PG, typename TO>
+__global__ void __launch_bounds__(32 * MAXW, 1) exact_bwd_sums(
+    BwdP<TO> A, float* __restrict__ dst, float* __restrict__ part, int Bn, int per,
+    int nchunk, Geo G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int W = blockDim.x >> 5, R = 16 * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.z / nchunk, chunk = blockIdx.z % nchunk;
+  const int own0 = blockIdx.y * R, j0 = blockIdx.x * TJ;
+  const int N = G.N, N16 = (N + 15) & ~15;
+  const int rows = min(TJ, N16 - j0);
+  const int so = R * LDB, st = TJ * LDB;
+  const int stage = (PX + PG) * so + (PX + PV) * st;       // one window's tiles
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][stage]
+  float* red = reinterpret_cast<float*>(tiles + 2 * stage);
+  unsigned char* flags = reinterpret_cast<unsigned char*>(red + MAXW);
+
+  const bool split = !G.round_ops;
+  const bool synth = A.mask == nullptr && G.shift > 0;
+  const int nx = split ? PX : 1, nv = split ? PV : 1, ng = split ? PG : 1;
+  const float sc = A.scale[h];
+  const bool active = own0 + 16 * warp < N;
+  const int ra = own0 + 16 * warp + g8, rb = ra + 8;
+  const Staged& S = A.S;
+
+  auto fetch_window = [&](int b, int slot) {
+    const size_t row0 = ((size_t)b * G.H + h) * N * HD;
+    __nv_bfloat16* buf = tiles + slot * stage;
+    copy_rows_async<PX>(S.q + row0, S.stride, nx, own0, R, N, buf, so);
+    copy_rows_async<PG>(S.g + row0, S.stride, ng, own0, R, N, buf + PX * so, so);
+    buf += (PX + PG) * so;
+    copy_rows_async<PX>(S.k + row0, S.stride, nx, j0, rows, N, buf, st);
+    copy_rows_async<PV>(S.v + row0, S.stride, nv, j0, rows, N, buf + PX * st, st);
+  };
+
+  const int b0 = chunk * per, b_end = min(Bn, b0 + per);
+  fetch_window(b0, 0);
+  cp_async_commit();
+  stage_flags(G, synth, N16, flags);
+
+  ExactLogits LG{A.bias + (size_t)h * N * N, nullptr, flags, sc, N, 0};
+  float acc[TJ / 16][2][4], bias_r[TJ / 16][2][4];
+#pragma unroll
+  for (int a = 0; a < TJ / 16; ++a)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][nt][e] = bias_r[a][nt][e] = 0.f;
+      if (active)
+        LG.fetch<false>(LG.bias, ra, rb, j0 + 16 * a + 8 * nt + 2 * t4, bias_r[a][nt]);
+    }
+  float dsc = 0.f;
+
+  for (int b = b0; b < b_end; ++b) {
+    const int slot = (b - b0) & 1;
+    if (b + 1 < b_end) fetch_window(b + 1, slot ^ 1);
+    cp_async_commit();
+    // this window's row statistics and mask operand, in flight while its
+    // tiles land
+    const size_t stat0 = ((size_t)b * G.H + h) * N;
+    float lr[2] = {-CUDART_INF_F, -CUDART_INF_F}, tt[2] = {0.f, 0.f};   // p = 0 past N
+    float mask_r[TJ / 16][2][4];
+    LG.wm = window_bands(G, synth, b);
+    if (active) {
+      if (ra < N) { lr[0] = A.lr[stat0 + ra]; tt[0] = A.tt[stat0 + ra]; }
+      if (rb < N) { lr[1] = A.lr[stat0 + rb]; tt[1] = A.tt[stat0 + rb]; }
+      if (A.mask != nullptr) {
+        const float* mw = A.mask + (size_t)(b % G.nWmask) * N * N;
+#pragma unroll
+        for (int a = 0; a < TJ / 16; ++a)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            LG.fetch<false>(mw, ra, rb, j0 + 16 * a + 8 * nt + 2 * t4, mask_r[a][nt]);
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+
+    if (active) {
+      const __nv_bfloat16* ownX = tiles + slot * stage;
+      const __nv_bfloat16* ownY = ownX + PX * so;
+      const __nv_bfloat16* othX = ownY + PG * so;
+      const __nv_bfloat16* othY = othX + PX * st;
+      uint32_t ax[PX][2][4], ay[PG][2][4];
+#pragma unroll
+      for (int p = 0; p < PX; ++p) load_a(ax[p], ownX + p * so, 16 * warp);
+#pragma unroll
+      for (int p = 0; p < PG; ++p) load_a(ay[p], ownY + p * so, 16 * warp);
+      const int fa = flags[ra], fb = flags[rb];
+
+#pragma unroll
+      for (int a = 0; a < TJ / 16; ++a) {
+        if (16 * a < rows) {
+          float s[2][4], dp[2][4], x[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+            mma_terms_nk<PX, PX>(s[nt], ax, othX, st, 16 * a + 8 * nt, split);
+            mma_terms_nk<PG, PV>(dp[nt], ay, othY, st, 16 * a + 8 * nt, split);
+          }
+          const bool edge = j0 + 16 * a + 16 > N;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float add[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              add[e] = A.mask != nullptr ? bias_r[a][nt][e] + mask_r[a][nt][e]
+                                         : bias_r[a][nt][e];
+            LG.logits(j0 + 16 * a + 8 * nt + 2 * t4, fa, fb, s[nt], add, x[nt], edge);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ds = LG.p(x[nt][e], lr[e >> 1]) * (dp[nt][e] - tt[e >> 1]);
+              acc[a][nt][e] += ds;
+              dsc += ds * s[nt][e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                  // this window's tiles are consumed
+  }
+
+  if (active) {
+    float* tile = dst + ((size_t)chunk * G.H + h) * N * N;
+#pragma unroll
+    for (int a = 0; a < TJ / 16; ++a)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (e >> 1) ? rb : ra;
+          const int j = j0 + 16 * a + 8 * nt + 2 * t4 + (e & 1);
+          if (i < N && j < N) tile[(size_t)i * N + j] = acc[a][nt][e];
+        }
+  }
+  dsc = warp_sum(active ? dsc : 0.f);
+  if (lane == 0) red[warp] = dsc;
   __syncthreads();
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     float tot = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) tot += red[w];
-    part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * G.H + h] = tot;
+    for (int w = 0; w < W; ++w) tot += red[w];
+    part[(((size_t)chunk * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * G.H +
+         h] = tot;
   }
 }
 
 constexpr size_t TILE_F = (size_t)BT * LD;
 constexpr size_t SQ_F = (size_t)BT * LDS;
-constexpr size_t SMEM_FWD = (3 * TILE_F + SQ_F + BT) * 4;
-constexpr size_t SMEM_ROW = (4 * TILE_F + BT) * 4;
-constexpr size_t SMEM_DQ = (4 * TILE_F + SQ_F + 3 * BT) * 4;
-constexpr size_t SMEM_DKV = (4 * TILE_F + 2 * SQ_F + 4 * BT) * 4;
-constexpr size_t SMEM_DB = (4 * TILE_F + 3 * BT + THREADS / 32) * 4;
+constexpr size_t SMEM_FWD = (3 * TILE_F + SQ_F) * 4;
 
 template <typename F>
 cudaError_t allow_smem(F fn, size_t bytes) {
@@ -664,45 +953,85 @@ int launch_fwd(const FwdArgs& A, int Bn, const Geo& G, cudaStream_t stream) {
 
 struct BwdArgs {
   const void *q, *k, *v, *bias, *scale, *mask, *g;
-  void *dq, *dk, *dv, *dbias, *dscale, *lr, *tt, *part;
+  void *dq, *dk, *dv, *dbias, *dscale, *lr, *tt, *part_db, *part_ds, *ops, *norms;
 };
 
+// Warps per block and blocks per window side: the ceil(N / 16) strips of 16
+// rows spread evenly over the fewest blocks of at most MAXW warps (N = 784:
+// 7 blocks of 7 warps, nothing ragged).
+struct Plan {
+  int W, tiles;
+};
+Plan plan_rows(int N) {
+  const int strips = (N + 15) / 16, tiles = (strips + MAXW - 1) / MAXW;
+  return Plan{(strips + tiles - 1) / tiles, tiles};
+}
+
 template <typename T, typename TO>
-int launch_bwd(const BwdArgs& A, int Bn, const Geo& G, cudaStream_t stream) {
+int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
+               cudaStream_t stream) {
+  constexpr int PV = Terms<T>::n, PG = Terms<TO>::n;
+  const int N16 = (G.N + 15) & ~15;
+  const Plan P = plan_rows(G.N);
+  const int R = 16 * P.W, nJt = (N16 + TJ - 1) / TJ;
+  auto rows_smem = [&](int pyo, int pyt, int r) {
+    return (size_t)((PX + pyo) * r + 2 * (PX + pyt) * TK) * LDB * 2 +
+           (size_t)4 * TK * 4 + N16;
+  };
+  auto sums_smem = [&](int r) {
+    return (size_t)2 * ((PX + PG) * r + (PX + PV) * TJ) * LDB * 2 + MAXW * 4 + N16;
+  };
   cudaError_t err;
-  if ((err = allow_smem(bwd_rowstats<T, TO>, SMEM_ROW)) != cudaSuccess ||
-      (err = allow_smem(bwd_dq<T, TO>, SMEM_DQ)) != cudaSuccess ||
-      (err = allow_smem(bwd_dkv<T, TO>, SMEM_DKV)) != cudaSuccess ||
-      (err = allow_smem(bwd_dbias<T, TO>, SMEM_DB)) != cudaSuccess)
+  if ((err = allow_smem(exact_bwd_rows<PV, PG, TO, ROWSTATS>,
+                        rows_smem(PG, PV, 16 * MAXW))) != cudaSuccess ||
+      (err = allow_smem(exact_bwd_rows<PV, PG, TO, DQ>,
+                        rows_smem(PG, PV, 16 * MAXW))) != cudaSuccess ||
+      (err = allow_smem(exact_bwd_rows<PV, PG, TO, DKV>,
+                        rows_smem(PV, PG, 16 * MAXW))) != cudaSuccess ||
+      (err = allow_smem(exact_bwd_sums<PV, PG, TO>, sums_smem(16 * MAXW))) !=
+          cudaSuccess)
     return static_cast<int>(err);
-  const int nt = (G.N + BT - 1) / BT;
-  const T* q = static_cast<const T*>(A.q);
-  const T* k = static_cast<const T*>(A.k);
-  const T* v = static_cast<const T*>(A.v);
-  const float* bi = static_cast<const float*>(A.bias);
-  const float* sc = static_cast<const float*>(A.scale);
-  const float* mk = static_cast<const float*>(A.mask);
-  const TO* g = static_cast<const TO*>(A.g);
-  float* lr = static_cast<float*>(A.lr);
-  float* tt = static_cast<float*>(A.tt);
-  float* part = static_cast<float*>(A.part);
-  const dim3 rows(nt, G.H, Bn);
-  bwd_rowstats<T, TO><<<rows, THREADS, SMEM_ROW, stream>>>(q, k, v, bi, sc, mk,
-                                                           g, lr, tt, G);
+
+  const size_t rows_total = (size_t)Bn * G.H * G.N, stride = rows_total * HD;
+  __nv_bfloat16* ops = static_cast<__nv_bfloat16*>(A.ops);
+  float* norms = static_cast<float*>(A.norms);
+  const Staged S{ops, ops + PX * stride, ops + 2 * PX * stride,
+                 ops + (2 * PX + PV) * stride, stride, norms, norms + rows_total};
+  prep_operands<T, TO><<<(unsigned)((4 * rows_total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(A.q), static_cast<const T*>(A.k),
+      static_cast<const T*>(A.v), static_cast<const TO*>(A.g), S, Bn, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  bwd_dq<T, TO><<<rows, THREADS, SMEM_DQ, stream>>>(
-      q, k, v, bi, sc, mk, g, lr, tt, static_cast<TO*>(A.dq), G);
+
+  const BwdP<TO> B{S, static_cast<const float*>(A.bias),
+                   static_cast<const float*>(A.scale),
+                   static_cast<const float*>(A.mask), static_cast<float*>(A.lr),
+                   static_cast<float*>(A.tt), static_cast<TO*>(A.dq),
+                   static_cast<TO*>(A.dk), static_cast<TO*>(A.dv)};
+  const dim3 grid(P.tiles, G.H, Bn);
+  const int threads = 32 * P.W;
+  exact_bwd_rows<PV, PG, TO, ROWSTATS>
+      <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  bwd_dkv<T, TO><<<rows, THREADS, SMEM_DKV, stream>>>(
-      q, k, v, bi, sc, mk, g, lr, tt, static_cast<TO*>(A.dk),
-      static_cast<TO*>(A.dv), G);
+  exact_bwd_rows<PV, PG, TO, DQ><<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  bwd_dbias<T, TO><<<dim3(nt, nt, G.H), THREADS, SMEM_DB, stream>>>(
-      q, k, v, bi, sc, mk, g, lr, tt, static_cast<float*>(A.dbias), part, Bn,
-      G);
+  exact_bwd_rows<PV, PG, TO, DKV><<<grid, threads, rows_smem(PV, PG, R), stream>>>(B, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  float* dbias = static_cast<float*>(A.dbias);
+  float* part_db = static_cast<float*>(A.part_db);
+  float* part_ds = static_cast<float*>(A.part_ds);
+  const int per = (Bn + nchunk - 1) / nchunk;
+  exact_bwd_sums<PV, PG, TO>
+      <<<dim3(nJt, P.tiles, G.H * nchunk), threads, sums_smem(R), stream>>>(
+          B, nchunk > 1 ? part_db : dbias, part_ds, Bn, per, nchunk, G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (nchunk > 1) {
+    const size_t L = (size_t)G.H * G.N * G.N;
+    sum_partials<<<(unsigned)((L + 255) / 256), 256, 0, stream>>>(part_db, dbias,
+                                                                  nchunk, L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   sum_partials<<<(G.H + 127) / 128, 128, 0, stream>>>(
-      part, static_cast<float*>(A.dscale), nt * nt, (size_t)G.H);
+      part_ds, static_cast<float*>(A.dscale), nchunk * P.tiles * nJt, (size_t)G.H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -744,18 +1073,30 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // K8b and K7b. g has out's layout and type; dq, dk, dv have q's layout and
-// out's type. Scratch: lr and tt [Bn, H, N] fp32, part ceil(N/64)^2 * H fp32.
+// out's type; every row of q, k, v, g is 16-byte aligned. The windows are
+// summed into dbias in `nchunk` chunks of ceil(Bn / nchunk). Scratch: lr,
+// tt [Bn, H, N] fp32; part_db [nchunk, H, N, N] fp32 when nchunk > 1;
+// part_ds nchunk * tiles * ceil(N16 / 64) * H fp32, tiles the row blocks of
+// `plan_rows`; ops (6 + terms of v + terms of g) * Bn * H * N * 32 bf16,
+// terms 1 for a bf16 and 2 for an fp32 tensor; norms 2 * Bn * H * N fp32.
 extern "C" int window_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* scale, const void* mask, const void* g, void* dq, void* dk,
-    void* dv, void* dbias, void* dscale, void* lr, void* tt, void* part,
-    int in_bf16, int out_bf16, int Bn, const int* geo, void* stream) {
+    void* dv, void* dbias, void* dscale, void* lr, void* tt, void* part_db,
+    void* part_ds, void* ops, void* norms, int nchunk, int in_bf16, int out_bf16,
+    int Bn, const int* geo, void* stream) {
   const Geo G = make_geo(geo);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs A{q, k, v, bias, scale, mask, g, dq, dk, dv,
-                  dbias, dscale, lr, tt, part};
-  if (in_bf16 && out_bf16) return launch_bwd<__nv_bfloat16, __nv_bfloat16>(A, Bn, G, s);
-  if (in_bf16) return launch_bwd<__nv_bfloat16, float>(A, Bn, G, s);
-  if (!out_bf16) return launch_bwd<float, float>(A, Bn, G, s);
+                  dbias, dscale, lr, tt, part_db, part_ds, ops, norms};
+  if (nchunk < 1 || nchunk > Bn ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+        reinterpret_cast<uintptr_t>(ops)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_bf16 && out_bf16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(A, Bn, nchunk, G, s);
+  if (in_bf16) return launch_bwd<__nv_bfloat16, float>(A, Bn, nchunk, G, s);
+  if (!out_bf16) return launch_bwd<float, float>(A, Bn, nchunk, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

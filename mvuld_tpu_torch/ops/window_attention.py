@@ -41,10 +41,12 @@ map, the shift mask synthesised from the window's grid position, fp32
 output ``[B, Hp, Wp, H, hd]`` and fp32 dqkv whatever qkv's dtype; kernels K7
 ``window_attention_map_fwd`` and K7b ``window_attention_map_bwd``). All four
 run ``csrc/window_attention.cu`` for CUDA tensors and the ``*_plain``
-versions for CPU tensors. The JAX module's mask registry
-(``register_mask`` / ``make_window_attention``) exists only to give
-``custom_vjp`` a static argument; here the mask is a plain
-non-differentiable argument of the autograd function.
+versions for CPU tensors; the two backward kernels form their products on
+the bf16 tensor cores from split operands (``csrc/attn_mma.cuh``), which
+``_core_bwd_split`` repeats in plain PyTorch for the CPU tests. The JAX
+module's mask registry (``register_mask`` / ``make_window_attention``)
+exists only to give ``custom_vjp`` a static argument; here the mask is a
+plain non-differentiable argument of the autograd function.
 """
 
 from __future__ import annotations
@@ -238,7 +240,7 @@ _ENTRIES = {
     "window_attention_fwd": ("window_attention",
                              [_PTR] * 7 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_bwd": ("window_attention",
-                             [_PTR] * 15 + [_INT] * 3 + [_GEO, _PTR]),
+                             [_PTR] * 18 + [_INT] * 4 + [_GEO, _PTR]),
 }
 
 
@@ -559,6 +561,61 @@ def _core_bwd(q, k, v, bias, scale, mask, g, round_ops, round_p):
     return dq, dk, dv, dbias, dscale
 
 
+def _split16(x, parts: int):
+    """fp32 x as ``parts`` bf16-valued fp32 terms, each the bf16 rounding of
+    what the terms before it left: x ≈ Σ terms (2⁻¹⁸ relative with two,
+    exact to fp32 with three)."""
+    terms, rest = [], x
+    for _ in range(parts):
+        terms.append(_r16(rest, True))
+        rest = rest - terms[-1]
+    return terms
+
+
+def _mm_split(a, b, order: int):
+    """Σ a_i @ b_jᵀ over the term pairs with i + j ≤ ``order``, in fp32: the
+    bf16 tensor-core products the K7b/K8b kernels add for one fp32 product
+    (the pairs past ``order`` are below 2⁻⁸⁽ᵒʳᵈᵉʳ⁺¹⁾ of it and dropped)."""
+    total = None
+    for i, ai in enumerate(a):
+        for j, bj in enumerate(b):
+            if i + j <= order:
+                term = ai @ bj.transpose(-1, -2)
+                total = term if total is None else total + term
+    return total
+
+
+def _core_bwd_split(q, k, v, bias, scale, mask, g, v_bf16, g_bf16):
+    """``_core_bwd`` with every product formed as the K7b/K8b kernels form
+    it when ``round_ops`` is off: each fp32 operand split into bf16 terms
+    (``_split16``), the products of those terms summed in fp32
+    (``_mm_split``). q̂ and k̂ take three terms and six products for the
+    logits (their error is multiplied by the scale, up to 100, before the
+    exp), two terms and three products for dq̂ and dk̂; p, ds take two; v and
+    g take one when they already are bf16 numbers (``v_bf16``, ``g_bf16``),
+    two otherwise. The CPU tests hold this arithmetic to the card's
+    tolerances against the JAX kernels; no CUDA path calls it."""
+    qn = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
+    kn = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+    qh, kh = q * qn, k * kn
+    q3, k3 = _split16(qh, 3), _split16(kh, 3)
+    v2, g2 = _split16(v, 1 if v_bf16 else 2), _split16(g, 1 if g_bf16 else 2)
+    sc = scale[:, None, None]
+    s_cos = _mm_split(q3, k3, 2)
+    p = torch.softmax(_add_mask(s_cos * sc + bias.float(), mask), dim=-1)
+    dp = _mm_split(g2, v2, 1)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dbias, dscale = ds.sum(0), (ds * s_cos).sum((0, 2, 3))
+    t = lambda parts: [x.transpose(-1, -2) for x in parts]  # noqa: E731
+    ds2 = _split16(ds, 2)
+    dv = _mm_split(t(_split16(p, 2)), t(g2), 1)
+    dqh = _mm_split(ds2, t(k3[:2]), 1) * sc
+    dkh = _mm_split(t(ds2), t(q3[:2]), 1) * sc
+    dq = (dqh - qh * (qh * dqh).sum(-1, keepdim=True)) * qn
+    dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
+    return dq, dk, dv, dbias, dscale
+
+
 def window_attention_plain(q, k, v, bias, logit_scale, mask=None):
     """Plain PyTorch version of K8 (``window_attention_reference`` with the
     kernel's rsqrt normalisation): q, k, v [Bn, H, N, hd] → [Bn, H, N, hd] in
@@ -654,6 +711,35 @@ def _f32(x, dev):
     return x.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def _aligned(x):
+    """x at a 16-byte aligned address (the backward kernels load 16 bytes a
+    thread): a view that starts elsewhere is copied."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _bwd_scratch(Bn, H, N, v_terms, g_terms, dev):
+    """Scratch of ``window_attention_bwd`` in ``csrc/window_attention.cu``
+    (its ``launch_bwd`` derives the same sizes): the row statistics lr, tt
+    [Bn, H, N]; the number of window chunks dbias is summed in — enough
+    that the blocks of its kernel (row blocks × 64-column tiles × H × chunks)
+    fill the card's 132 SMs about four times — with the per-chunk dbias
+    [chunks, H, N, N] when there is more than one; dscale's per-block
+    partials; the product operands as bf16 terms (q̂ and k̂ three each, v and
+    g ``v_terms`` and ``g_terms``: one for a bf16 tensor, two for fp32) and
+    the two normalisation factors per row."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    strips = -(-N // 16)
+    tiles, col_tiles = -(-strips // 8), -(-16 * strips // 64)
+    nchunk = max(1, min(Bn, -(-528 // (tiles * col_tiles * H))))
+    nchunk = -(-Bn // -(-Bn // nchunk))          # no empty chunk
+    part_db = torch.empty((nchunk, H, N, N) if nchunk > 1 else (1,), **f32)
+    part_ds = torch.empty((nchunk * tiles * col_tiles * H,), **f32)
+    ops = torch.empty((6 + v_terms + g_terms, Bn, H, N, _HEAD_DIM),
+                      dtype=torch.bfloat16, device=dev)
+    return (torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32),
+            part_db, part_ds, ops, torch.empty((2, Bn, H, N), **f32), nchunk)
+
+
 def window_attention_fwd(q, k, v, bias, logit_scale, mask=None):
     """Head-layout window attention forward (K8): q, k, v [Bn, H, N, hd],
     bias [H, N, N], logit_scale [H], mask [nW, N, N] or None → [Bn, H, N,
@@ -686,9 +772,10 @@ def window_attention_fwd(q, k, v, bias, logit_scale, mask=None):
 def window_attention_bwd(q, k, v, bias, logit_scale, g, mask=None):
     """Head-layout window attention backward (K8b), from the forward's
     inputs alone: (dq, dk, dv in the inputs' dtype, dbias [H, N, N] fp32,
-    dscale [H] fp32). CUDA tensors run the kernels of
-    ``csrc/window_attention.cu`` (row statistics, dq, dk/dv, dbias + dscale);
-    CPU tensors run ``window_attention_bwd_plain``."""
+    dscale [H] fp32). CUDA tensors run the tensor-core kernels of
+    ``csrc/window_attention.cu`` (operands split into bf16 terms, then row
+    statistics, dq, dk/dv, dbias + dscale; ``_core_bwd_split`` is their
+    arithmetic); CPU tensors run ``window_attention_bwd_plain``."""
     mask = _mask_tensor(mask, q.device)
     Bn, H, N, hd = _head_geometry(q, k, v, bias, logit_scale, mask,
                                   "window_attention_bwd")
@@ -699,21 +786,22 @@ def window_attention_bwd(q, k, v, bias, logit_scale, g, mask=None):
         return window_attention_bwd_plain(q, k, v, bias, logit_scale, g, mask)
     _check_cuda(q, Bn, hd, "window_attention_bwd")
     dev, dt = q.device, q.dtype
-    q, k, v, g = (t.to(dt).contiguous() for t in (q, k, v, g))
+    q, k, v, g = (_aligned(t.to(dt).contiguous()) for t in (q, k, v, g))
     bias, scale = _f32(bias, dev), _f32(logit_scale.reshape(-1), dev)
     mask = None if mask is None else mask.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=dev)
     dbias, dscale = torch.empty((H, N, N), **f32), torch.empty((H,), **f32)
-    lr, tt = torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32)
-    part = torch.empty(((-(-N // 64)) ** 2 * H,), **f32)
     bf = int(dt == torch.bfloat16)
+    lr, tt, part_db, part_ds, ops, norms, nchunk = _bwd_scratch(
+        Bn, H, N, 2 - bf, 2 - bf, dev)
     err = _lib("window_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         scale.data_ptr(), 0 if mask is None else mask.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dbias.data_ptr(), dscale.data_ptr(), lr.data_ptr(), tt.data_ptr(),
-        part.data_ptr(), bf, bf, Bn,
+        part_db.data_ptr(), part_ds.data_ptr(), ops.data_ptr(),
+        norms.data_ptr(), nchunk, bf, bf, Bn,
         _geo(N, H, nWmask=0 if mask is None else mask.shape[0]),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_bwd.launches += 1
@@ -769,20 +857,21 @@ def window_attention_map_bwd(qkv, bias, logit_scale, g, shift: int = 0,
     Bn = B * nWh * nWw
     _check_cuda(qkv, Bn, hd, "window_attention_map_bwd")
     dev, r = qkv.device, _mxu_bf16_default(mxu_bf16)
-    qkv, g = qkv.contiguous(), _f32(g, dev)
+    qkv, g = _aligned(qkv.contiguous()), _aligned(_f32(g, dev))
     bias, scale = _f32(bias, dev), _f32(logit_scale.reshape(-1), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dqkv = torch.empty(qkv.shape, **f32)
     dbias, dscale = torch.empty((H, N, N), **f32), torch.empty((H,), **f32)
-    lr, tt = torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32)
-    part = torch.empty(((-(-N // 64)) ** 2 * H,), **f32)
+    lr, tt, part_db, part_ds, ops, norms, nchunk = _bwd_scratch(
+        Bn, H, N, 1 if qkv.dtype == torch.bfloat16 else 2, 2, dev)
     step, dstep = H * hd * qkv.element_size(), H * hd * 4
     err = _lib("window_attention_bwd")(
         qkv.data_ptr(), qkv.data_ptr() + step, qkv.data_ptr() + 2 * step,
         bias.data_ptr(), scale.data_ptr(), 0, g.data_ptr(),
         dqkv.data_ptr(), dqkv.data_ptr() + dstep, dqkv.data_ptr() + 2 * dstep,
         dbias.data_ptr(), dscale.data_ptr(), lr.data_ptr(), tt.data_ptr(),
-        part.data_ptr(), int(qkv.dtype == torch.bfloat16), 0, Bn,
+        part_db.data_ptr(), part_ds.data_ptr(), ops.data_ptr(),
+        norms.data_ptr(), nchunk, int(qkv.dtype == torch.bfloat16), 0, Bn,
         _geo(N, H, ws, shift, nWh, nWw, 0, r, r, True, Hp, Wp),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_map_bwd.launches += 1

@@ -288,8 +288,8 @@ def _grad_tols(want, dtype):
     return first + [1e-4 * big(want[-2]), 1e-3 * big(want[-1])]
 
 
-# (Bn, ws, nW of the mask or 0): N not a multiple of the 64-row tile, fewer
-# mask windows than windows
+# (Bn, ws, nW of the mask or 0): N not a multiple of 16, fewer mask windows
+# than windows, a window count that is no multiple of an image grid
 HEAD_GEOMS = [(6, 4, 0), (8, 8, 4), (9, 7, 3), (4, 9, 2)]
 
 
@@ -359,6 +359,94 @@ def test_map_layout_kernels_match_plain(dev, geom, dtype, mxu_bf16):
     for a, b, r in zip(grads, wants, (rel, rel, max(rel, 1e-3))):
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= r * big(b)
+
+
+# window sides whose N = ws² is 12.25 tiles of 16 (196) and 49 of them (784,
+# the published window): (ws, Bn per image grid 2×2, H)
+LARGE_WINDOWS = [(14, 2), (28, 2)]
+
+
+@pytest.mark.parametrize("layout", ["head_bf16", "head_fp32", "map_bf16",
+                                    "map_bf16_mxu"])
+@pytest.mark.parametrize("ws,H", LARGE_WINDOWS, ids=["ws14", "ws28"])
+def test_backward_kernels_at_the_model_windows(dev, ws, H, layout):
+    """K8b (mask operand, bf16 in / bf16 out and fp32 / fp32) and K7b
+    (synthesised mask, bf16 in / fp32 out, with and without ``mxu_bf16``) at
+    N = 196 and 784 on a shifted 2×2 grid of windows."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    N, hd, shift = ws * ws, 32, ws // 2
+    dtype = torch.float32 if layout == "head_fp32" else torch.bfloat16
+    g, bias, ls = _attn_inputs(dev, 20, H, N, dtype)
+    qkv = torch.randn(1, 2 * ws, 2 * ws, 3, H, hd, device=dev, generator=g
+                      ).to(dtype)
+    gout = torch.randn(1, 2 * ws, 2 * ws, H, hd, device=dev, generator=g)
+    if layout.startswith("map"):
+        mxu = layout.endswith("mxu")
+        got = wa.window_attention_map_bwd(qkv, bias, ls, gout, shift, mxu)
+        want = wa.window_attention_map_bwd_plain(qkv, bias, ls, gout, shift,
+                                                 mxu)
+        rel = 2.0 ** -6 if mxu else 1e-4
+        tols = [r * float(w.abs().max())
+                for r, w in zip((rel, rel, max(rel, 1e-3)), want)]
+    else:
+        q, k, v = (t.to(dtype).contiguous()
+                   for t in wa._map_to_windows(qkv, ws))
+        gh = wa._heads_map_to_windows(gout, ws).to(dtype)
+        mask = wa.window_region_mask(ws, shift, 2, 2)
+        got = wa.window_attention_bwd(q, k, v, bias, ls, gh, mask)
+        want = wa.window_attention_bwd_plain(q, k, v, bias, ls, gh, mask)
+        tols = _grad_tols(want, dtype)
+    torch.cuda.synchronize()
+    for a, b, t in zip(got, want, tols):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= t
+
+
+@pytest.mark.parametrize("ws,shift", [(4, 0), (8, 4), (7, 3), (14, 7)],
+                         ids=["ws4", "ws8_shift4", "ws7_shift3", "ws14_shift7"])
+def test_backward_layouts_agree_to_the_bit_and_repeat(dev, ws, shift):
+    """The head layout (mask operand, bf16 outputs) and the map layout
+    (synthesised mask, fp32 outputs) run the same arithmetic in the same
+    order on the same numbers: dqkv rounded to bf16, dbias and dscale are
+    identical to the bit, and a second run repeats the first (no atomics)."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    B, nW1, H, hd, N = 3, 2, 2, 32, ws * ws
+    g, bias, ls = _attn_inputs(dev, 21, H, N, torch.bfloat16)
+    qkv = torch.randn(B, nW1 * ws, nW1 * ws, 3, H, hd, device=dev,
+                      generator=g).to(torch.bfloat16)
+    gout = torch.randn(B, nW1 * ws, nW1 * ws, H, hd, device=dev, generator=g
+                       ).to(torch.bfloat16).float()
+    q, k, v = (t.to(torch.bfloat16).contiguous()
+               for t in wa._map_to_windows(qkv, ws))
+    gh = wa._heads_map_to_windows(gout, ws).to(torch.bfloat16)
+    mask = wa.window_region_mask(ws, shift, nW1, nW1) if shift else None
+    first = wa.window_attention_map_bwd(qkv, bias, ls, gout, shift)
+    again = wa.window_attention_map_bwd(qkv, bias, ls, gout, shift)
+    head = wa.window_attention_bwd(q, k, v, bias, ls, gh, mask)
+    head_again = wa.window_attention_bwd(q, k, v, bias, ls, gh, mask)
+    torch.cuda.synchronize()
+    for a, b in zip(first + head, again + head_again):
+        assert torch.equal(a, b)
+    dqkv_h = wa._windows_to_map(torch.stack(head[:3]), B, nW1 * ws, nW1 * ws,
+                                ws)
+    assert torch.equal(dqkv_h, first[0].to(torch.bfloat16))
+    assert torch.equal(head[3], first[1]) and torch.equal(head[4], first[2])
+
+
+def test_backward_takes_views_that_start_off_a_16_byte_boundary(dev):
+    """The kernels load 16 bytes a thread; a view whose first row starts
+    elsewhere is copied by the wrapper, not refused."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    H, N, hd = 2, 16, 32
+    g, bias, ls = _attn_inputs(dev, 22, H, N, torch.bfloat16)
+    flat = torch.randn(4 * 4 * H * N * hd + 1, device=dev, generator=g
+                       ).to(torch.bfloat16)
+    q, k, v, gout = flat[1:].reshape(4, 4, H, N, hd).unbind(0)
+    assert q.data_ptr() % 16 != 0
+    got = wa.window_attention_bwd(q, k, v, bias, ls, gout)
+    want = wa.window_attention_bwd_plain(q, k, v, bias, ls, gout)
+    for a, b, t in zip(got, want, _grad_tols(want, torch.bfloat16)):
+        assert float((a.float() - b.float()).abs().max()) <= t
 
 
 def test_window_attention_entry_points_backward_on_card(dev):

@@ -290,6 +290,85 @@ def test_mxu_bf16_env_default(monkeypatch):
     assert not torch.equal(rounded, plain)
 
 
+# ------------------------------- the card kernels' split-operand arithmetic
+# K8b/K7b form every fp32 product on the card as a few bf16 tensor-core
+# products of split operands. ``_core_bwd_split`` is that arithmetic in plain
+# PyTorch; here it is held against the Pallas kernels (fp32 products) with
+# the tolerances the kernels are held to on the card: fp32 dq/dk/dv within
+# 1e-4 of the largest value, dbias 1e-4, dscale 1e-3, bf16 outputs within two
+# bf16 ulps of the largest. ``scale`` 100 is the logit scale at its clamp,
+# where an error in q̂·k̂ weighs most.
+
+def _assert_card_tolerances(got, want, out_bf16):
+    *first, dbias, dscale = zip(got, want)
+    rel_first = 2.0 ** -6 if out_bf16 else 1e-4
+    for (a, b), rel in [*((ab, rel_first) for ab in first), (dbias, 1e-4),
+                        (dscale, 1e-3)]:
+        a = a.float().numpy()
+        b = np.asarray(b.astype(jnp.float32))
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= rel * np.abs(b).max()
+
+
+SPLIT_CASES = [(masked, bf16, scale) for masked in (False, True)
+               for bf16 in (False, True) for scale in (None, 100.0)]
+SPLIT_IDS = [f"{'mask' if m else 'nomask'}_{'bf16' if b else 'fp32'}_"
+             f"{'scale100' if s else 'scale1'}" for m, b, s in SPLIT_CASES]
+
+
+@pytest.mark.parametrize("masked,bf16,scale100", SPLIT_CASES, ids=SPLIT_IDS)
+def test_head_layout_split_products_match_pallas_interpret(masked, bf16,
+                                                           scale100):
+    q, k, v, bias, scale, g = _head_inputs(41, hd=32)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    mask = _shift_mask() if masked else None
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    want = jwa.pallas_window_attention_bwd(
+        jq, jk, jv, jnp.asarray(bias), jnp.asarray(scale), jg, mask,
+        interpret=True)
+    tq, tk, tv, tg = _t(*(np.array(a.astype(jnp.float32))
+                         for a in (jq, jk, jv, jg)))
+    got = twa._core_bwd_split(tq, tk, tv, *_t(bias, scale),
+                              twa._mask_tensor(mask, tq.device), tg, bf16, bf16)
+    if bf16:
+        got = [t.bfloat16() for t in got[:3]] + list(got[3:])
+    _assert_card_tolerances(got, want, bf16)
+
+
+@pytest.mark.parametrize("masked,bf16,scale100", SPLIT_CASES, ids=SPLIT_IDS)
+def test_map_layout_split_products_match_pallas_interpret(masked, bf16,
+                                                          scale100):
+    """The map layout: the mask synthesised from the shift, fp32 g and dqkv
+    whatever qkv's type (so g takes two terms, v one when qkv is bf16)."""
+    qkv, bias, scale, g = _map_inputs(42, hd=32)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    shift = 2 if masked else 0
+    jq = jnp.asarray(qkv, jnp.bfloat16 if bf16 else jnp.float32)
+    want = jwa.pallas_window_attention_map_bwd(
+        jq, jnp.asarray(bias), jnp.asarray(scale), jnp.asarray(g), shift,
+        interpret=True)
+    tq, tb, ts, tg = _t(np.array(jq.astype(jnp.float32)), bias, scale, g)
+    dq, dk, dv, dbias, dscale = twa._core_bwd_split(
+        *twa._map_to_windows(tq, 4), tb, ts, twa._map_mask(tq, 4, shift, 8, 8),
+        twa._heads_map_to_windows(tg, 4), bf16, False)
+    dqkv = twa._windows_to_map(torch.stack([dq, dk, dv]), 2, 8, 8, 4)
+    assert dqkv.shape == qkv.shape
+    _assert_card_tolerances([dqkv, dbias, dscale], want, False)
+
+
+def test_split_terms_rebuild_the_operand():
+    """Two terms leave 2⁻¹⁶ of the value, three are exact in fp32."""
+    x = torch.as_tensor(np.random.RandomState(43).randn(64, 32).astype(
+        np.float32))
+    two, three = twa._split16(x, 2), twa._split16(x, 3)
+    assert all(torch.equal(t, t.bfloat16().float()) for t in three)
+    assert float((sum(two) - x).abs().max()) <= 2.0 ** -16 * float(x.abs().max())
+    assert torch.equal(three[0] + three[1] + three[2], x)
+
+
 @pytest.mark.parametrize("bad", [
     dict(q=(6, 2, 16, 8)),                       # Bn % nW
     dict(k=(4, 2, 16, 4)),                       # k unlike q
