@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
      K3b, K4b at the shapes one batch-16 training step gives them; K1, K2,
      K5 (also against K2), K3 and K3b at the shapes one batch-64 SwinV2
      fine-tune step gives them (the plain attention versions over chunks
-     of windows there); K6/K6b at blockbench's stage-3 shapes; and the
+     of windows there), with a profile of one K2 and one K5 launch by
+     pass; K1, K2 and K5 on fp32 inputs, with bf16 product operands
+     (``mxu_bf16``) and on a row whose row sum underflows, and K2's time
+     with ``mxu_bf16``; K6/K6b at blockbench's stage-3 shapes; and the
      head-layout K8/K8b (mask operand) and map-layout K7/K7b (mask
      synthesised, fp32 outputs) at the bucket-16 geometry of every stage,
      plus one fp32 case and K7/K7b with bf16 product operands;
@@ -334,7 +337,11 @@ def check_attention(dev, gen, rows, shapes, path):
         del leaves, mask_g, gs, qs, ks, vs, q, k, v
         nbytes = (2 * Bn * N * 3 * C * 2 + 2 * Bn * N * C * 2
                   + Bn * H * N * 4 + 2 * H * N * N * 4)
-        t_ops = max(10 * Bn * H * N * N * hd / FP32_FLOP_S,
+        # K2/K5 run their products on the tensor cores (as K8b/K7b): the
+        # least time the card needs for the work whatever implements it,
+        # 10·Bn·H·N²·hd flops at the bf16 tensor-core rate or one exp per
+        # logit at the special-function rate ("operations")
+        t_ops = max(10 * Bn * H * N * N * hd / BF16_TC_FLOP_S,
                     Bn * H * N * N / SFU_EXP_S)
         rows.append(dict(kernel="window_attention_flat_bwd", shape=shape,
                          path=path, per_fwd=per_fwd, err=max(errs),
@@ -347,6 +354,9 @@ def check_attention(dev, gen, rows, shapes, path):
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=t_ops * 1e3))
         if path != "swin":
+            if stage == 1 and shift:      # where a K2 launch spends its time
+                profile_run(f"K2 {shape}",
+                            lambda: window_attention_flat_bwd(*bargs))
             del got, out, r
             continue
 
@@ -388,28 +398,108 @@ def check_attention(dev, gen, rows, shapes, path):
                          ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
                          t_ops=t_ops * 1e3))
+        if stage == 1 and shift:          # where a K5 launch spends its time
+            profile_run(f"K5 {shape}",
+                        lambda: window_attention_flat_bwd_v1(*vargs))
         del got, out, r
 
 
-def check_attention_fp32(dev, gen):
-    """K1 on fp32 qkv: the same kernel without the bf16 output rounding."""
+def check_attention_variants(dev, gen):
+    """K1, K2 and K5 beyond the main path's bf16 inputs, against their plain
+    versions: (a) fp32 qkv at stage 2 shift 14 (outputs and dq, dk, dv
+    within 1e-4 of their largest value, dbias 1e-4, dscale 1e-3); (b)
+    ``mxu_bf16`` at stage 3 (the kernels and the plain versions round the
+    same operands to bf16 and a value on a rounding boundary may go either
+    way: two bf16 ulps of the largest value, dbias 1e-3, dscale 1e-2, as
+    K7b's); (c) a query row whose logits all sit 90-110 below the fixed
+    shift m_h at stage 3 (scale 10, bias in [0, 1) but −90 on row 3: its
+    row sum under the 1e-30 clamp, its exps subnormal, which the kernels
+    flush), K2 and K5 within the usual tolerances and finite; (d) K2's time
+    with split operands against ``mxu_bf16`` at stage 1 shift 14."""
     import torch
 
-    from mvuld_tpu_torch.ops.window_attention import (
-        window_attention_flat, window_attention_flat_plain)
+    from mvuld_tpu_torch.ops import window_attention as wa
 
-    qkv = torch.randn(64, 784, 768, device=dev, generator=gen)
-    bias = 16 * torch.sigmoid(torch.randn(8, 784, 784, device=dev,
-                                          generator=gen))
-    ls = torch.full((8,), math.log(10.0), device=dev)
-    got = window_attention_flat(qkv, bias, ls, 14, 2, 2)
-    want = window_attention_flat_plain(qkv, bias, ls, 14, 2, 2)
-    err32 = float((got - want).abs().max())
-    print(f"K1 fp32 check stage2 shift=14: max_abs_err={err32:.3e} "
-          f"(tol 1e-4)", flush=True)
-    if not err32 <= 1e-4:
-        raise AssertionError(f"K1 fp32 disagrees with its plain version: "
-                             f"{err32}")
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+
+    def inputs(row, dtype):
+        stage, Bn, N, C, H, shift, nW1, _ = row
+        qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=gen).to(dtype)
+        bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev,
+                                              generator=gen))
+        ls = math.log(10.0) + 0.1 * torch.randn(H, device=dev, generator=gen)
+        g = torch.randn(Bn, N, C, device=dev, generator=gen).to(dtype)
+        return qkv, bias, ls, g, (shift, nW1, nW1)
+
+    def grads(kind, qkv, bias, ls, g, geom, plain=False, **kw):
+        if kind == "K5":
+            fn = (wa.window_attention_flat_bwd_v1_plain if plain
+                  else wa.window_attention_flat_bwd_v1)
+            out = fn(qkv, bias, ls, g, *geom, **kw)
+        else:
+            o, r = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
+                                                  return_rowsum=True, **kw)
+            fn = (wa.window_attention_flat_bwd_plain if plain
+                  else wa.window_attention_flat_bwd)
+            out = fn(qkv, bias, ls, o, r, g, *geom, **kw)
+        C = g.shape[-1]
+        return [out[0][..., i * C:(i + 1) * C] for i in range(3)] + [
+            out[1], out[2]]
+
+    def report(label, got, want, rels):
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        tols = [r * big(w) for r, w in zip(rels, want)]
+        print(f"{label}: " + " ".join(f"{e:.2e}/{t:.2e}"
+                                      for e, t in zip(errs, tols)),
+              flush=True)
+        if not (all(e <= t for e, t in zip(errs, tols))
+                and all(bool(torch.isfinite(a).all()) for a in got)):
+            raise AssertionError(f"{label} disagrees with its plain version")
+
+    qkv, bias, ls, g, geom = inputs(K1_SHAPES[3], torch.float32)
+    report("K1 fp32 stage2 shift=14",
+           [wa.window_attention_flat(qkv, bias, ls, *geom)],
+           [wa.window_attention_flat_plain(qkv, bias, ls, *geom)], [1e-4])
+    for kind in ("K2", "K5"):
+        report(f"{kind} fp32 stage2 shift=14 (dq dk dv dbias dscale)",
+               grads(kind, qkv, bias, ls, g, geom),
+               grads(kind, qkv, bias, ls, g, geom, plain=True),
+               [1e-4] * 4 + [1e-3])
+    del qkv, g
+
+    qkv, bias, ls, g, geom = inputs(K1_SHAPES[4], torch.bfloat16)
+    ulps = 2.0 ** -6
+    report("K1 mxu_bf16 stage3",
+           [wa.window_attention_flat(qkv, bias, ls, *geom, mxu_bf16=True)],
+           [wa.window_attention_flat_plain(qkv, bias, ls, *geom,
+                                           mxu_bf16=True)], [ulps])
+    for kind in ("K2", "K5"):
+        report(f"{kind} mxu_bf16 stage3 (dq dk dv dbias dscale)",
+               grads(kind, qkv, bias, ls, g, geom, mxu_bf16=True),
+               grads(kind, qkv, bias, ls, g, geom, plain=True, mxu_bf16=True),
+               [ulps] * 3 + [1e-3, 1e-2])
+    bias = torch.rand(bias.shape, device=dev, generator=gen)
+    bias[:, 3, :] = -90.0
+    ls = torch.full_like(ls, 10.0)
+    _, r = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
+                                          return_rowsum=True)
+    if not bool((r[:, :, 3] == 1e30).all()):
+        raise AssertionError("the underflowing row's sum is not clamped")
+    for kind in ("K2", "K5"):
+        want = grads(kind, qkv, bias, ls, g, geom, plain=True)
+        report(f"{kind} underflowing row stage3 (dq dk dv dbias dscale)",
+               grads(kind, qkv, bias, ls, g, geom), want,
+               [ulps] * 3 + [1e-4, 1e-3])
+    del qkv, g, want
+
+    # what the split operands cost against one bf16 product per term
+    qkv, bias, ls, g, geom = inputs(K1_SHAPES[1], torch.bfloat16)
+    o, r = wa.window_attention_flat(qkv, bias, ls, *geom, return_rowsum=True)
+    ms = [time_ms(lambda m=m: wa.window_attention_flat_bwd(
+        qkv, bias, ls, o, r, g, *geom, mxu_bf16=m), 5) for m in (False, True)]
+    print(f"K2 stage1 shift=14: split operands {ms[0]:.3f} ms, mxu_bf16 "
+          f"{ms[1]:.3f} ms [{card_line()}]", flush=True)
 
 
 def _layout_inputs(dev, gen, Bn, N, C, H, nW1, dtype):
@@ -1610,12 +1700,8 @@ def _category(name: str) -> str:
         return "K1 window_attention_flat"
     if "attn_fwd" in name:
         return "K7/K8 window attention forward (exact softmax)"
-    if "exact_bwd" in name or "prep_operands" in name:
-        return "K7b/K8b window attention backward (exact softmax)"
-    if "bwd_rowstats" in name:
-        return "K5 window_attention_flat_bwd_v1 (row pass)"
-    if "bwd_dq" in name or "bwd_dkv" in name or "bwd_dbias" in name:
-        return "K2 window_attention_flat_bwd"
+    if "attn_bwd" in name or "prep_operands" in name:
+        return "K2/K5/K7b/K8b window attention backward passes"
     if "dense_fwd" in name:
         return "K6 dense_fwd"
     if "dense_bwd_rows" in name:
@@ -1675,7 +1761,7 @@ KERNELS = {
     "window_attention_flat": ("mvuld_tpu_torch/csrc/window_attention_flat.cu",
                               "mvuld_tpu/ops/window_attention.py:883"),
     "window_attention_flat_bwd": (
-        "mvuld_tpu_torch/csrc/window_attention_flat.cu",
+        "mvuld_tpu_torch/csrc/window_attention.cu",
         "mvuld_tpu/ops/window_attention.py:1317"),
     "mlp_ln": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
                "mvuld_tpu/ops/fused_dense.py:407"),
@@ -1686,7 +1772,7 @@ KERNELS = {
     "mlp_ln_res_bwd": ("mvuld_tpu_torch/csrc/mlp_ln.cu",
                        "mvuld_tpu/ops/fused_dense.py:646"),
     "window_attention_flat_bwd_v1": (
-        "mvuld_tpu_torch/csrc/window_attention_flat.cu",
+        "mvuld_tpu_torch/csrc/window_attention.cu",
         "mvuld_tpu/ops/window_attention.py:1042"),
     "dense_fwd": ("mvuld_tpu_torch/csrc/fused_dense.cu",
                   "mvuld_tpu/ops/fused_dense.py:74"),
@@ -1778,7 +1864,7 @@ def main() -> int:
     rows = []
     check_attention(dev, gen, rows, K1_SHAPES, "e2e")
     check_attention(dev, gen, rows, SWIN_K1_SHAPES, "swin")
-    check_attention_fp32(dev, gen)
+    check_attention_variants(dev, gen)
     check_layouts(dev, gen, rows)
     check_layouts_variants(dev, gen)
     check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES)

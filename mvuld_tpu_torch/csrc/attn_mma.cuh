@@ -30,9 +30,9 @@
 //
 // The helpers know nothing of the softmax. A kernel brings its own "logit
 // source": a struct that turns (row, column, q^.k^) into the logit and the
-// row statistic into p. window_attention.cu's `ExactLogits` is the exact
-// softmax (bias + mask operand or synthesised shift mask, p = 2^(x log2e +
-// lr)); a fixed-shift softmax has the same shape.
+// row statistic into p. window_attention.cu's `Logits` serves the exact and
+// the fixed-shift softmax (bias + mask operand or synthesised shift mask,
+// p = 2^(x log2e + lr)), which differ in their row statistics only.
 
 #pragma once
 

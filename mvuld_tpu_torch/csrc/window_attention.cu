@@ -1,9 +1,12 @@
 // K8/K8b: SwinV2 cosine window attention in the head layout, forward and
-// backward; K7/K7b: the same attention read straight from the feature map.
+// backward; K7/K7b: the same attention read straight from the feature map;
+// K2/K5: the backward of the flat layout's fixed-shift softmax (its forward,
+// K1, is window_attention_flat.cu).
 //
 // They replace the Pallas TPU kernels `pallas_window_attention` (K8),
-// `pallas_window_attention_bwd` (K8b), `pallas_window_attention_map` (K7)
-// and `pallas_window_attention_map_bwd` (K7b) of
+// `pallas_window_attention_bwd` (K8b), `pallas_window_attention_map` (K7),
+// `pallas_window_attention_map_bwd` (K7b), `pallas_window_attention_flat_bwd2`
+// (K2) and `pallas_window_attention_flat_bwd` (K5) of
 // mvuld_tpu/ops/window_attention.py. Per window b and head h:
 //
 //   q^ = q * rsqrt(sum q^2 + 1e-12), k^ likewise (fp32)
@@ -78,13 +81,27 @@
 //     a chunk of the windows in order; chunks and dscale's per-block sums
 //     are added by `sum_partials` in a fixed order, so two runs and the two
 //     layouts give the same bits.
-// Head dim 32 (SwinV2's).
+//
+// The flat layout (K2, K5) is a third `Lay`: a head layout whose token
+// stride is qkv's row of 3C values (q, k, v at offsets 0, C, 2C; dq, dk, dv
+// at the same offsets of dqkv) and C for o and g, with the shift mask
+// synthesised as K7b's. Its softmax subtracts a fixed per-head shift m_h =
+// scale_h + max(bias[h]) in place of the row maximum, so its p has the
+// same form, p = 2^(x log2e + lr2) with lr2 = log2 r - m_h log2e, and the
+// passes after the row statistics are the exact softmax's. Only the row
+// terms differ: K2 reads r and rowsum(g * o) from the forward, and
+// `prep_operands` turns them into lr2 and t once per row (no row pass);
+// K5 runs a fixed-shift row pass (ROWSUMS: sums of e = p at lr2 = -m_h
+// log2e and of e * dp, no maximum) that writes lr2 and t' = r * sum(e dp)
+// with r = 1 / max(sum e, 1e-30), never r^2 (r may reach 1e30).
+// `mxu_bf16` is `round_ops` here too. Head dim 32 (SwinV2's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "attn_mma.cuh"
@@ -345,19 +362,25 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(
 // and k in fp32 and writes every product operand once as bf16 terms in the
 // head layout (q^, k^ three terms, v and g one or two), so the kernels
 // after it copy tiles with `cp.async` and do no staging arithmetic.
-// `exact_bwd_rows` serves three of them: a block owns 16 W "own" rows of
-// one window and head (W warps, 16 rows each: queries for ROWSTATS and DQ,
-// keys for DKV), keeps their A fragments in registers and walks the other
-// side in double-buffered tiles of TK rows, 16 at a time: s and dp of a
-// 16 x 16 block on the tensor cores, the logits and p, ds in registers,
-// and the second products straight from those registers. `exact_bwd_sums`
-// owns a 16 W x TJ tile of one head and walks a range of windows.
+// `attn_bwd_rows` serves three of them: a block owns 16 W "own" rows of
+// one window and head (W warps, 16 rows each: queries for ROWSTATS,
+// ROWSUMS and DQ, keys for DKV), keeps their A fragments in registers and
+// walks the other side in double-buffered tiles of TK rows, 16 at a time:
+// s and dp of a 16 x 16 block on the tensor cores, the logits and p, ds in
+// registers, and the second products straight from those registers.
+// `attn_bwd_sums` owns a 16 W x TJ tile of one head and walks a range of
+// windows.
 
 constexpr int TK = 64;     // other-side rows per tile
 constexpr int TJ = 64;     // key columns of a dbias tile
 constexpr int MAXW = 8;    // warps per block at most
 constexpr int PX = 3;      // terms of q^ and k^ (six products per logit)
-enum { ROWSTATS = 0, DQ = 1, DKV = 2 };
+// the passes of attn_bwd_rows: row statistics of the exact softmax, of the
+// fixed-shift softmax, dq, dk and dv
+enum { ROWSTATS = 0, DQ = 1, DKV = 2, ROWSUMS = 3 };
+// where a backward takes its row terms lr2 and t from: the exact row pass
+// (K8b, K7b), the forward's r and output (K2), the fixed-shift row pass (K5)
+enum { EXACT_ROWS = 0, FORWARD_ROWS = 1, FIXED_ROWS = 2 };
 
 // bf16 terms of a product operand of this type
 template <typename T> struct Terms { static constexpr int n = 2; };
@@ -378,11 +401,23 @@ struct Staged {
   float *qn, *kn;
 };
 
-// One thread per eight values of a (window, head, token) row.
+// K2's row terms from the forward: its output o (out's layout and type),
+// its reciprocal row sums r [Bn, H, N] and the fixed shifts m [H]; null
+// pointers for every other backward.
+template <typename TO>
+struct FwdRows {
+  const TO* o;
+  const float *r, *shiftm;
+};
+
+// One thread per eight values of a (window, head, token) row. With F.o, it
+// also writes the row's lr2 = log2 r - m_h log2e and t = rowsum(g * o),
+// summed in fp32 from o and g in their own type (lr, tt [Bn, H, N]).
 template <typename T, typename TO>
 __global__ void __launch_bounds__(256) prep_operands(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const TO* __restrict__ g, Staged S, int Bn, Geo G) {
+    const TO* __restrict__ g, Staged S, int Bn, Geo G, FwdRows<TO> F,
+    float* __restrict__ lr, float* __restrict__ tt) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t row = idx >> 2, total = (size_t)Bn * G.H * G.N;
   const int c = static_cast<int>(idx & 3);
@@ -391,6 +426,7 @@ __global__ void __launch_bounds__(256) prep_operands(
   const int i = static_cast<int>(rr % G.N), h = static_cast<int>(rr / G.N % G.H);
   const int b = static_cast<int>(rr / G.N / G.H);
   const size_t src = at(G.in, b, h, i) + 8 * c, dst = rr * HD + 8 * c;
+  const size_t gsrc = at(G.out, b, h, i) + 8 * c;
   float x[8];
   load8(q + src, x);
   float n = normalise8(x);
@@ -400,22 +436,37 @@ __global__ void __launch_bounds__(256) prep_operands(
   }
   load8(k + src, x);
   n = normalise8(x);
+  float t = 0.f;
+  if (F.o != nullptr) {
+    float gv[8], ov[8];
+    load8(g + gsrc, gv);
+    load8(F.o + gsrc, ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t += gv[e] * ov[e];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+  }
   if (!in) return;
   store_terms<PX>(x, S.k + dst, S.stride);
   if (c == 0) S.kn[rr] = n;
   load8(v + src, x);
   store_terms<Terms<T>::n>(x, S.v + dst, S.stride);
-  load8(g + at(G.out, b, h, i) + 8 * c, x);
+  load8(g + gsrc, x);
   store_terms<Terms<TO>::n>(x, S.g + dst, S.stride);
+  if (F.o != nullptr && c == 0) {
+    lr[rr] = fmaf(-F.shiftm[h], LOG2E, log2f(F.r[rr]));
+    tt[rr] = t;
+  }
 }
 
-// The logit source of the exact softmax: x = s_cos * scale + (bias + mask),
-// p = 2^(x log2e + lr2) with lr2 = -(row max + log2 of the row sum) in
-// log2 units. The synthesised shift mask compares per-token band flags
-// (1: column in the shift band, 2: row in it) under the window's `wm`
-// (1: last window column, 2: last window row; 0: no mask), so a logit
-// costs an xor and a test, no division.
-struct ExactLogits {
+// The logit source: x = s_cos * scale + (bias + mask), p = 2^(x log2e +
+// lr2) with lr2 = -(row max + log2 of the row sum) in log2 units for the
+// exact softmax and lr2 = log2 r - m_h log2e for the fixed shift (the two
+// differ in their row terms only). The synthesised shift mask compares
+// per-token band flags (1: column in the shift band, 2: row in it) under
+// the window's `wm` (1: last window column, 2: last window row; 0: no
+// mask), so a logit costs an xor and a test, no division.
+struct Logits {
   const float* bias;            // bias[h]
   const float* mask;            // this window's mask operand, or null
   const unsigned char* flags;   // [N16] in shared memory
@@ -508,15 +559,28 @@ struct BwdP {
   TO *dq, *dk, *dv;
 };
 
+// K2's and K5's parameters: BwdP and two more. A separate type, because a
+// larger parameter block changes nvcc's code for K8b/K7b's passes (1-2 %
+// slower on the card) although they never read the two.
+template <typename TO>
+struct FlatBwdP : BwdP<TO> {
+  const float* shiftm;       // [H]: the fixed shift m_h (ROWSUMS)
+  // [Bn, H, N]: K2's dscale terms q^ . dq^ / scale per query row (the DQ
+  // pass writes them, the sums pass adds them in place of ds * s; ROWQ)
+  float* rowq;
+};
+
 // The gradient of the normalised rows back through x^ = x * rsqrt(sum x^2):
 // out = (acc*sc - x^ (x^ . acc*sc)) * n for the warp's rows rl (quad row g)
 // and rl + 8 of the block's own tile, x^ summed from its staged terms, n
-// the rows' factors. A null pointer skips that row's store.
+// the rows' factors; dots gets the two rows' x^ . acc*sc. A null pointer
+// skips that row's store.
 template <typename TO>
 __device__ __forceinline__ void store_normalised(const float (&acc)[4][4], float sc,
                                                  const __nv_bfloat16* ownX, int so,
                                                  int rl, float na, float nb,
-                                                 TO* out_a, TO* out_b) {
+                                                 TO* out_a, TO* out_b,
+                                                 float (&dots)[2]) {
   const int t4 = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -530,6 +594,7 @@ __device__ __forceinline__ void store_normalised(const float (&acc)[4][4], float
     }
     dot += __shfl_xor_sync(0xffffffffu, dot, 1);
     dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    dots[r] = dot;
     const float n = r == 0 ? na : nb;
     TO* out = r == 0 ? out_a : out_b;
     if (out == nullptr) continue;
@@ -540,11 +605,14 @@ __device__ __forceinline__ void store_normalised(const float (&acc)[4][4], float
   }
 }
 
-// ROWSTATS: lr2 and t of the block's query rows. DQ: dq of them. DKV: dk
-// and dv of the block's key rows. PV, PG: the terms of v and g. Grid (own
-// tiles, H, Bn), 32 W threads.
-template <int PV, int PG, typename TO, int MODE>
-__global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G) {
+// ROWSTATS (exact softmax) and ROWSUMS (fixed shift): lr2 and t of the
+// block's query rows. DQ: dq of them (with ROWQ also K2's dscale terms
+// A.rowq). DKV: dk and dv of the block's key rows. PV, PG: the terms of v
+// and g. Grid (own tiles, H, Bn), 32 W threads. ROWQ is a template switch
+// so that the other backwards compile without its code; P is BwdP<TO>, or
+// FlatBwdP<TO> for ROWSUMS and ROWQ.
+template <int PV, int PG, typename TO, int MODE, bool ROWQ, typename P>
+__global__ void __launch_bounds__(32 * MAXW, 2) attn_bwd_rows(P A, Geo G) {
   constexpr bool KEYS = MODE == DKV;
   constexpr int PYO = KEYS ? PV : PG, PYT = KEYS ? PG : PV;   // own, other v or g
   extern __shared__ __align__(16) unsigned char smem[];
@@ -601,7 +669,7 @@ __global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G
   cp_async_commit();
   stage_flags(G, synth, N16, flags);
 
-  const ExactLogits LG{A.bias + (size_t)h * N * N,
+  const Logits LG{A.bias + (size_t)h * N * N,
                        A.mask == nullptr ? nullptr
                                          : A.mask + (size_t)(b % G.nWmask) * N * N,
                        flags, sc, N, window_bands(G, synth, b)};
@@ -627,6 +695,9 @@ __global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc1[a][e] = acc2[a][e] = 0.f;
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, ts[2] = {0.f, 0.f};
+  // ROWSUMS: e = p at lr2 = -m_h log2e, the fixed shift's unnormalised exp
+  float lr0 = 0.f;
+  if constexpr (MODE == ROWSUMS) lr0 = -A.shiftm[h] * LOG2E;
 
   const int ntiles = (N16 + TK - 1) / TK;
   for (int t = 0; t < ntiles; ++t) {
@@ -689,6 +760,17 @@ __global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G
           ts[r] += (e0 * dp[0][2 * r] + e1 * dp[0][2 * r + 1]) +
                    (e2 * dp[1][2 * r] + e3 * dp[1][2 * r + 1]);
         }
+      } else if (MODE == ROWSUMS) {
+        // this thread's four columns of each row: sum e and e * dp, no
+        // maximum (m_h bounds every logit)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float e0 = LG.p(x[0][2 * r], lr0), e1 = LG.p(x[0][2 * r + 1], lr0);
+          const float e2 = LG.p(x[1][2 * r], lr0), e3 = LG.p(x[1][2 * r + 1], lr0);
+          l[r] += (e0 + e1) + (e2 + e3);
+          ts[r] += (e0 * dp[0][2 * r] + e1 * dp[0][2 * r + 1]) +
+                   (e2 * dp[1][2 * r] + e3 * dp[1][2 * r + 1]);
+        }
       } else if (MODE == DQ) {
         float ds[2][4];
 #pragma unroll
@@ -743,14 +825,34 @@ __global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G
         A.tt[row0 + i] = ts[r] / l[r];
       }
     }
+  } else if (MODE == ROWSUMS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {     // the row's four threads
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+        ts[r] += __shfl_xor_sync(0xffffffffu, ts[r], off);
+      }
+      const int i = r == 0 ? ra : rb;
+      if (t4 == 0 && i < N) {
+        const float rs = 1.f / fmaxf(l[r], 1e-30f);   // K1's clamped row sum
+        A.lr[row0 + i] = log2f(rs) + lr0;
+        A.tt[row0 + i] = rs * ts[r];
+      }
+    }
   } else {
     const float* norm = KEYS ? S.kn : S.qn;
     TO* grad = KEYS ? A.dk : A.dq;
+    float dots[2];
     store_normalised<TO>(KEYS ? acc2 : acc1, sc, ownX, so, 16 * warp + g8,
                          ra < N ? norm[row0 + ra] : 0.f,
                          rb < N ? norm[row0 + rb] : 0.f,
                          ra < N ? grad + at(G.in, b, h, ra) : nullptr,
-                         rb < N ? grad + at(G.in, b, h, rb) : nullptr);
+                         rb < N ? grad + at(G.in, b, h, rb) : nullptr, dots);
+    if constexpr (ROWQ) {
+      if (t4 == 0 && ra < N) A.rowq[row0 + ra] = dots[0] / sc;
+      if (t4 == 0 && rb < N) A.rowq[row0 + rb] = dots[1] / sc;
+    }
     if (KEYS) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -771,12 +873,13 @@ __global__ void __launch_bounds__(32 * MAXW, 2) exact_bwd_rows(BwdP<TO> A, Geo G
 // order, in accumulator fragments; the windows' tiles arrive double
 // buffered, the tile's bias sits in registers. It writes its tile to
 // dst[chunk][h] ([nchunk, H, N, N]; dbias itself when nchunk is 1) and its
-// share of dscale[h] = sum ds * s_cos to
+// share of dscale[h] = sum ds * s_cos (with ROWQ: the sum of its rows'
+// q^ . dq^ / scale from A.rowq, in the first column tile) to
 // part[((chunk * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * H + h];
 // `sum_partials` adds the chunks and the blocks of a head in a fixed order.
-template <int PV, int PG, typename TO>
-__global__ void __launch_bounds__(32 * MAXW, 1) exact_bwd_sums(
-    BwdP<TO> A, float* __restrict__ dst, float* __restrict__ part, int Bn, int per,
+template <int PV, int PG, typename TO, bool ROWQ, typename P>
+__global__ void __launch_bounds__(32 * MAXW, 1) attn_bwd_sums(
+    P A, float* __restrict__ dst, float* __restrict__ part, int Bn, int per,
     int nchunk, Geo G) {
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -816,7 +919,7 @@ __global__ void __launch_bounds__(32 * MAXW, 1) exact_bwd_sums(
   cp_async_commit();
   stage_flags(G, synth, N16, flags);
 
-  ExactLogits LG{A.bias + (size_t)h * N * N, nullptr, flags, sc, N, 0};
+  Logits LG{A.bias + (size_t)h * N * N, nullptr, flags, sc, N, 0};
   float acc[TJ / 16][2][4], bias_r[TJ / 16][2][4];
 #pragma unroll
   for (int a = 0; a < TJ / 16; ++a)
@@ -842,6 +945,10 @@ __global__ void __launch_bounds__(32 * MAXW, 1) exact_bwd_sums(
     if (active) {
       if (ra < N) { lr[0] = A.lr[stat0 + ra]; tt[0] = A.tt[stat0 + ra]; }
       if (rb < N) { lr[1] = A.lr[stat0 + rb]; tt[1] = A.tt[stat0 + rb]; }
+      if constexpr (ROWQ) {
+        if (blockIdx.x == 0 && t4 == 0 && ra < N) dsc += A.rowq[stat0 + ra];
+        if (blockIdx.x == 0 && t4 == 0 && rb < N) dsc += A.rowq[stat0 + rb];
+      }
       if (A.mask != nullptr) {
         const float* mw = A.mask + (size_t)(b % G.nWmask) * N * N;
 #pragma unroll
@@ -890,7 +997,7 @@ __global__ void __launch_bounds__(32 * MAXW, 1) exact_bwd_sums(
             for (int e = 0; e < 4; ++e) {
               const float ds = LG.p(x[nt][e], lr[e >> 1]) * (dp[nt][e] - tt[e >> 1]);
               acc[a][nt][e] += ds;
-              dsc += ds * s[nt][e];
+              if constexpr (!ROWQ) dsc += ds * s[nt][e];
             }
           }
         }
@@ -954,6 +1061,8 @@ int launch_fwd(const FwdArgs& A, int Bn, const Geo& G, cudaStream_t stream) {
 struct BwdArgs {
   const void *q, *k, *v, *bias, *scale, *mask, *g;
   void *dq, *dk, *dv, *dbias, *dscale, *lr, *tt, *part_db, *part_ds, *ops, *norms;
+  const void *o, *r, *shiftm;   // FORWARD_ROWS: the forward's output, r; ROWSUMS: m
+  void* rowq;                   // FORWARD_ROWS: K2's dscale terms
 };
 
 // Warps per block and blocks per window side: the ceil(N / 16) strips of 16
@@ -967,10 +1076,16 @@ Plan plan_rows(int N) {
   return Plan{(strips + tiles - 1) / tiles, tiles};
 }
 
-template <typename T, typename TO>
+// The backward whose row terms come from ROWS (EXACT_ROWS, FORWARD_ROWS or
+// FIXED_ROWS): prep_operands, the row pass if any, dq, dk/dv, dbias and
+// dscale, and the fixed-order sums of their partials.
+template <typename T, typename TO, int ROWS>
 int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
                cudaStream_t stream) {
   constexpr int PV = Terms<T>::n, PG = Terms<TO>::n;
+  constexpr int ROW_PASS = ROWS == EXACT_ROWS ? ROWSTATS : ROWSUMS;
+  constexpr bool ROWQ = ROWS == FORWARD_ROWS;
+  using Par = std::conditional_t<ROWS == EXACT_ROWS, BwdP<TO>, FlatBwdP<TO>>;
   const int N16 = (G.N + 15) & ~15;
   const Plan P = plan_rows(G.N);
   const int R = 16 * P.W, nJt = (N16 + TJ - 1) / TJ;
@@ -981,14 +1096,16 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
   auto sums_smem = [&](int r) {
     return (size_t)2 * ((PX + PG) * r + (PX + PV) * TJ) * LDB * 2 + MAXW * 4 + N16;
   };
-  cudaError_t err;
-  if ((err = allow_smem(exact_bwd_rows<PV, PG, TO, ROWSTATS>,
+  cudaError_t err = cudaSuccess;
+  if constexpr (ROWS != FORWARD_ROWS)
+    err = allow_smem(attn_bwd_rows<PV, PG, TO, ROW_PASS, false, Par>,
+                     rows_smem(PG, PV, 16 * MAXW));
+  if (err != cudaSuccess ||
+      (err = allow_smem(attn_bwd_rows<PV, PG, TO, DQ, ROWQ, Par>,
                         rows_smem(PG, PV, 16 * MAXW))) != cudaSuccess ||
-      (err = allow_smem(exact_bwd_rows<PV, PG, TO, DQ>,
-                        rows_smem(PG, PV, 16 * MAXW))) != cudaSuccess ||
-      (err = allow_smem(exact_bwd_rows<PV, PG, TO, DKV>,
+      (err = allow_smem(attn_bwd_rows<PV, PG, TO, DKV, false, Par>,
                         rows_smem(PV, PG, 16 * MAXW))) != cudaSuccess ||
-      (err = allow_smem(exact_bwd_sums<PV, PG, TO>, sums_smem(16 * MAXW))) !=
+      (err = allow_smem(attn_bwd_sums<PV, PG, TO, ROWQ, Par>, sums_smem(16 * MAXW))) !=
           cudaSuccess)
     return static_cast<int>(err);
 
@@ -997,30 +1114,42 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
   float* norms = static_cast<float*>(A.norms);
   const Staged S{ops, ops + PX * stride, ops + 2 * PX * stride,
                  ops + (2 * PX + PV) * stride, stride, norms, norms + rows_total};
+  const FwdRows<TO> F{static_cast<const TO*>(A.o), static_cast<const float*>(A.r),
+                      static_cast<const float*>(A.shiftm)};
   prep_operands<T, TO><<<(unsigned)((4 * rows_total + 255) / 256), 256, 0, stream>>>(
       static_cast<const T*>(A.q), static_cast<const T*>(A.k),
-      static_cast<const T*>(A.v), static_cast<const TO*>(A.g), S, Bn, G);
+      static_cast<const T*>(A.v), static_cast<const TO*>(A.g), S, Bn, G, F,
+      static_cast<float*>(A.lr), static_cast<float*>(A.tt));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  const BwdP<TO> B{S, static_cast<const float*>(A.bias),
-                   static_cast<const float*>(A.scale),
-                   static_cast<const float*>(A.mask), static_cast<float*>(A.lr),
-                   static_cast<float*>(A.tt), static_cast<TO*>(A.dq),
-                   static_cast<TO*>(A.dk), static_cast<TO*>(A.dv)};
+  const BwdP<TO> base{S, static_cast<const float*>(A.bias),
+                      static_cast<const float*>(A.scale),
+                      static_cast<const float*>(A.mask), static_cast<float*>(A.lr),
+                      static_cast<float*>(A.tt), static_cast<TO*>(A.dq),
+                      static_cast<TO*>(A.dk), static_cast<TO*>(A.dv)};
+  Par B;
+  if constexpr (ROWS == EXACT_ROWS)
+    B = base;
+  else
+    B = Par{base, static_cast<const float*>(A.shiftm), static_cast<float*>(A.rowq)};
   const dim3 grid(P.tiles, G.H, Bn);
   const int threads = 32 * P.W;
-  exact_bwd_rows<PV, PG, TO, ROWSTATS>
+  if constexpr (ROWS != FORWARD_ROWS) {
+    attn_bwd_rows<PV, PG, TO, ROW_PASS, false, Par>
+        <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  attn_bwd_rows<PV, PG, TO, DQ, ROWQ, Par>
       <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  exact_bwd_rows<PV, PG, TO, DQ><<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  exact_bwd_rows<PV, PG, TO, DKV><<<grid, threads, rows_smem(PV, PG, R), stream>>>(B, G);
+  attn_bwd_rows<PV, PG, TO, DKV, false, Par>
+      <<<grid, threads, rows_smem(PV, PG, R), stream>>>(B, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   float* dbias = static_cast<float*>(A.dbias);
   float* part_db = static_cast<float*>(A.part_db);
   float* part_ds = static_cast<float*>(A.part_ds);
   const int per = (Bn + nchunk - 1) / nchunk;
-  exact_bwd_sums<PV, PG, TO>
+  attn_bwd_sums<PV, PG, TO, ROWQ, Par>
       <<<dim3(nJt, P.tiles, G.H * nchunk), threads, sums_smem(R), stream>>>(
           B, nchunk > 1 ? part_db : dbias, part_ds, Bn, per, nchunk, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -1035,17 +1164,21 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
   return static_cast<int>(cudaGetLastError());
 }
 
-// geo: N, H, ws, shift, nWh, nWw, nWmask, round_ops, round_p, map, Hp, Wp
+// geo: N, H, ws, shift, nWh, nWw, nWmask, round_ops, round_p, layout (0
+// head, 1 map, 2 flat), Hp, Wp
 Geo make_geo(const int* geo) {
   Geo G{};
   G.N = geo[0]; G.H = geo[1]; G.ws = geo[2]; G.shift = geo[3];
   G.nWh = geo[4]; G.nWw = geo[5]; G.nWmask = geo[6];
   G.round_ops = geo[7]; G.round_p = geo[8];
-  const int map = geo[9], Hp = geo[10], Wp = geo[11];
-  const long long hd = 32;
-  if (map) {
-    G.in = Lay{1, G.ws, G.nWw, G.nWh * G.nWw, Hp, Wp, 3 * G.H * hd, hd, 0};
-    G.out = Lay{1, G.ws, G.nWw, G.nWh * G.nWw, Hp, Wp, G.H * hd, hd, 0};
+  const int layout = geo[9], Hp = geo[10], Wp = geo[11];
+  const long long hd = 32, C = G.H * hd;
+  if (layout == 1) {
+    G.in = Lay{1, G.ws, G.nWw, G.nWh * G.nWw, Hp, Wp, 3 * C, hd, 0};
+    G.out = Lay{1, G.ws, G.nWw, G.nWh * G.nWw, Hp, Wp, C, hd, 0};
+  } else if (layout == 2) {     // qkv [Bn, N, 3C]; o, g [Bn, N, C]
+    G.in = Lay{0, 0, 0, 0, 0, 0, 3 * C, hd, G.N * 3 * C};
+    G.out = Lay{0, 0, 0, 0, 0, 0, C, hd, G.N * C};
   } else {
     G.in = Lay{0, 0, 0, 0, 0, 0, hd, G.N * hd, G.H * G.N * hd};
     G.out = G.in;
@@ -1053,9 +1186,15 @@ Geo make_geo(const int* geo) {
   return G;
 }
 
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t any = 0;
+  for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
+  return (any & 15) != 0;
+}
+
 }  // namespace
 
-// K8 (map = 0: q, k, v, out [Bn, H, N, 32]) and K7 (map = 1: q, k, v point
+// K8 (layout 0: q, k, v, out [Bn, H, N, 32]) and K7 (layout 1: q, k, v point
 // at the three parts of qkv [B, Hp, Wp, 3, H, 32], out [B, Hp, Wp, H, 32],
 // Bn = B * nWh * nWw). `geo` holds the twelve integers of `make_geo`.
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
@@ -1087,16 +1226,49 @@ extern "C" int window_attention_bwd(
     int Bn, const int* geo, void* stream) {
   const Geo G = make_geo(geo);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs A{q, k, v, bias, scale, mask, g, dq, dk, dv,
-                  dbias, dscale, lr, tt, part_db, part_ds, ops, norms};
-  if (nchunk < 1 || nchunk > Bn ||
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
-        reinterpret_cast<uintptr_t>(ops)) & 15))
+  const BwdArgs A{q,  k,  v,     bias,   scale, mask, g,       dq,      dk,
+                  dv, dbias, dscale, lr, tt,   part_db, part_ds, ops, norms,
+                  nullptr, nullptr, nullptr, nullptr};
+  if (nchunk < 1 || nchunk > Bn || misaligned({q, k, v, g, ops}))
     return static_cast<int>(cudaErrorInvalidValue);
   if (in_bf16 && out_bf16)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(A, Bn, nchunk, G, s);
-  if (in_bf16) return launch_bwd<__nv_bfloat16, float>(A, Bn, nchunk, G, s);
-  if (!out_bf16) return launch_bwd<float, float>(A, Bn, nchunk, G, s);
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16, EXACT_ROWS>(A, Bn, nchunk, G, s);
+  if (in_bf16) return launch_bwd<__nv_bfloat16, float, EXACT_ROWS>(A, Bn, nchunk, G, s);
+  if (!out_bf16) return launch_bwd<float, float, EXACT_ROWS>(A, Bn, nchunk, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2 (o, r: the forward's output [Bn, N, C] and reciprocal row sums [Bn, H,
+// N]) and K5 (o and r null: the fixed-shift row pass first), flat layout:
+// qkv [Bn, N, 3C], g like o, dqkv like qkv, all of one type; shiftm [H] the
+// fixed shifts m_h; geo with layout 2. Scratch as window_attention_bwd's,
+// with one term of v and g for bf16 and two for fp32, and for K2 rowq [Bn,
+// H, N] fp32: its dscale is sum q^ . dq^ / scale, as the Pallas K2 forms it
+// (K5's, sum ds * s_cos, is the Pallas K5's).
+extern "C" int window_attention_flat_bwd(
+    const void* qkv, const void* bias, const void* scale, const void* shiftm,
+    const void* o, const void* r, const void* g, void* dqkv, void* dbias,
+    void* dscale, void* lr, void* tt, void* rowq, void* part_db, void* part_ds,
+    void* ops, void* norms, int nchunk, int is_bf16, int Bn, const int* geo,
+    void* stream) {
+  const Geo G = make_geo(geo);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t step = (size_t)G.H * HD * (is_bf16 ? 2 : 4);   // C values
+  const char* in = static_cast<const char*>(qkv);
+  char* d = static_cast<char*>(dqkv);
+  const BwdArgs A{in,      in + step, in + 2 * step, bias,  scale, nullptr, g,
+                  d,       d + step,  d + 2 * step,  dbias, dscale, lr,     tt,
+                  part_db, part_ds,   ops,           norms, o,      r,      shiftm,
+                  o != nullptr ? rowq : nullptr};
+  // C values are 64 H bytes: k and v are aligned when qkv is
+  if (nchunk < 1 || nchunk > Bn || geo[9] != 2 || (o == nullptr) != (r == nullptr) ||
+      (o != nullptr && rowq == nullptr) || misaligned({qkv, g, o, ops}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (o != nullptr)
+    return is_bf16
+               ? launch_bwd<__nv_bfloat16, __nv_bfloat16, FORWARD_ROWS>(A, Bn, nchunk, G, s)
+               : launch_bwd<float, float, FORWARD_ROWS>(A, Bn, nchunk, G, s);
+  return is_bf16
+             ? launch_bwd<__nv_bfloat16, __nv_bfloat16, FIXED_ROWS>(A, Bn, nchunk, G, s)
+             : launch_bwd<float, float, FIXED_ROWS>(A, Bn, nchunk, G, s);
 }

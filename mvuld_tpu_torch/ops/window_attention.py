@@ -1,5 +1,6 @@
-"""SwinV2 flat-layout window attention: the K1 (forward) and K2 (backward)
-kernels, their plain versions, and the autograd function that joins them.
+"""SwinV2 window attention: the flat layout's K1 (forward), K2 and K5
+(backward) kernels, the head and map layouts' K7-K8b, their plain
+versions, and the autograd functions that join them.
 
 Counterpart of ``mvuld_tpu/ops/window_attention.py``
 ``window_attention_flat`` / ``pallas_window_attention_flat``. The layout is
@@ -20,15 +21,19 @@ or column of the rolled map attend only when they share a shift region,
 ``window_attention_flat`` (K1), ``window_attention_flat_bwd`` (K2, the
 JAX package's v2 backward ``pallas_window_attention_flat_bwd2``) and
 ``window_attention_flat_bwd_v1`` (K5, its v1 backward
-``pallas_window_attention_flat_bwd``) run the CUDA kernels of
-``csrc/window_attention_flat.cu`` for CUDA tensors and the plain versions
-for CPU tensors; they never fall back from one to the other.
-``flat_attention`` is the training entry. Its backward generation follows
-``MVULD_ATTN_BWD`` as in the JAX package: v2 (the default) runs K1 with its
-reciprocal row sums r = 1/max(Σe, 1e-30) ([Bn, H, N] fp32) in the forward
-and K2 from the saved (qkv, bias, scale, out, r); v1 (``MVULD_ATTN_BWD=v1``)
-saves only (qkv, bias, scale) and K5 recomputes the softmax statistics.
-Neither backward replays K1.
+``pallas_window_attention_flat_bwd``) run CUDA kernels for CUDA tensors —
+K1 ``csrc/window_attention_flat.cu``, K2 and K5 the tensor-core backward
+passes of ``csrc/window_attention.cu`` that K7b/K8b run too, whose
+arithmetic ``_flat_bwd_split`` repeats — and the plain versions for CPU
+tensors; they never fall back from one to the other. ``flat_attention``
+is the training entry. Its backward generation follows ``MVULD_ATTN_BWD``
+as in the JAX package: v2 (the default) runs K1 with its reciprocal row
+sums r = 1/max(Σe, 1e-30) ([Bn, H, N] fp32) in the forward and K2 from
+the saved (qkv, bias, scale, out, r); v1 (``MVULD_ATTN_BWD=v1``) saves
+only (qkv, bias, scale) and K5 recomputes the softmax statistics. Neither
+backward replays K1. All of them follow ``MVULD_ATTN_MXU_BF16`` (or
+``mxu_bf16=True``) as the JAX package's flat attention does: the product
+operands rounded to bf16, the sums fp32.
 
 The other two layouts of the JAX module are here too, with the exact
 softmax (the row maximum is subtracted, no fixed shift) that its kernels
@@ -152,43 +157,65 @@ def _normalised_qkv(qkv, Bn, N, H, hd):
     return q * qn, k * kn, v, qn, kn
 
 
+def _mxu_bf16_default(mxu_bf16: bool) -> bool:
+    """``MVULD_ATTN_MXU_BF16=1`` rounds the attention kernels' product
+    operands to bf16 (the JAX package's switch), as ``mxu_bf16=True`` does."""
+    return bool(mxu_bf16) or os.environ.get("MVULD_ATTN_MXU_BF16", "0") == "1"
+
+
+def _r16(x, on: bool):
+    """x rounded to bf16 and back, when ``on``."""
+    return x.to(torch.bfloat16).float() if on else x
+
+
 def window_attention_flat_plain(qkv, bias, logit_scale, shift: int = 0,
                                 nWh: int = 1, nWw: int = 1,
-                                return_rowsum: bool = False):
+                                return_rowsum: bool = False,
+                                mxu_bf16: bool = False):
     """Plain PyTorch version of the K1 kernel (same math, same layout);
-    with ``return_rowsum`` also the reciprocal row sums [Bn, H, N] fp32."""
+    with ``return_rowsum`` also the reciprocal row sums [Bn, H, N] fp32.
+    ``mxu_bf16`` (or ``MVULD_ATTN_MXU_BF16=1``) rounds q̂, k̂, e and v to
+    bf16 before their products, as the Pallas kernel does; the row sums
+    stay fp32 sums of e."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    rnd = _mxu_bf16_default(mxu_bf16)
     q, k, v, _, _ = _normalised_qkv(qkv, Bn, N, H, C // H)
     scale, m = shift_and_scale(logit_scale, bias)
-    s = (q @ k.transpose(-1, -2)) * scale[:, None, None] + bias.float()
-    s = _add_shift_mask(s, qkv, ws, shift, nWh, nWw)
+    s = _r16(q, rnd) @ _r16(k, rnd).transpose(-1, -2)
+    s = _add_shift_mask(s * scale[:, None, None] + bias.float(), qkv, ws,
+                        shift, nWh, nWw)
     e = torch.exp(s - m[:, None, None])
     denom = e.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = ((e @ v) / denom).permute(0, 2, 1, 3).reshape(Bn, N, C)
-    out = out.to(qkv.dtype)
+    out = ((_r16(e, rnd) @ _r16(v, rnd)) / denom).permute(0, 2, 1, 3)
+    out = out.reshape(Bn, N, C).to(qkv.dtype)
     return (out, 1.0 / denom[..., 0]) if return_rowsum else out
 
 
 def window_attention_flat_bwd_plain(qkv, bias, logit_scale, o, r, g,
                                     shift: int = 0, nWh: int = 1,
-                                    nWw: int = 1):
+                                    nWw: int = 1, mxu_bf16: bool = False):
     """Plain PyTorch version of K2 (``_flat_bwd2_body``): from the forward
     output ``o`` and row sums ``r``, returns (dqkv [Bn, N, 3C] in qkv's
-    dtype, dbias [H, N, N] fp32, dscale [H] fp32)."""
+    dtype, dbias [H, N, N] fp32, dscale [H] fp32). ``mxu_bf16`` rounds q̂,
+    k̂, g, v, ds and p to bf16 before their products, as the Pallas body
+    does."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    rnd = _mxu_bf16_default(mxu_bf16)
     hd = C // H
     qh, kh, v, qn, kn = _normalised_qkv(qkv, Bn, N, H, hd)
     scale, m = shift_and_scale(logit_scale, bias)
     gh, oh = _heads(g, Bn, N, H, hd), _heads(o, Bn, N, H, hd)
-    s = (qh @ kh.transpose(-1, -2)) * scale[:, None, None] + bias.float()
+    q16, k16, g16 = _r16(qh, rnd), _r16(kh, rnd), _r16(gh, rnd)
+    s = (q16 @ k16.transpose(-1, -2)) * scale[:, None, None] + bias.float()
     s = s + (torch.log(r.float()) - m[:, None])[..., None]
     p = torch.exp(_add_shift_mask(s, qkv, ws, shift, nWh, nWw))
     t = (gh * oh).sum(-1, keepdim=True)
-    ds = p * (gh @ v.transpose(-1, -2) - t)
-    dqh = (ds @ kh) * scale[:, None, None]
+    ds = p * (g16 @ _r16(v, rnd).transpose(-1, -2) - t)
+    ds16 = _r16(ds, rnd)
+    dqh = (ds16 @ k16) * scale[:, None, None]
     rowq = (qh * dqh).sum(-1, keepdim=True)
-    dkh = (ds.transpose(-1, -2) @ qh) * scale[:, None, None]
-    dv = p.transpose(-1, -2) @ gh
+    dkh = (ds16.transpose(-1, -2) @ q16) * scale[:, None, None]
+    dv = _r16(p, rnd).transpose(-1, -2) @ g16
     dq = (dqh - qh * rowq) * qn
     dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
     dqkv = torch.stack([dq, dk, dv], 2)                    # [Bn, H, 3, N, hd]
@@ -198,28 +225,32 @@ def window_attention_flat_bwd_plain(qkv, bias, logit_scale, o, r, g,
 
 def window_attention_flat_bwd_v1_plain(qkv, bias, logit_scale, g,
                                        shift: int = 0, nWh: int = 1,
-                                       nWw: int = 1):
+                                       nWw: int = 1, mxu_bf16: bool = False):
     """Plain PyTorch version of K5 (``_flat_bwd_kernel_factory``): from the
     forward's inputs alone, returns (dqkv [Bn, N, 3C] in qkv's dtype,
     dbias [H, N, N] fp32, dscale [H] fp32). The softmax is recomputed as
     e = exp(s − m) with r = 1/max(Σe, 1e-30) and t = Σ dp·e, and
     ds = e·(r·(dp − r·t)) in that order: r may reach 1e30, and r² would
-    overflow fp32."""
+    overflow fp32. ``mxu_bf16`` rounds q̂, k̂, g, v, ds, e and r·g to bf16
+    before their products, as the Pallas kernel does."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    rnd = _mxu_bf16_default(mxu_bf16)
     hd = C // H
     qh, kh, v, qn, kn = _normalised_qkv(qkv, Bn, N, H, hd)
     scale, m = shift_and_scale(logit_scale, bias)
     gh = _heads(g, Bn, N, H, hd)
-    s_cos = qh @ kh.transpose(-1, -2)
+    q16, k16 = _r16(qh, rnd), _r16(kh, rnd)
+    s_cos = q16 @ k16.transpose(-1, -2)
     s = s_cos * scale[:, None, None] + (bias.float() - m[:, None, None])
     e = torch.exp(_add_shift_mask(s, qkv, ws, shift, nWh, nWw))
     r = 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-30)
-    dp = gh @ v.transpose(-1, -2)
+    dp = _r16(gh, rnd) @ _r16(v, rnd).transpose(-1, -2)
     t = (dp * e).sum(-1, keepdim=True)
     ds = e * (r * (dp - r * t))
-    dqh = (ds @ kh) * scale[:, None, None]
-    dkh = (ds.transpose(-1, -2) @ qh) * scale[:, None, None]
-    dv = e.transpose(-1, -2) @ (r * gh)
+    ds16 = _r16(ds, rnd)
+    dqh = (ds16 @ k16) * scale[:, None, None]
+    dkh = (ds16.transpose(-1, -2) @ q16) * scale[:, None, None]
+    dv = _r16(e, rnd).transpose(-1, -2) @ _r16(r * gh, rnd)
     dq = (dqh - qh * (qh * dqh).sum(-1, keepdim=True)) * qn
     dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
     dqkv = torch.stack([dq, dk, dv], 2)                    # [Bn, H, 3, N, hd]
@@ -232,11 +263,9 @@ _GEO = ctypes.POINTER(ctypes.c_int)
 # C entry → (source under csrc/, argument types)
 _ENTRIES = {
     "window_attention_flat_fwd": ("window_attention_flat",
-                                  [_PTR] * 6 + [_INT] * 9 + [_PTR]),
-    "window_attention_flat_bwd": ("window_attention_flat",
-                                  [_PTR] * 11 + [_INT] * 9 + [_PTR]),
-    "window_attention_flat_bwd_v1": ("window_attention_flat",
-                                     [_PTR] * 11 + [_INT] * 9 + [_PTR]),
+                                  [_PTR] * 6 + [_INT] * 10 + [_PTR]),
+    "window_attention_flat_bwd": ("window_attention",
+                                  [_PTR] * 17 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_fwd": ("window_attention",
                              [_PTR] * 7 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_bwd": ("window_attention",
@@ -272,19 +301,63 @@ def _kernel_scalars(qkv, bias, logit_scale):
     return bias, scale.contiguous(), m.contiguous()
 
 
+def _geo(N, H, ws=0, shift=0, nWh=0, nWw=0, nWmask=0, round_ops=False,
+         round_p=False, layout=0, Hp=0, Wp=0):
+    """The twelve integers of ``make_geo`` in ``csrc/window_attention.cu``;
+    ``layout`` 0 head, 1 map, 2 flat."""
+    return (ctypes.c_int * 12)(N, H, ws, int(shift), nWh, nWw, nWmask,
+                               int(round_ops), int(round_p), layout, Hp, Wp)
+
+
+def _f32(x, dev):
+    return x.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _aligned(x):
+    """x at a 16-byte aligned address (the backward kernels load 16 bytes a
+    thread): a view that starts elsewhere is copied."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _bwd_scratch(Bn, H, N, v_terms, g_terms, dev):
+    """Scratch of ``window_attention_bwd`` and ``window_attention_flat_bwd``
+    in ``csrc/window_attention.cu`` (its ``launch_bwd`` derives the same
+    sizes): the row statistics lr, tt
+    [Bn, H, N]; the number of window chunks dbias is summed in — enough
+    that the blocks of its kernel (row blocks × 64-column tiles × H × chunks)
+    fill the card's 132 SMs about four times — with the per-chunk dbias
+    [chunks, H, N, N] when there is more than one; dscale's per-block
+    partials; the product operands as bf16 terms (q̂ and k̂ three each, v and
+    g ``v_terms`` and ``g_terms``: one for a bf16 tensor, two for fp32) and
+    the two normalisation factors per row."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    strips = -(-N // 16)
+    tiles, col_tiles = -(-strips // 8), -(-16 * strips // 64)
+    nchunk = max(1, min(Bn, -(-528 // (tiles * col_tiles * H))))
+    nchunk = -(-Bn // -(-Bn // nchunk))          # no empty chunk
+    part_db = torch.empty((nchunk, H, N, N) if nchunk > 1 else (1,), **f32)
+    part_ds = torch.empty((nchunk * tiles * col_tiles * H,), **f32)
+    ops = torch.empty((6 + v_terms + g_terms, Bn, H, N, _HEAD_DIM),
+                      dtype=torch.bfloat16, device=dev)
+    return (torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32),
+            part_db, part_ds, ops, torch.empty((2, Bn, H, N), **f32), nchunk)
+
+
 def window_attention_flat(qkv, bias, logit_scale, shift: int = 0,
                           nWh: int = 1, nWw: int = 1,
-                          return_rowsum: bool = False):
+                          return_rowsum: bool = False,
+                          mxu_bf16: bool = False):
     """Flat-layout fused window attention forward (K1).
 
     CUDA tensors run ``csrc/window_attention_flat.cu`` (qkv in bf16 or fp32,
     head dim 32; anything else raises); CPU tensors run
     ``window_attention_flat_plain``. With ``return_rowsum`` also returns
-    the reciprocal row sums [Bn, H, N] fp32."""
+    the reciprocal row sums [Bn, H, N] fp32; ``mxu_bf16`` (or
+    ``MVULD_ATTN_MXU_BF16=1``) rounds the product operands to bf16."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
     if qkv.device.type == "cpu":
         return window_attention_flat_plain(qkv, bias, logit_scale, shift,
-                                           nWh, nWw, return_rowsum)
+                                           nWh, nWw, return_rowsum, mxu_bf16)
     _check_cuda(qkv, Bn, C // H, "window_attention_flat")
     qkv = qkv.contiguous()
     bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
@@ -296,21 +369,56 @@ def window_attention_flat(qkv, bias, logit_scale, shift: int = 0,
         qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
         out.data_ptr(), 0 if r is None else r.data_ptr(),
         int(qkv.dtype == torch.bfloat16), Bn, N, C, H, ws, int(shift),
-        int(nWh), int(nWw), stream)
+        int(nWh), int(nWw), int(_mxu_bf16_default(mxu_bf16)), stream)
     window_attention_flat.launches += 1
     _build.check(err, "window_attention_flat")
     return (out, r) if return_rowsum else out
 
 
+def _flat_bwd_kernels(what, qkv, bias, logit_scale, o, r, g, shift, nWh, nWw,
+                      mxu_bf16):
+    """Launch K2 (``o`` and ``r`` the forward's) or K5 (both None) on the
+    tensor-core passes of ``csrc/window_attention.cu``."""
+    Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    _check_cuda(qkv, Bn, C // H, what)
+    dev, dt = qkv.device, qkv.dtype
+    qkv, g = _aligned(qkv.contiguous()), _aligned(g.to(dt).contiguous())
+    if o is not None:
+        o = _aligned(o.to(dt).contiguous())
+        r = r.to(device=dev, dtype=torch.float32).contiguous()
+    bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
+    dqkv = torch.empty_like(qkv)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dbias, dscale = torch.empty((H, N, N), **f32), torch.empty((H,), **f32)
+    bf = int(dt == torch.bfloat16)
+    lr, tt, part_db, part_ds, ops, norms, nchunk = _bwd_scratch(
+        Bn, H, N, 2 - bf, 2 - bf, dev)
+    # K2's dscale terms q̂·dq̂ / scale per query row
+    rowq = None if o is None else torch.empty((Bn, H, N), **f32)
+    rnd = _mxu_bf16_default(mxu_bf16)
+    err = _lib("window_attention_flat_bwd")(
+        qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
+        0 if o is None else o.data_ptr(), 0 if r is None else r.data_ptr(),
+        g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
+        lr.data_ptr(), tt.data_ptr(), 0 if rowq is None else rowq.data_ptr(),
+        part_db.data_ptr(), part_ds.data_ptr(), ops.data_ptr(),
+        norms.data_ptr(), nchunk, bf, Bn,
+        _geo(N, H, ws, shift, nWh, nWw, 0, rnd, rnd, 2),
+        torch.cuda.current_stream(dev).cuda_stream)
+    return err, (dqkv, dbias, dscale)
+
+
 def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
-                              shift: int = 0, nWh: int = 1, nWw: int = 1):
+                              shift: int = 0, nWh: int = 1, nWw: int = 1,
+                              mxu_bf16: bool = False):
     """Flat-layout window attention backward (K2): (dqkv [Bn, N, 3C] in
     qkv's dtype, dbias [H, N, N] fp32, dscale [H] fp32) from the forward's
     output ``o`` and row sums ``r`` and the output gradient ``g``.
 
-    CUDA tensors run the three kernels of ``csrc/window_attention_flat.cu``
-    (dq, dk/dv, dbias + dscale); CPU tensors run
-    ``window_attention_flat_bwd_plain``."""
+    CUDA tensors run the tensor-core passes of ``csrc/window_attention.cu``
+    (operands split into bf16 terms with the row terms from ``o`` and
+    ``r``, then dq, dk/dv, dbias + dscale; ``_flat_bwd_split`` is their
+    arithmetic); CPU tensors run ``window_attention_flat_bwd_plain``."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
     if tuple(o.shape) != (Bn, N, C) or tuple(g.shape) != (Bn, N, C) \
             or tuple(r.shape) != (Bn, H, N):
@@ -319,38 +427,24 @@ def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
                          f"[Bn={Bn}, N={N}, C={C}], H={H}")
     if qkv.device.type == "cpu":
         return window_attention_flat_bwd_plain(qkv, bias, logit_scale, o, r,
-                                               g, shift, nWh, nWw)
-    _check_cuda(qkv, Bn, C // H, "window_attention_flat_bwd")
-    dev, dt = qkv.device, qkv.dtype
-    qkv = qkv.contiguous()
-    o, g = o.to(dt).contiguous(), g.to(dt).contiguous()
-    r = r.to(torch.float32).contiguous()
-    bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
-    dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
-    dscale = torch.empty((H,), dtype=torch.float32, device=dev)
-    part = torch.empty((Bn * H * -(-N // 64),), dtype=torch.float32,
-                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib("window_attention_flat_bwd")(
-        qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
-        o.data_ptr(), r.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        dbias.data_ptr(), dscale.data_ptr(), part.data_ptr(),
-        int(dt == torch.bfloat16), Bn, N, C, H, ws, int(shift), int(nWh),
-        int(nWw), stream)
+                                               g, shift, nWh, nWw, mxu_bf16)
+    err, grads = _flat_bwd_kernels("window_attention_flat_bwd", qkv, bias,
+                                   logit_scale, o, r, g, shift, nWh, nWw,
+                                   mxu_bf16)
     window_attention_flat_bwd.launches += 1
     _build.check(err, "window_attention_flat_bwd")
-    return dqkv, dbias, dscale
+    return grads
 
 
 def window_attention_flat_bwd_v1(qkv, bias, logit_scale, g, shift: int = 0,
-                                 nWh: int = 1, nWw: int = 1):
+                                 nWh: int = 1, nWw: int = 1,
+                                 mxu_bf16: bool = False):
     """Flat-layout window attention v1 backward (K5): (dqkv [Bn, N, 3C] in
     qkv's dtype, dbias [H, N, N] fp32, dscale [H] fp32) from the forward's
     inputs and the output gradient ``g`` alone.
 
-    CUDA tensors run ``bwd_rowstats`` and then K2's three kernels of
-    ``csrc/window_attention_flat.cu`` on its row statistics; CPU tensors
+    CUDA tensors run K2's passes of ``csrc/window_attention.cu`` after a
+    fixed-shift row pass that recomputes r and t' = r·Σ dp·e; CPU tensors
     run ``window_attention_flat_bwd_v1_plain``."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
     if tuple(g.shape) != (Bn, N, C):
@@ -358,26 +452,13 @@ def window_attention_flat_bwd_v1(qkv, bias, logit_scale, g, shift: int = 0,
                          f"does not fit [Bn={Bn}, N={N}, C={C}]")
     if qkv.device.type == "cpu":
         return window_attention_flat_bwd_v1_plain(qkv, bias, logit_scale, g,
-                                                  shift, nWh, nWw)
-    _check_cuda(qkv, Bn, C // H, "window_attention_flat_bwd_v1")
-    dev, dt = qkv.device, qkv.dtype
-    qkv, g = qkv.contiguous(), g.to(dt).contiguous()
-    bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dqkv = torch.empty_like(qkv)
-    dbias, dscale = torch.empty((H, N, N), **f32), torch.empty((H,), **f32)
-    part = torch.empty((Bn * H * -(-N // 64),), **f32)
-    rsum, tsum = torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib("window_attention_flat_bwd_v1")(
-        qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
-        g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
-        part.data_ptr(), rsum.data_ptr(), tsum.data_ptr(),
-        int(dt == torch.bfloat16), Bn, N, C, H, ws, int(shift), int(nWh),
-        int(nWw), stream)
+                                                  shift, nWh, nWw, mxu_bf16)
+    err, grads = _flat_bwd_kernels("window_attention_flat_bwd_v1", qkv, bias,
+                                   logit_scale, None, None, g, shift, nWh,
+                                   nWw, mxu_bf16)
     window_attention_flat_bwd_v1.launches += 1
     _build.check(err, "window_attention_flat_bwd_v1")
-    return dqkv, dbias, dscale
+    return grads
 
 
 window_attention_flat.launches = 0
@@ -395,13 +476,14 @@ class _FlatAttention(torch.autograd.Function):
     logit scale enters as the already exp-clamped per-head scale [H]."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, saved):
+    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, saved, mxu_bf16):
         if saved is None:
             out, r = window_attention_flat(qkv, bias, scale, shift, nWh, nWw,
-                                           return_rowsum=True)
+                                           return_rowsum=True,
+                                           mxu_bf16=mxu_bf16)
         else:
             out, r = saved[0].detach(), saved[1].detach()
-        ctx.geom = (shift, nWh, nWw)
+        ctx.geom = (shift, nWh, nWw, mxu_bf16)
         ctx.save_for_backward(qkv, bias, scale, out, r)
         ctx.mark_non_differentiable(r)
         return out, r
@@ -412,7 +494,7 @@ class _FlatAttention(torch.autograd.Function):
         dqkv, dbias, dscale = window_attention_flat_bwd(
             qkv, bias, scale, out, r, g, *ctx.geom)
         return (dqkv, dbias.to(bias.dtype), dscale.to(scale.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class _FlatAttentionV1(torch.autograd.Function):
@@ -420,10 +502,11 @@ class _FlatAttentionV1(torch.autograd.Function):
     VJP saves only the kernel's inputs."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, saved):
-        out = (window_attention_flat(qkv, bias, scale, shift, nWh, nWw)
+    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, saved, mxu_bf16):
+        out = (window_attention_flat(qkv, bias, scale, shift, nWh, nWw,
+                                     mxu_bf16=mxu_bf16)
                if saved is None else saved[0].detach())
-        ctx.geom = (shift, nWh, nWw)
+        ctx.geom = (shift, nWh, nWw, mxu_bf16)
         ctx.save_for_backward(qkv, bias, scale)
         return out
 
@@ -433,11 +516,12 @@ class _FlatAttentionV1(torch.autograd.Function):
         dqkv, dbias, dscale = window_attention_flat_bwd_v1(
             qkv, bias, scale, g, *ctx.geom)
         return (dqkv, dbias.to(bias.dtype), dscale.to(scale.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def flat_attention(qkv, bias, scale, shift: int = 0, nWh: int = 1,
-                   nWw: int = 1, saved=None, bwd_v2: Optional[bool] = None):
+                   nWw: int = 1, saved=None, bwd_v2: Optional[bool] = None,
+                   mxu_bf16: bool = False):
     """Differentiable flat window attention: K1 forward, K2 (``bwd_v2``,
     the default unless ``MVULD_ATTN_BWD=v1``) or K5 backward.
 
@@ -445,29 +529,22 @@ def flat_attention(qkv, bias, scale, shift: int = 0, nWh: int = 1,
     ``saved``, a previous call's (out, r) on the same inputs, skips K1:
     under activation checkpointing the recomputed forward reuses the first
     forward's output (and row sums), as the JAX remat policy saves
-    ``attn_out`` / ``attn_rowsum``."""
+    ``attn_out`` / ``attn_rowsum``. ``mxu_bf16`` (default: the
+    ``MVULD_ATTN_MXU_BF16`` switch, as in the JAX package) rounds the
+    product operands of the forward and the backward to bf16."""
     if bwd_v2 is None:
         bwd_v2 = _flat_bwd_v2_default()
+    mxu_bf16 = _mxu_bf16_default(mxu_bf16)
     if bwd_v2:
-        return _FlatAttention.apply(qkv, bias, scale, shift, nWh, nWw, saved)
-    return (_FlatAttentionV1.apply(qkv, bias, scale, shift, nWh, nWw, saved),
-            None)
+        return _FlatAttention.apply(qkv, bias, scale, shift, nWh, nWw, saved,
+                                    mxu_bf16)
+    return (_FlatAttentionV1.apply(qkv, bias, scale, shift, nWh, nWw, saved,
+                                   mxu_bf16), None)
 
 
 # --------------------------------------------------------------------------- #
 # head layout (K8 / K8b) and map layout (K7 / K7b): exact softmax
 # --------------------------------------------------------------------------- #
-
-
-def _mxu_bf16_default(mxu_bf16: bool) -> bool:
-    """``MVULD_ATTN_MXU_BF16=1`` rounds the map kernels' product operands to
-    bf16 (the JAX package's switch)."""
-    return bool(mxu_bf16) or os.environ.get("MVULD_ATTN_MXU_BF16", "0") == "1"
-
-
-def _r16(x, on: bool):
-    """x rounded to bf16 and back, when ``on``."""
-    return x.to(torch.bfloat16).float() if on else x
 
 
 def _mask_tensor(mask, device):
@@ -585,35 +662,90 @@ def _mm_split(a, b, order: int):
     return total
 
 
+def _split_bwd(qh, kh, v, g, v_bf16, g_bf16, sc, probs, round_ops=False):
+    """The backward kernels' products on bf16 terms (``_split16``) summed in
+    fp32 (``_mm_split``), for a softmax given as ``probs(s_cos, dp)`` →
+    (p, the row term t of ds = p·(dp − t)). q̂ and k̂ take three terms and
+    six products for the logits (their error is multiplied by the scale, up
+    to 100, before the exp), two terms and three products for dq̂ and dk̂;
+    p, ds take two; v and g take one when they already are bf16 numbers
+    (``v_bf16``, ``g_bf16``), two otherwise. ``round_ops`` (``mxu_bf16``)
+    keeps the first term of each operand, one product each. Returns fp32
+    (dq̂, dk̂, dv, dbias, dscale)."""
+    hi, lo = (0, 0) if round_ops else (2, 1)
+    q3, k3 = _split16(qh, 3), _split16(kh, 3)
+    v2, g2 = _split16(v, 1 if v_bf16 else 2), _split16(g, 1 if g_bf16 else 2)
+    s_cos = _mm_split(q3, k3, hi)
+    dp = _mm_split(g2, v2, lo)
+    p, t = probs(s_cos, dp)
+    ds = p * (dp - t)
+    dbias, dscale = ds.sum(0), (ds * s_cos).sum((0, 2, 3))
+    tr = lambda parts: [x.transpose(-1, -2) for x in parts]  # noqa: E731
+    ds2 = _split16(ds, 2)
+    dv = _mm_split(tr(_split16(p, 2)), tr(g2), lo)
+    dqh = _mm_split(ds2, tr(k3[:2]), lo) * sc
+    dkh = _mm_split(tr(ds2), tr(q3[:2]), lo) * sc
+    return dqh, dkh, dv, dbias, dscale
+
+
 def _core_bwd_split(q, k, v, bias, scale, mask, g, v_bf16, g_bf16):
     """``_core_bwd`` with every product formed as the K7b/K8b kernels form
-    it when ``round_ops`` is off: each fp32 operand split into bf16 terms
-    (``_split16``), the products of those terms summed in fp32
-    (``_mm_split``). q̂ and k̂ take three terms and six products for the
-    logits (their error is multiplied by the scale, up to 100, before the
-    exp), two terms and three products for dq̂ and dk̂; p, ds take two; v and
-    g take one when they already are bf16 numbers (``v_bf16``, ``g_bf16``),
-    two otherwise. The CPU tests hold this arithmetic to the card's
-    tolerances against the JAX kernels; no CUDA path calls it."""
+    it when ``round_ops`` is off (``_split_bwd``). The CPU tests hold this
+    arithmetic to the card's tolerances against the JAX kernels; no CUDA
+    path calls it."""
     qn = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
     kn = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
     qh, kh = q * qn, k * kn
-    q3, k3 = _split16(qh, 3), _split16(kh, 3)
-    v2, g2 = _split16(v, 1 if v_bf16 else 2), _split16(g, 1 if g_bf16 else 2)
     sc = scale[:, None, None]
-    s_cos = _mm_split(q3, k3, 2)
-    p = torch.softmax(_add_mask(s_cos * sc + bias.float(), mask), dim=-1)
-    dp = _mm_split(g2, v2, 1)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dbias, dscale = ds.sum(0), (ds * s_cos).sum((0, 2, 3))
-    t = lambda parts: [x.transpose(-1, -2) for x in parts]  # noqa: E731
-    ds2 = _split16(ds, 2)
-    dv = _mm_split(t(_split16(p, 2)), t(g2), 1)
-    dqh = _mm_split(ds2, t(k3[:2]), 1) * sc
-    dkh = _mm_split(t(ds2), t(q3[:2]), 1) * sc
+
+    def probs(s_cos, dp):
+        p = torch.softmax(_add_mask(s_cos * sc + bias.float(), mask), dim=-1)
+        return p, (dp * p).sum(-1, keepdim=True)
+
+    dqh, dkh, dv, dbias, dscale = _split_bwd(qh, kh, v, g, v_bf16, g_bf16, sc,
+                                             probs)
     dq = (dqh - qh * (qh * dqh).sum(-1, keepdim=True)) * qn
     dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
     return dq, dk, dv, dbias, dscale
+
+
+def _flat_bwd_split(qkv, bias, logit_scale, g, shift=0, nWh=1, nWw=1, o=None,
+                    r=None, mxu_bf16=False):
+    """K2 (``o``, ``r`` the forward's) or K5 (both None) as the kernels of
+    ``csrc/window_attention.cu`` compute them (``_split_bwd``), with the
+    fixed-shift softmax: p = exp(s − m + log r), t = rowsum(g·o) and
+    dscale = Σ q̂·dq̂ / scale for K2, as its Pallas kernel forms them; for K5
+    e = exp(s − m), r = 1/max(Σe, 1e-30), p = e·r, t = r·Σ dp·e and
+    dscale = Σ ds·s_cos. Returns fp32 (dqkv [Bn, N, 3C], dbias, dscale).
+    The CPU tests hold it to the card's tolerances against the JAX kernels;
+    no CUDA path calls it."""
+    Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    hd = C // H
+    qh, kh, v, qn, kn = _normalised_qkv(qkv, Bn, N, H, hd)
+    scale, m = shift_and_scale(logit_scale, bias)
+    sc = scale[:, None, None]
+    gh = _heads(g, Bn, N, H, hd)
+
+    def probs(s_cos, dp):
+        x = _add_shift_mask(s_cos * sc + bias.float(), qkv, ws, shift, nWh,
+                            nWw) - m[:, None, None]
+        if o is not None:
+            t = (gh * _heads(o, Bn, N, H, hd)).sum(-1, keepdim=True)
+            return torch.exp(x + torch.log(r.float())[..., None]), t
+        e = torch.exp(x)
+        rs = 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-30)
+        return e * rs, rs * (dp * e).sum(-1, keepdim=True)
+
+    bf = qkv.dtype == torch.bfloat16
+    dqh, dkh, dv, dbias, dscale = _split_bwd(
+        qh, kh, v, gh, bf, bf, sc, probs, _mxu_bf16_default(mxu_bf16))
+    rowq = (qh * dqh).sum(-1, keepdim=True)
+    if o is not None:
+        dscale = rowq.sum((0, 2, 3)) / scale
+    dq = (dqh - qh * rowq) * qn
+    dk = (dkh - kh * (kh * dkh).sum(-1, keepdim=True)) * kn
+    dqkv = torch.stack([dq, dk, dv], 2)                    # [Bn, H, 3, N, hd]
+    return dqkv.permute(0, 3, 2, 1, 4).reshape(Bn, N, 3 * C), dbias, dscale
 
 
 def window_attention_plain(q, k, v, bias, logit_scale, mask=None):
@@ -698,46 +830,6 @@ def window_attention_map_bwd_plain(qkv, bias, logit_scale, g, shift: int = 0,
         _map_mask(qkv, ws, shift, Hp, Wp), _heads_map_to_windows(g, ws), r, r)
     dqkv = _windows_to_map(torch.stack([dq, dk, dv]), B, Hp, Wp, ws)
     return dqkv, dbias, dscale
-
-
-def _geo(N, H, ws=0, shift=0, nWh=0, nWw=0, nWmask=0, round_ops=False,
-         round_p=False, is_map=False, Hp=0, Wp=0):
-    return (ctypes.c_int * 12)(N, H, ws, int(shift), nWh, nWw, nWmask,
-                               int(round_ops), int(round_p), int(is_map),
-                               Hp, Wp)
-
-
-def _f32(x, dev):
-    return x.to(device=dev, dtype=torch.float32).contiguous()
-
-
-def _aligned(x):
-    """x at a 16-byte aligned address (the backward kernels load 16 bytes a
-    thread): a view that starts elsewhere is copied."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
-def _bwd_scratch(Bn, H, N, v_terms, g_terms, dev):
-    """Scratch of ``window_attention_bwd`` in ``csrc/window_attention.cu``
-    (its ``launch_bwd`` derives the same sizes): the row statistics lr, tt
-    [Bn, H, N]; the number of window chunks dbias is summed in — enough
-    that the blocks of its kernel (row blocks × 64-column tiles × H × chunks)
-    fill the card's 132 SMs about four times — with the per-chunk dbias
-    [chunks, H, N, N] when there is more than one; dscale's per-block
-    partials; the product operands as bf16 terms (q̂ and k̂ three each, v and
-    g ``v_terms`` and ``g_terms``: one for a bf16 tensor, two for fp32) and
-    the two normalisation factors per row."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    strips = -(-N // 16)
-    tiles, col_tiles = -(-strips // 8), -(-16 * strips // 64)
-    nchunk = max(1, min(Bn, -(-528 // (tiles * col_tiles * H))))
-    nchunk = -(-Bn // -(-Bn // nchunk))          # no empty chunk
-    part_db = torch.empty((nchunk, H, N, N) if nchunk > 1 else (1,), **f32)
-    part_ds = torch.empty((nchunk * tiles * col_tiles * H,), **f32)
-    ops = torch.empty((6 + v_terms + g_terms, Bn, H, N, _HEAD_DIM),
-                      dtype=torch.bfloat16, device=dev)
-    return (torch.empty((Bn, H, N), **f32), torch.empty((Bn, H, N), **f32),
-            part_db, part_ds, ops, torch.empty((2, Bn, H, N), **f32), nchunk)
 
 
 def window_attention_fwd(q, k, v, bias, logit_scale, mask=None):
@@ -831,7 +923,7 @@ def window_attention_map_fwd(qkv, bias, logit_scale, shift: int = 0,
         qkv.data_ptr(), qkv.data_ptr() + step, qkv.data_ptr() + 2 * step,
         bias.data_ptr(), scale.data_ptr(), 0, out.data_ptr(),
         int(qkv.dtype == torch.bfloat16), 0, B * nWh * nWw,
-        _geo(N, H, ws, shift, nWh, nWw, 0, r, r, True, Hp, Wp),
+        _geo(N, H, ws, shift, nWh, nWw, 0, r, r, 1, Hp, Wp),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_map_fwd.launches += 1
     _build.check(err, "window_attention_map_fwd")
@@ -872,7 +964,7 @@ def window_attention_map_bwd(qkv, bias, logit_scale, g, shift: int = 0,
         dbias.data_ptr(), dscale.data_ptr(), lr.data_ptr(), tt.data_ptr(),
         part_db.data_ptr(), part_ds.data_ptr(), ops.data_ptr(),
         norms.data_ptr(), nchunk, int(qkv.dtype == torch.bfloat16), 0, Bn,
-        _geo(N, H, ws, shift, nWh, nWw, 0, r, r, True, Hp, Wp),
+        _geo(N, H, ws, shift, nWh, nWw, 0, r, r, 1, Hp, Wp),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_map_bwd.launches += 1
     _build.check(err, "window_attention_map_bwd")

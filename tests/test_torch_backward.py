@@ -13,6 +13,11 @@
   ``flat_attention(bwd_v2=False)`` against ``jax.vjp`` of
   ``window_attention_flat(bwd_v2=False)``, on the same geometries and at
   the same 1e-5; and the port's two generations against each other.
+- ``mxu_bf16`` / ``MVULD_ATTN_MXU_BF16=1``: K1, K2 and K5 round their
+  product operands as the Pallas kernels do, against the kernels with
+  ``mxu_bf16=True`` in interpret mode (fp32 and bf16, shift 0 and 2), and
+  ``flat_attention`` under the switch against ``jax.vjp`` of the JAX
+  ``window_attention_flat`` under it (tolerances stated at the tests).
 - K3b / K4b (the ``mlp_ln`` / ``mlp_ln_res`` autograd functions, whose
   backward on the CPU is ``mlp_ln_bwd_plain``) against ``jax.vjp`` of the
   Pallas ``mlp_ln`` / ``mlp_ln_res`` in interpret mode, K4b with the same
@@ -156,6 +161,128 @@ def test_flat_attention_follows_mvuld_attn_bwd(monkeypatch):
     assert wa.flat_attention(*t)[1] is None
     monkeypatch.delenv("MVULD_ATTN_BWD")
     assert wa.flat_attention(*t)[1] is not None
+
+
+# mxu_bf16 (MVULD_ATTN_MXU_BF16=1): the port's flat attention rounds the
+# product operands as the JAX package's does — K1 q̂, k̂, e and v; K2 q̂, k̂,
+# g, v, ds and p; K5 q̂, k̂, g, v, ds, e and r·g. Both sides round the same
+# fp32 values, so a value on a rounding boundary may go either way: fp32
+# outputs within one bf16 ulp of the largest value (2⁻⁸ relative), and
+# outputs rounded to bf16 (and the K5 gradients, which the Pallas kernel
+# writes in fp32 where the port writes qkv's bf16) within two (2⁻⁷).
+MXU_DTYPES = [(np.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _close_to_largest(got, want, rel, name):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape, name
+    assert np.abs(got - want).max() <= rel * np.abs(want).max(), name
+
+
+def _mxu_inputs(seed, jdt, tdt):
+    qkv, bias, scale, g = _attn_inputs(seed)
+    jq, jg = jnp.asarray(qkv, jdt), jnp.asarray(g, jdt)
+    tq, tg = (torch.as_tensor(np.array(a.astype(jnp.float32))).to(tdt)
+              for a in (jq, jg))
+    return (jq, jnp.asarray(bias), jnp.asarray(scale), jg), \
+        (tq, torch.as_tensor(bias), torch.as_tensor(scale), tg)
+
+
+@pytest.mark.parametrize("dtypes", MXU_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_mxu_bf16_k1_and_k2_match_pallas_interpret(geom, dtypes):
+    """K1 and K2 with ``mxu_bf16`` against the Pallas forward (output in
+    qkv's dtype, as the JAX v2 path writes it) and ``_flat_bwd2``, K2 fed
+    the Pallas forward's output and row sums."""
+    (jq, jb, js, jg), (tq, tb, ts, tg) = _mxu_inputs(16, *dtypes)
+    Bn, N, C3 = tq.shape
+    C, H = C3 // 3, tb.shape[0]
+    jo, jr = jwa.pallas_window_attention_flat(
+        jq, jb, js, interpret=True, return_rowsum=True, out_dtype=jq.dtype,
+        mxu_bf16=True, **geom)
+    out, r = wa.window_attention_flat(tq, tb, ts, **geom, return_rowsum=True,
+                                      mxu_bf16=True)
+    bf16 = tq.dtype == torch.bfloat16
+    assert out.dtype == tq.dtype
+    _close_to_largest(out, jo, 2.0 ** (-7 if bf16 else -8), "out")
+    np.testing.assert_allclose(r.numpy(), _jax_rowsum(jr, Bn, H, N),
+                               rtol=1e-5)
+    want = jwa.pallas_window_attention_flat_bwd2(
+        jq, jb, js, jo, jr, jg, interpret=True, mxu_bf16=True, **geom)
+    to = torch.as_tensor(np.array(jo.astype(jnp.float32))).to(tq.dtype)
+    dqkv, dbias, dscale = wa.window_attention_flat_bwd(
+        tq, tb, ts, to, torch.tensor(_jax_rowsum(jr, Bn, H, N)), tg,
+        **geom, mxu_bf16=True)
+    assert dqkv.dtype == tq.dtype
+    rel = 2.0 ** (-7 if bf16 else -8)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _close_to_largest(dqkv[..., i * C:(i + 1) * C], want[i], rel, name)
+    _close_to_largest(dbias, want[3], 2.0 ** -8, "dbias")
+    _close_to_largest(dscale, want[4], 2.0 ** -8, "dscale")
+
+
+@pytest.mark.parametrize("dtypes", MXU_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_mxu_bf16_k5_matches_pallas_interpret(geom, dtypes):
+    (jq, jb, js, jg), (tq, tb, ts, tg) = _mxu_inputs(17, *dtypes)
+    C = tq.shape[-1] // 3
+    want = jwa.pallas_window_attention_flat_bwd(
+        jq, jb, js, jg, interpret=True, mxu_bf16=True, **geom)
+    dqkv, dbias, dscale = wa.window_attention_flat_bwd_v1(
+        tq, tb, ts, tg, **geom, mxu_bf16=True)
+    assert dqkv.dtype == tq.dtype
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _close_to_largest(dqkv[..., i * C:(i + 1) * C], want[i], 2.0 ** -7,
+                          name)
+    _close_to_largest(dbias, want[3], 2.0 ** -8, "dbias")
+    _close_to_largest(dscale, want[4], 2.0 ** -8, "dscale")
+
+
+@pytest.mark.parametrize("v2", [True, False], ids=["v2_k2", "v1_k5"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
+def test_flat_attention_follows_mxu_bf16_switch_as_jax(monkeypatch, geom, v2):
+    """With ``MVULD_ATTN_MXU_BF16=1`` the port's ``flat_attention`` (K1 and
+    K2 or K5) and ``jax.vjp`` of the JAX ``window_attention_flat`` both
+    round their product operands: forward and gradients agree within one
+    bf16 ulp of the largest value; without the switch they do not round."""
+    monkeypatch.setenv("MVULD_ATTN_MXU_BF16", "1")
+    qkv, bias, scale, g = _attn_inputs(seed=18)
+    fn = lambda q, b, s: jwa.window_attention_flat(  # noqa: E731
+        q, b, s, interpret=True, bwd_v2=v2, **geom)
+    jout, vjp = jax.vjp(fn, jnp.asarray(qkv), jnp.asarray(bias),
+                        jnp.asarray(scale))
+    want = vjp(jnp.asarray(g))
+    geo = (geom.get("shift", 0), geom.get("nWh", 1), geom.get("nWw", 1))
+    t = [torch.tensor(a, requires_grad=True) for a in (qkv, bias, scale)]
+    out, _ = wa.flat_attention(*t, *geo, bwd_v2=v2)
+    got = torch.autograd.grad(out, t, torch.as_tensor(g))
+    _close_to_largest(out.detach(), jout, 2.0 ** -8, "out")
+    for a, b, name in zip(got, want, ("dqkv", "dbias", "dscale")):
+        _close_to_largest(a, b, 2.0 ** -8, name)
+    monkeypatch.delenv("MVULD_ATTN_MXU_BF16")
+    exact = wa.flat_attention(*[x.detach() for x in t], *geo, bwd_v2=v2)[0]
+    assert not torch.equal(exact, out.detach())
+
+
+def test_flat_attention_mxu_bf16_env_default(monkeypatch):
+    """``MVULD_ATTN_MXU_BF16=1`` is ``mxu_bf16=True`` for the forward and
+    both backward generations; unset, ``flat_attention`` does not round."""
+    qkv, bias, scale, g = _attn_inputs(seed=19)
+
+    def run(v2, **kw):
+        t = [torch.tensor(a, requires_grad=True) for a in (qkv, bias, scale)]
+        out, _ = wa.flat_attention(*t, 2, 2, 2, bwd_v2=v2, **kw)
+        return (out,) + torch.autograd.grad(out, t, torch.as_tensor(g))
+
+    for v2 in (True, False):
+        plain = run(v2)
+        monkeypatch.setenv("MVULD_ATTN_MXU_BF16", "1")
+        rounded = run(v2)
+        monkeypatch.delenv("MVULD_ATTN_MXU_BF16")
+        assert all(torch.equal(a, b)
+                   for a, b in zip(rounded, run(v2, mxu_bf16=True)))
+        assert not any(torch.equal(a, b) for a, b in zip(rounded, plain))
 
 
 def _mlp_inputs(lead, C=32, Hd=128, seed=0):

@@ -4,9 +4,11 @@ Each test skips when no CUDA device is present (decided in the ``dev``
 fixture, never at import). On the card (``tests/conftest.py`` imports JAX,
 which the GPU machine need not have):
   python -m pytest --noconftest tests/test_torch_cuda.py -q
-Kernels: K1, K2, K5 (flat attention), K7/K7b (map layout), K8/K8b (head
-layout with a mask operand), K3/K3b, K4/K4b (MLP + LayerNorm), K6/K6b
-(dense with its epilogue). Tolerances: fp32 attention 1e-4 (both compute
+Kernels: K1, K2, K5 (flat attention; K2 and K5 also at the model's
+windows, twice to the bit, on misaligned views, on an underflowing row and
+with ``mxu_bf16``), K7/K7b (map layout), K8/K8b (head layout with a mask
+operand), K3/K3b, K4/K4b (MLP + LayerNorm), K6/K6b (dense with its
+epilogue). Tolerances: fp32 attention 1e-4 (both compute
 in fp32, another summation order); bf16 outputs two bf16 ulps at the
 largest value (both round one fp32 result to bf16).
 """
@@ -491,3 +493,153 @@ def test_new_attention_kernels_reject_other_head_dims(dev):
         wa.window_attention_map_fwd(torch.zeros(1, 4, 4, 3, 2, 8, device=dev),
                                     torch.zeros(2, 16, 16, device=dev),
                                     torch.ones(2, device=dev))
+
+
+# K2 and K5 on the tensor-core passes of csrc/window_attention.cu, at the
+# model's windows: N = 196 (ws 14) and 784 (ws 28), unshifted and shifted
+# on a 2×2 grid of windows, bf16 and fp32. Tolerances as every backward's:
+# fp32 dq, dk, dv within 1e-4 of their largest value, bf16 ones within two
+# bf16 ulps, dbias 1e-4 and dscale 1e-3 of their largest.
+
+def _flat_inputs(dev, seed, Bn, ws, H, dtype, scale=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N, C = ws * ws, H * 32
+    qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=g).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev, generator=g))
+    ls = (torch.full((H,), float(scale), device=dev) if scale else
+          math.log(10.0) + 0.1 * torch.randn(H, device=dev, generator=g))
+    gout = torch.randn(Bn, N, C, device=dev, generator=g).to(dtype)
+    return qkv, bias, ls, gout
+
+
+def _flat_grads(kind, qkv, bias, ls, gout, geom, mxu_bf16=False, plain=False):
+    from mvuld_tpu_torch.ops import window_attention as wa
+    if kind == "k5":
+        fn = (wa.window_attention_flat_bwd_v1_plain if plain
+              else wa.window_attention_flat_bwd_v1)
+        return fn(qkv, bias, ls, gout, *geom, mxu_bf16=mxu_bf16)
+    out, r = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
+                                            return_rowsum=True,
+                                            mxu_bf16=mxu_bf16)
+    fn = (wa.window_attention_flat_bwd_plain if plain
+          else wa.window_attention_flat_bwd)
+    return fn(qkv, bias, ls, out, r, gout, *geom, mxu_bf16=mxu_bf16)
+
+
+def _split_dqkv(grads):
+    dqkv, dbias, dscale = grads
+    C = dqkv.shape[-1] // 3
+    return [dqkv[..., i * C:(i + 1) * C] for i in range(3)] + [dbias, dscale]
+
+
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True], ids=["shift0", "shifted"])
+@pytest.mark.parametrize("ws", [14, 28])
+def test_flat_backward_kernels_at_the_model_windows(dev, ws, shifted, dtype,
+                                                    kind):
+    from mvuld_tpu_torch.ops import window_attention as wa
+    geom = (ws // 2, 2, 2) if shifted else (0, 1, 1)
+    qkv, bias, ls, gout = _flat_inputs(dev, 30, 8, ws, 2, dtype)
+    counter = (wa.window_attention_flat_bwd_v1 if kind == "k5"
+               else wa.window_attention_flat_bwd)
+    before = counter.launches
+    got = _flat_grads(kind, qkv, bias, ls, gout, geom)
+    want = _flat_grads(kind, qkv, bias, ls, gout, geom, plain=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got[0].dtype == dtype and got[0].shape == qkv.shape
+    got, want = _split_dqkv(got), _split_dqkv(want)
+    for a, b, t in zip(got, want, _grad_tols(want, dtype)):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= t
+    if kind == "k5":     # the same function as K2 (see the v1 test above)
+        k2 = _split_dqkv(_flat_grads("k2", qkv, bias, ls, gout, geom))
+        lim = 1e-4 if dtype == torch.float32 else 2e-2
+        assert max(_rel_l2(a, b) for a, b in zip(got, k2)) <= lim
+
+
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+def test_flat_backward_repeats_to_the_bit(dev, kind):
+    """No atomics: two runs give the same bits (the windows summed into
+    dbias in chunks, then in a fixed order)."""
+    qkv, bias, ls, gout = _flat_inputs(dev, 31, 16, 14, 2, torch.bfloat16)
+    first = _flat_grads(kind, qkv, bias, ls, gout, (7, 2, 2))
+    again = _flat_grads(kind, qkv, bias, ls, gout, (7, 2, 2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+def test_flat_backward_takes_views_off_a_16_byte_boundary(dev, kind):
+    """The kernels load 16 bytes a thread; qkv, o and g views that start
+    elsewhere are copied by the wrapper, not refused."""
+    Bn, N, C = 4, 64, 64
+    g = torch.Generator(device=dev).manual_seed(32)
+    flat = torch.randn(Bn * N * 5 * C + 1, device=dev, generator=g
+                       ).to(torch.bfloat16)
+    qkv = flat[1:1 + Bn * N * 3 * C].reshape(Bn, N, 3 * C)
+    gout = flat[1 + Bn * N * 3 * C:1 + Bn * N * 4 * C].reshape(Bn, N, C)
+    assert qkv.data_ptr() % 16 != 0 and gout.data_ptr() % 16 != 0
+    bias = 16 * torch.sigmoid(torch.randn(2, N, N, device=dev, generator=g))
+    ls = torch.full((2,), math.log(10.0), device=dev)
+    got = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, (4, 2, 2)))
+    want = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, (4, 2, 2),
+                                   plain=True))
+    for a, b, t in zip(got, want, _grad_tols(want, torch.bfloat16)):
+        assert float((a.float() - b.float()).abs().max()) <= t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+def test_flat_backward_underflowing_row(dev, kind, dtype):
+    """Query row 3 of every window has each logit 90-110 below the fixed
+    shift m_h (scale 10, bias in [0, 1) but −90 on that row): exp(s − m) is
+    subnormal or zero there (the kernels' ex2.approx flushes subnormals to
+    zero), the row sum falls under the 1e-30 clamp and r = 1e30. The
+    gradients stay finite and within the usual tolerances."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    qkv, _, _, gout = _flat_inputs(dev, 33, 8, 8, 2, dtype)
+    g = torch.Generator(device=dev).manual_seed(34)
+    bias = torch.rand(2, 64, 64, device=dev, generator=g)
+    bias[:, 3, :] = -90.0
+    ls = torch.full((2,), 10.0, device=dev)
+    _, r = wa.window_attention_flat_plain(qkv, bias, ls, 4, 2, 2,
+                                          return_rowsum=True)
+    assert bool((r[:, :, 3] == 1e30).all())
+    got = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, (4, 2, 2)))
+    want = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, (4, 2, 2),
+                                   plain=True))
+    for a, b, t in zip(got, want, _grad_tols(want, dtype)):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["k1", "k2", "k5"])
+def test_flat_kernels_mxu_bf16_match_rounded_plain(dev, kind, dtype):
+    """``mxu_bf16``: K1, K2 and K5 round their product operands to bf16 and
+    the plain versions round the same values (K5's plain version rounds e
+    and r·g where the kernel rounds p and g); a value on a rounding
+    boundary may go either way, so outputs and dq, dk, dv within two bf16
+    ulps of their largest value, dbias 1e-3 and dscale 1e-2 of theirs (the
+    ``mxu_bf16`` tolerances of K7b)."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    qkv, bias, ls, gout = _flat_inputs(dev, 35, 8, 14, 2, dtype)
+    geom = (7, 2, 2)
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+    if kind == "k1":
+        got = wa.window_attention_flat(qkv, bias, ls, *geom, mxu_bf16=True)
+        want = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
+                                              mxu_bf16=True)
+        assert float((got.float() - want.float()).abs().max()) \
+            <= 2.0 ** -6 * big(want)
+        exact = wa.window_attention_flat(qkv, bias, ls, *geom)
+        assert not torch.equal(exact, got)
+        return
+    got = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, geom, True))
+    want = _split_dqkv(_flat_grads(kind, qkv, bias, ls, gout, geom, True,
+                                   plain=True))
+    for a, b, rel in zip(got, want, [2.0 ** -6] * 3 + [1e-3, 1e-2]):
+        assert float((a.float() - b.float()).abs().max()) <= rel * big(b)

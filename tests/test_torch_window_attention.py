@@ -1,8 +1,10 @@
 """The port's plain K1 (``window_attention_flat_plain``) against the JAX
 Pallas kernel ``pallas_window_attention_flat`` in interpret mode; below it
 the head layout (K8/K8b) and the map layout (K7/K7b) against their Pallas
-kernels in interpret mode, and autograd through the port's two entry points
-against ``jax.grad`` of the JAX references.
+kernels in interpret mode, autograd through the port's two entry points
+against ``jax.grad`` of the JAX references, and the card kernels'
+split-operand arithmetic (``_core_bwd_split`` for K7b/K8b,
+``_flat_bwd_split`` for K2/K5) against the Pallas backward kernels.
 
 Both compute the kernel numerics (rsqrt normalisation, fixed per-head
 softmax shift, row sums clamped at 1e-30, the shift mask from the window
@@ -357,6 +359,128 @@ def test_map_layout_split_products_match_pallas_interpret(masked, bf16,
     dqkv = twa._windows_to_map(torch.stack([dq, dk, dv]), 2, 8, 8, 4)
     assert dqkv.shape == qkv.shape
     _assert_card_tolerances([dqkv, dbias, dscale], want, False)
+
+
+# K2 and K5 run the same passes with the flat layout's fixed-shift softmax.
+# ``_flat_bwd_split`` is their arithmetic (K2's row terms from the forward's
+# output and row sums, K5's from a fixed-shift row pass), held against the
+# Pallas K2 (``pallas_window_attention_flat_bwd2``, fed the Pallas forward's
+# output and row sums) and K5 (``pallas_window_attention_flat_bwd``) at the
+# card's tolerances: fp32 dq, dk, dv within 1e-4 of their largest value,
+# bf16 ones within two bf16 ulps, dbias 1e-4, dscale 1e-3; with
+# ``mxu_bf16`` (one product per term, the Pallas kernels round the same
+# operands, and K5's dv rounds e and r·g where the kernel rounds p and g)
+# two bf16 ulps for dq, dk, dv, dbias 1e-3, dscale 1e-2, the card's
+# ``mxu_bf16`` tolerances.
+
+def _flat_inputs(seed, Bn=8, ws=4, heads=2, hd=32):
+    rng = np.random.RandomState(seed)
+    N, C = ws * ws, heads * hd
+    return (rng.randn(Bn, N, 3 * C).astype(np.float32),
+            rng.randn(heads, N, N).astype(np.float32),
+            np.exp(rng.rand(heads)).astype(np.float32),
+            rng.randn(Bn, N, C).astype(np.float32))
+
+
+def _flat_split_against_pallas(kind, shift, bf16, scale100, mxu):
+    qkv, bias, scale, g = _flat_inputs(44)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    geom = dict(shift=shift, nWh=2, nWw=2) if shift else {}
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jq, jg, jb, js = (jnp.asarray(qkv, jdt), jnp.asarray(g, jdt),
+                      jnp.asarray(bias), jnp.asarray(scale))
+    tq, tg = (torch.as_tensor(np.array(a.astype(jnp.float32)))
+              for a in (jq, jg))
+    if bf16:
+        tq, tg = tq.bfloat16(), tg.bfloat16()
+    tb, ts = _t(bias, scale)
+    Bn, N, C = g.shape
+    if kind == "k2":
+        jo, jr = jwa.pallas_window_attention_flat(
+            jq, jb, js, interpret=True, return_rowsum=True, out_dtype=jdt,
+            mxu_bf16=mxu, **geom)
+        want = jwa.pallas_window_attention_flat_bwd2(
+            jq, jb, js, jo, jr, jg, interpret=True, mxu_bf16=mxu, **geom)
+        to = torch.as_tensor(np.array(jo.astype(jnp.float32))).to(tq.dtype)
+        tr = torch.as_tensor(np.array(jr)).permute(1, 0, 2, 3).reshape(
+            Bn, -1, N)
+        got = twa._flat_bwd_split(tq, tb, ts, tg, **geom, o=to, r=tr,
+                                  mxu_bf16=mxu)
+    else:
+        want = jwa.pallas_window_attention_flat_bwd(
+            jq, jb, js, jg, interpret=True, mxu_bf16=mxu, **geom)
+        got = twa._flat_bwd_split(tq, tb, ts, tg, **geom, mxu_bf16=mxu)
+    dqkv = got[0].to(tq.dtype)
+    got = [dqkv[..., i * C:(i + 1) * C] for i in range(3)] + list(got[1:])
+    if mxu:
+        for (a, b), rel in zip(zip(got, want), [2.0 ** -6] * 3 + [1e-3, 1e-2]):
+            b = np.asarray(b.astype(jnp.float32))
+            assert np.abs(a.float().numpy() - b).max() <= rel * np.abs(b).max()
+    else:
+        _assert_card_tolerances(got, want, bf16)
+
+
+FLAT_SPLIT_CASES = [(kind, shift, bf16, scale) for kind in ("k2", "k5")
+                    for shift in (0, 2) for bf16 in (False, True)
+                    for scale in (None, 100.0)]
+FLAT_SPLIT_IDS = [f"{k}_shift{s}_{'bf16' if b else 'fp32'}_"
+                  f"{'scale100' if c else 'scale1'}"
+                  for k, s, b, c in FLAT_SPLIT_CASES]
+
+
+@pytest.mark.parametrize("kind,shift,bf16,scale100", FLAT_SPLIT_CASES,
+                         ids=FLAT_SPLIT_IDS)
+def test_flat_split_products_match_pallas_interpret(kind, shift, bf16,
+                                                    scale100):
+    _flat_split_against_pallas(kind, shift, bf16, scale100, False)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+def test_flat_split_products_mxu_bf16_match_pallas_interpret(kind, bf16):
+    _flat_split_against_pallas(kind, 2, bf16, None, True)
+
+
+def _underflowing_row_inputs(seed):
+    """Inputs whose query row 3 has every logit 90-110 below the fixed shift
+    m_h (scale 10, bias in [0, 1) but −90 on that row): exp(s − m) is
+    subnormal or zero there and the row's sum falls under the 1e-30 clamp,
+    so r = 1e30 and p = e·r stays a small normal number."""
+    qkv, _, _, g = _flat_inputs(seed)
+    H, N = 2, qkv.shape[1]
+    bias = np.random.RandomState(seed + 1).rand(H, N, N).astype(np.float32)
+    bias[:, 3, :] = -90.0
+    return qkv, bias, np.full(H, 10.0, np.float32), g
+
+
+@pytest.mark.parametrize("kind", ["k2", "k5"])
+def test_flat_split_underflowing_row(kind):
+    """The underflowing row against the Pallas K2 / K5 at the card's
+    tolerances, finite everywhere."""
+    qkv, bias, scale, g = _underflowing_row_inputs(45)
+    tq, tb, ts, tg = _t(qkv, bias, scale, g)
+    _, r = twa.window_attention_flat_plain(tq, tb, ts, return_rowsum=True)
+    assert bool((r[:, :, 3] == 1e30).all()) and bool((r[:, :, 4] < 1e30).all())
+    j = list(map(jnp.asarray, (qkv, bias, scale, g)))
+    if kind == "k2":
+        jo, jr = jwa.pallas_window_attention_flat(*j[:3], interpret=True,
+                                                  return_rowsum=True)
+        want = jwa.pallas_window_attention_flat_bwd2(*j[:3], jo, jr, j[3],
+                                                     interpret=True)
+        Bn, N = qkv.shape[:2]
+        got = twa._flat_bwd_split(
+            tq, tb, ts, tg, o=torch.as_tensor(np.array(jo)),
+            r=torch.as_tensor(np.array(jr)).permute(1, 0, 2, 3).reshape(
+                Bn, -1, N))
+    else:
+        want = jwa.pallas_window_attention_flat_bwd(*j, interpret=True)
+        got = twa._flat_bwd_split(tq, tb, ts, tg)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    C = g.shape[-1]
+    _assert_card_tolerances(
+        [got[0][..., i * C:(i + 1) * C] for i in range(3)] + list(got[1:]),
+        want, False)
 
 
 def test_split_terms_rebuild_the_operand():
