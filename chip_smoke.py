@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero:
      of windows there), with a profile of one K2 and one K5 launch by
      pass; K1, K2 and K5 on fp32 inputs, with bf16 product operands
      (``mxu_bf16``) and on a row whose row sum underflows, and K2's time
-     with ``mxu_bf16``; K6/K6b at blockbench's stage-3 shapes; and the
+     with ``mxu_bf16``; K6/K6b at blockbench's stage-3 shapes; K3/K3b,
+     K4/K4b and K6/K6b also on fp32 x (one shape each), with a profile of
+     one K4b launch at the ``lines`` shape by pass; and the
      head-layout K8/K8b (mask operand) and map-layout K7/K7b (mask
      synthesised, fp32 outputs) at the bucket-16 geometry of every stage,
      plus one fp32 case and K7/K7b with bf16 product operands;
@@ -741,7 +743,10 @@ def check_layouts_variants(dev, gen):
           f"[{card_line()}]", flush=True)
 
 
-def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
+def check_mlp(dev, gen, rows, name, shapes, path="e2e", fp32=False):
+    """K3 / K4 (K4 also with a keep-mask at 0.9) against the plain version:
+    bf16 y within two ulps of its largest value; with ``fp32`` x (the
+    kernels' two-term products) within 1e-4 of it."""
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
@@ -749,11 +754,14 @@ def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
     wrapper = getattr(fd, name)
     residual = name == "mlp_ln_res"
     eps = 1e-5 if residual else 1e-6
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    tol_of = ((lambda ref: 1e-4 * float(ref.abs().max())) if fp32  # noqa: E731
+              else bf16_tol)
     for label, M, C, per_fwd in shapes:
         Hd = 4 * C
         r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
                                                 generator=gen)
-        x = r(M, C).to(torch.bfloat16)
+        x = r(M, C).to(dtype)
         w1, b1 = r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02)
         w2, b2 = r(Hd, C, sc=Hd ** -0.5), r(C, sc=0.02)
         gamma, beta = 1 + r(C, sc=0.1), r(C, sc=0.1)
@@ -765,21 +773,24 @@ def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
         ms = time_ms(lambda: wrapper(*args), 10)
         plain_ms = time_ms(lambda: fd.mlp_ln_plain(
             *args, residual=residual, eps=eps), 5)
-        nbytes = 2 * M * C * 2 + 2 * C * Hd * 2 + (Hd + 3 * C) * 4
-        rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}",
+        size = x.element_size()
+        nbytes = 2 * M * C * size + 2 * C * Hd * size + (Hd + 3 * C) * 4
+        rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}"
+                         + (" fp32" if fp32 else ""),
                          path=path, per_fwd=per_fwd, err=err,
-                         tol=bf16_tol(want.float()),
+                         tol=tol_of(want.float()),
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
-                         t_ops=4 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
+                         t_ops=4 * M * C * Hd * (3 if fp32 else 1)
+                         / BF16_TC_FLOP_S * 1e3))
         if residual:   # the training form: the dropout keep-mask
             mask = (torch.rand(M, C, device=dev, generator=gen) < KEEP
-                    ).to(torch.bfloat16)
+                    ).to(dtype)
             got = wrapper(*args, mask, KEEP)
             want = fd.mlp_ln_plain(*args, residual=True, eps=eps, mask=mask,
                                    keep_prob=KEEP)
             err_m = float((got.float() - want.float()).abs().max())
-            tol_m = bf16_tol(want.float())
+            tol_m = tol_of(want.float())
             print(f"{name} {label} M={M} C={C} keep {KEEP}: max_abs_err="
                   f"{err_m:.3e} (tol {tol_m:.3e})", flush=True)
             if not err_m <= tol_m:
@@ -788,11 +799,13 @@ def check_mlp(dev, gen, rows, name, shapes, path="e2e"):
             rows[-1]["err"] = max(err, err_m)
 
 
-def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e"):
+def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e", fp32=False):
     """K3b / K4b (K4b with a keep-mask at 0.9) against the plain version:
     each of the 7 gradients within relative L2 1e-2 — both round dz and dh
     to bf16 before the products, so a value near a rounding boundary may
-    round either way, and the weight gradients sum those over M rows."""
+    round either way, and the weight gradients sum those over M rows; with
+    ``fp32`` x within 1e-4 (two-term products). One K4b launch at the
+    ``lines`` shape is profiled by pass."""
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
@@ -800,18 +813,20 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e"):
     wrapper = getattr(fd, name)
     residual = name == "mlp_ln_res_bwd"
     eps = 1e-5 if residual else 1e-6
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    lim = 1e-4 if fp32 else 1e-2
     for label, M, C, per_step in shapes:
         Hd = 4 * C
         r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
                                                 generator=gen)
-        x = r(M, C).to(torch.bfloat16)
+        x = r(M, C).to(dtype)
         params = (r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02),
                   r(Hd, C, sc=Hd ** -0.5), r(C, sc=0.02), 1 + r(C, sc=0.1))
-        dy = r(M, C).to(torch.bfloat16)
+        dy = r(M, C).to(dtype)
         extra = ()
         if residual:
             extra = ((torch.rand(M, C, device=dev, generator=gen) < KEEP
-                      ).to(torch.bfloat16), KEEP)
+                      ).to(dtype), KEEP)
         got = wrapper(x, dy, *params, *extra)
         want = fd.mlp_ln_bwd_plain(x, dy, *params, residual=residual,
                                    eps=eps, mask=extra[0] if extra else None,
@@ -825,61 +840,74 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e"):
             x, dy, *params, residual=residual, eps=eps,
             mask=extra[0] if extra else None,
             keep_prob=KEEP if extra else 1.0), 3)
-        nbytes = ((3 + residual) * M * C * 2 + 2 * C * Hd * 2
+        size = x.element_size()
+        nbytes = ((3 + residual) * M * C * size + 2 * C * Hd * size
                   + 2 * C * Hd * 4 + (Hd + 3 * C) * 4)
-        rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}",
+        rows.append(dict(kernel=name, shape=f"{label} M={M} C={C}"
+                         + (" fp32" if fp32 else ""),
                          path=path, per_fwd=per_step, err=err, tol=None,
-                         ok=max(l2) <= 1e-2,
+                         ok=max(l2) <= lim,
                          detail="rel L2 " + " ".join(
                              f"{n} {e:.1e}" for n, e in zip(
                                  ("dx", "dW1", "db1", "dW2", "db2", "dγ",
-                                  "dβ"), l2)) + " (tol 1e-2)",
+                                  "dβ"), l2)) + f" (tol {lim:g})",
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
                          t_bytes=nbytes / HBM_BYTES_S * 1e3,
-                         t_ops=12 * M * C * Hd / BF16_TC_FLOP_S * 1e3))
+                         t_ops=12 * M * C * Hd * (3 if fp32 else 1)
+                         / BF16_TC_FLOP_S * 1e3))
+        if residual and label == "lines" and not fp32:
+            profile_run(f"K4b {label} launch", lambda: wrapper(
+                x, dy, *params, *extra), category=_mlp_pass)
 
 
-def check_dense(dev, gen, rows):
+def check_dense(dev, gen, rows, fp32=False):
     """K6 and K6b against their plain versions at blockbench's stage-3
     shapes: the bf16 outputs (y, dz) within two bf16 ulps of their largest
-    value, K6b's fp32 column sums (db, dγ, dβ) within relative L2 VEC_TOL
-    (sums over 50176 rows in another order). Yardstick: ``torch.addmm`` on
-    the product alone (the epilogue not included)."""
+    value (with ``fp32`` x: 1e-4 of it), K6b's fp32 column sums (db, dγ,
+    dβ) within relative L2 VEC_TOL (sums over 50176 rows in another order).
+    Yardstick: ``torch.addmm`` on the product alone (the epilogue not
+    included)."""
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
 
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    tol_of = ((lambda ref: 1e-4 * float(ref.abs().max())) if fp32  # noqa: E731
+              else bf16_tol)
     for label, M, K, N, act, ln in DENSE_SHAPES:
         r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
                                                 generator=gen)
-        x, w, b = r(M, K).to(torch.bfloat16), r(K, N, sc=K ** -0.5), r(N, sc=0.02)
+        x, w, b = r(M, K).to(dtype), r(K, N, sc=K ** -0.5), r(N, sc=0.02)
         gamma, beta = 1 + r(N, sc=0.1), r(N, sc=0.1)
-        dy = r(M, N).to(torch.bfloat16)
+        dy = r(M, N).to(dtype)
         fargs = (x, w, b, gamma, beta, act, ln)
         bargs = (x, w, b, gamma, dy, act, ln)
         got, want = fd.dense_fwd(*fargs), fd.dense_fwd_plain(*fargs)
         dz, vecs = fd.dense_bwd(*bargs)
         dz_p, vecs_p = fd.dense_bwd_plain(*bargs)
         torch.cuda.synchronize()
-        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        wb, bb = w.to(dtype), b.to(dtype)
         lib_ms = time_ms(lambda: torch.addmm(bb, x, wb), 10)
-        shape = f"{label} M={M} K={K} N={N}"
-        t_ops = 2 * M * K * N / BF16_TC_FLOP_S * 1e3
+        shape = f"{label} M={M} K={K} N={N}" + (" fp32" if fp32 else "")
+        path = "fp32" if fp32 else "blockbench"
+        size = x.element_size()
+        t_ops = 2 * M * K * N * (3 if fp32 else 1) / BF16_TC_FLOP_S * 1e3
         err = float((got.float() - want.float()).abs().max())
-        rows.append(dict(kernel="dense_fwd", shape=shape, path="blockbench",
+        rows.append(dict(kernel="dense_fwd", shape=shape, path=path,
                          per_fwd=1, err=err,
-                         tol=bf16_tol(want.float()),
+                         tol=tol_of(want.float()),
                          ms=time_ms(lambda: fd.dense_fwd(*fargs), 10),
                          plain_ms=time_ms(lambda: fd.dense_fwd_plain(*fargs),
                                           5),
                          lib_ms=lib_ms,
-                         t_bytes=(M * K + K * N + M * N) * 2 / HBM_BYTES_S * 1e3,
+                         t_bytes=(M * K + K * N + M * N) * size
+                         / HBM_BYTES_S * 1e3,
                          t_ops=t_ops))
         err = float((dz.float() - dz_p.float()).abs().max())
-        tol = bf16_tol(dz_p.float())
+        tol = tol_of(dz_p.float())
         v_err = [rel_l2(a, b) for a, b in zip(vecs, vecs_p)]
         names = ("db", "dγ", "dβ")
-        rows.append(dict(kernel="dense_bwd", shape=shape, path="blockbench",
+        rows.append(dict(kernel="dense_bwd", shape=shape, path=path,
                          per_fwd=1, err=err,
                          tol=tol, ok=err <= tol and max(v_err) <= VEC_TOL,
                          detail=f"dz {err:.2e}/{tol:.2e}; rel L2 " + " ".join(
@@ -889,7 +917,7 @@ def check_dense(dev, gen, rows):
                          plain_ms=time_ms(lambda: fd.dense_bwd_plain(*bargs),
                                           5),
                          lib_ms=lib_ms,
-                         t_bytes=((M * K + K * N + 2 * M * N) * 2
+                         t_bytes=((M * K + K * N + 2 * M * N) * size
                                   + len(vecs) * N * 4) / HBM_BYTES_S * 1e3,
                          t_ops=t_ops))
         del x, dy, got, want, dz, dz_p
@@ -1706,9 +1734,10 @@ def _category(name: str) -> str:
         return "K6 dense_fwd"
     if "dense_bwd_rows" in name:
         return "K6b dense_bwd"
-    if "mlp_ln_kernel" in name:
+    if "ln_rows_fwd" in name or any(
+            k in name and not _backward_tag(name, k) for k in _TAGGED):
         return "K3/K4 mlp_ln"
-    if "bwd_rows" in name or "atb" in name or "sum_partials" in name:
+    if any(k in name for k, _ in MLP_PASSES):
         return "K3b/K4b mlp_ln_bwd"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas",
@@ -1721,10 +1750,45 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_run(label: str, fn) -> None:
+# csrc/mlp_ln.cu's passes by a piece of their kernel's name (the GEMM
+# passes by their epilogue); HiddenEpi and ZEpi serve both directions, and
+# their last template argument tells the backward's instantiation
+MLP_PASSES = (("HiddenEpi", "h = GELU(x·W1 + b1)"),
+              ("ZEpi", "z = h·W2 + b2 (mask, residual)"),
+              ("ln_rows_fwd", "LayerNorm rows"),
+              ("ln_rows_bwd", "LayerNorm backward rows (dz, column partials)"),
+              ("PartEpi", "dW2, dW1 (row groups)"),
+              ("DhEpi", "dh = dzb·W2ᵀ · GELU′ (db1 partials)"),
+              ("DxEpi", "dx = dhb·W1ᵀ + dz"),
+              ("split_terms", "fp32 operands into bf16 terms"),
+              ("sum_partials", "fixed-order partial sums"),
+              ("sum_groups", "fixed-order partial sums"))
+_TAGGED = ("HiddenEpi", "ZEpi")
+
+
+def _backward_tag(name: str, key: str) -> bool:
+    """Whether the epilogue ``key`` in a kernel name is the backward's: its
+    last template argument is true (demangled ``…, true>``, mangled
+    ``…Lb1EE``)."""
+    tail = name[name.index(key) + len(key):]
+    args = (tail[:tail.find(">") + 1] if tail.startswith("<")
+            else tail[:tail.find("EE") + 2])
+    return args.endswith("true>") or args.endswith("Lb1EE")
+
+
+def _mlp_pass(name: str) -> str:
+    for key, label in MLP_PASSES:
+        if key in name:
+            return label
+    return _category(name)
+
+
+def profile_run(label: str, fn, category=None) -> None:
     """Device time by kernel for one call of ``fn`` under torch.profiler,
     and the device's idle share of its wall time (kernels on one stream do
-    not overlap, so busy time is their sum)."""
+    not overlap, so busy time is their sum), summed by ``category`` of the
+    kernel name (``_category`` unless given)."""
+    category = category or _category
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1746,7 +1810,7 @@ def profile_run(label: str, fn) -> None:
     busy = max(sum(by_kernel.values()), 1e-9)
     cats = {}
     for name, ms in by_kernel.items():
-        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+        cats[category(name)] = cats.get(category(name), 0.0) + ms
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
           flush=True)
@@ -1874,9 +1938,17 @@ def main() -> int:
     check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", SWIN_K3_SHAPES, "swin")
     check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", K4_SHAPES)
     check_dense(dev, gen, rows)
+    # F6: fp32 x through the same kernels, one shape each
+    check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES[2:], "fp32", fp32=True)
+    check_mlp(dev, gen, rows, "mlp_ln_res", K4_SHAPES[:1], "fp32", fp32=True)
+    check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", K3_SHAPES[2:], "fp32",
+                  fp32=True)
+    check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", K4_SHAPES[:1], "fp32",
+                  fp32=True)
+    check_dense(dev, gen, rows, fp32=True)
     bad = []
     per = lambda r: {"blockbench": "blockbench iteration",  # noqa: E731
-                     "ops": "entry-point pass",
+                     "ops": "entry-point pass", "fp32": "launch (fp32 x)",
                      "swin": f"batch-{SWIN_BATCH} fine-tune step"}.get(
         r["path"], "batch-16 step" if "bwd" in r["kernel"]
         else "bucket-16 forward")

@@ -1,537 +1,621 @@
 // K3 and K4: fused MLP + LayerNorm, forward; K3b and K4b, their backward.
 //
 // Replaces the Pallas TPU kernels `_mlp_ln_fwd` / `_mlp_fwd_kernel` (K3,
-// `mlp_ln`, SwinV2 block second half, eps 1e-6) and `_mlp_ln_res_fwd` /
-// `_mlp_res_fwd_kernel` (K4, `mlp_ln_res`, RoBERTa layer MLP half with the
-// residual, eps 1e-5) of mvuld_tpu/ops/fused_dense.py. One kernel, the
-// residual a template parameter, eps a runtime one:
+// `mlp_ln`, SwinV2 block second half, eps 1e-6), `_mlp_ln_bwd` /
+// `_mlp_bwd_kernel` (K3b), `_mlp_ln_res_fwd` / `_mlp_res_fwd_kernel` (K4,
+// `mlp_ln_res`, RoBERTa layer MLP half with the residual, eps 1e-5) and
+// `_mlp_ln_res_bwd` / `_mlp_res_bwd_kernel` (K4b) of
+// mvuld_tpu/ops/fused_dense.py. One set of passes; the residual and the
+// I/O type (bf16 or fp32, the type of x) are template parameters, eps a
+// runtime one:
 //
-//   h = GELU_erf(x @ W1 + b1)  rounded to bf16
-//   z = h @ W2 + b2              fp32
-//   z = z * mask / keep (+ x)    K4: {0,1} dropout keep-mask, then residual
-//   y = LN(z) * gamma + beta    written as bf16
+//   h = GELU_erf(x @ W1 + b1)    rounded to x's type
+//   z = h @ W2 + b2               fp32
+//   z = z * mask / keep (+ x)     K4: {0,1} dropout keep-mask, then residual
+//   y = LN(z) * gamma + beta      written in x's type
 //
-// x [M, C] bf16, W1 [C, Hd] and W2 [Hd, C] bf16 row-major (the JAX layout),
-// b1, b2, gamma, beta fp32.
+// x [M, C] and W1 [C, Hd], W2 [Hd, C] row-major (the JAX layout) in x's
+// type, b1, b2, gamma, beta fp32; the mask bf16 ({0,1} is exact).
 //
-// Design. One block per tile of TM = 32 rows of x; 8 warps. The x tile and
-// an fp32 accumulator for z (TM x C, 96 KB at C = 768) stay in shared
-// memory. The block loops over hidden chunks of HC = 128 columns: the
-// chunk's h (TM x HC) is computed with tensor cores, GELU'd, rounded to bf16
-// in shared memory, and multiplied into the z accumulator at once, so the
-// [M, 4C] hidden never reaches device memory and a C = 512 or 768 hidden
-// row block never has to fit whole. The epilogue adds b2 (and x), and one
-// warp per row takes the LayerNorm. Products use nvcuda::wmma, bf16 16x16x16
-// with fp32 accumulation: bf16 operands and fp32 sums, what the Pallas kernel
-// computes with `preferred_element_type=f32`.
+// Design. Each product is a pass of the tiled tensor-core GEMM core of
+// gemm_mma.cuh (128 x 128 block tiles, a `cp.async` ring of k-steps,
+// `ldmatrix` + `mma.sync.m16n8k16`, fp32 sums) with its elementwise work
+// fused into the epilogue, and the LayerNorm is a row pass, one warp per
+// row. The forward runs three passes:
+//   1. h = GELU(x.W1 + b1) → device memory in x's type;
+//   2. z = (h.W2 + b2) * mask / keep (+ x) → device memory, fp32;
+//   3. the LayerNorm of each row of z → y.
+// Unlike the Pallas kernel, which keeps the [M, Hd] hidden in VMEM, the
+// hidden crosses device memory once each way (M*Hd*2 bytes in bf16): a
+// block tile of 128 rows reads each weight tile once per 128 rows, where
+// keeping the hidden on chip would cap the row tile at a few dozen rows.
+// The backward (K3b/K4b) recomputes h and z and runs:
+//   1. h_pre = x.W1 + b1 kept fp32 (for GELU'), h = GELU(h_pre) in x's type;
+//   2. z as the forward;
+//   3. row pass: zhat, rstd, dz = (dy*g - mean(dy*g) - zhat *
+//      mean(dy*g*zhat)) * rstd; dzm = dz * mask / keep written as dzb in
+//      x's type; dz kept fp32 in place of z (K4b's residual gradient);
+//      column partials of db2 = sum dzm, dgamma = sum dy*zhat, dbeta = sum dy
+//      per row group;
+//   4. dW2 = h^T.dzb (row groups of M, partials summed in a fixed order);
+//   5. dh = dzb.W2^T, epilogue * GELU'(h_pre) → dhb in x's type over h's
+//      memory (h is dead once dW2 has it), column partials of db1 per row
+//      tile;
+//   6. dx = dhb.W1^T (+ dz for K4b) in x's type;
+//   7. dW1 = x^T.dhb as dW2; `sum_partials` adds every partial in a fixed
+//      order. No atomics: every launch gives the same bits.
+// The roundings of h, dzm and dh_pre to x's type before their products are
+// the Pallas kernel's. With fp32 x every operand is split into two bf16
+// terms (gemm_mma.cuh: three products per step), so the products keep fp32
+// accuracy (about 2^-17 of each) without TF32.
 //
-// Bound: 4*M*C*Hd bf16 tensor-core operations against 989 TFLOP/s, ahead of
-// the bytes (x and y once, W1 and W2 once). This first version reads the
-// weight fragments straight from global memory (L2-resident) and moves the
-// z accumulator through shared memory once per chunk; it is right and
-// simple, not fast.
+// Bound: 4*M*C*Hd (forward) and 12*M*C*Hd (backward) bf16 tensor-core
+// operations at 989 TFLOP/s, ahead of the bytes either way (the hidden's
+// round trip included: 4*M*Hd bytes in the forward, about 18*M*Hd in the
+// backward, 0.2-0.6 of the operations' time at C 768).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "gemm_mma.cuh"
 
 namespace {
 
-constexpr int TM = 32;       // rows of x per block
-constexpr int HC = 128;      // hidden columns per chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+using gemm::Operand;
 
-size_t smem_bytes(int C) {
-  // x tile bf16 + z accumulator fp32 + h chunk fp32 + h chunk bf16
-  return (size_t)TM * C * 2 + (size_t)TM * C * 4 + (size_t)TM * HC * 4 +
-         (size_t)TM * HC * 2;
+constexpr int ROW_WARPS = 8;     // rows per row-pass block, one a warp
+constexpr int VMAX = 8;          // 4-value chunks a lane holds: C ≤ 1024
+constexpr int GROUP = 32;        // partials a thread adds at one level
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <bool RES>
-__global__ void __launch_bounds__(THREADS) mlp_ln_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-    const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const __nv_bfloat16* __restrict__ mask,
-    float keep, __nv_bfloat16* __restrict__ out, int M, int C, int Hd,
-    float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);       // [TM][C]
-  float* zs = reinterpret_cast<float*>(smem + (size_t)TM * C * 2);   // [TM][C]
-  float* hf = zs + (size_t)TM * C;                                   // [TM][HC]
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(hf + TM * HC);  // [TM][HC]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * TM;
-
-  for (int idx = tid; idx < TM * C; idx += THREADS) {
-    const int m = m0 + idx / C;
-    xs[idx] = m < M ? x[(size_t)m0 * C + idx] : __float2bfloat16(0.f);
-    zs[idx] = 0.f;
-  }
-  __syncthreads();
-
-  for (int h0 = 0; h0 < Hd; h0 += HC) {
-    // h chunk = x tile @ W1[:, h0:h0+HC]
-    for (int f = warp; f < (TM / 16) * (HC / 16); f += WARPS) {
-      const int fm = f / (HC / 16), fn = f % (HC / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < C; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
-        wmma::load_matrix_sync(a, xs + fm * 16 * C + k, C);
-        wmma::load_matrix_sync(bm, w1 + (size_t)k * Hd + h0 + fn * 16, Hd);
-        wmma::mma_sync(acc, a, bm, acc);
-      }
-      wmma::store_matrix_sync(hf + fm * 16 * HC + fn * 16, acc, HC,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TM * HC; idx += THREADS) {
-      const float v = hf[idx] + b1[h0 + idx % HC];
-      hs[idx] = __float2bfloat16(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
-    }
-    __syncthreads();
-    // z tile += h chunk @ W2[h0:h0+HC, :]
-    for (int f = warp; f < (TM / 16) * (C / 16); f += WARPS) {
-      const int fm = f / (C / 16), fn = f % (C / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* zp = zs + fm * 16 * C + fn * 16;
-      wmma::load_matrix_sync(acc, zp, C, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < HC; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
-        wmma::load_matrix_sync(a, hs + fm * 16 * HC + k, HC);
-        wmma::load_matrix_sync(bm, w2 + (size_t)(h0 + k) * C + fn * 16, C);
-        wmma::mma_sync(acc, a, bm, acc);
-      }
-      wmma::store_matrix_sync(zp, acc, C, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: + b2 (+ x), LayerNorm over C; one warp per row
-  for (int r = warp; r < TM; r += WARPS) {
-    const int m = m0 + r;
-    if (m >= M) continue;  // uniform across the warp
-    float* zr = zs + (size_t)r * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float z = zr[c] + b2[c];
-      if (mask != nullptr) z *= __bfloat162float(mask[(size_t)m * C + c]) / keep;
-      if (RES) z += __bfloat162float(xs[(size_t)r * C + c]);
-      zr[c] = z;
-      sum += z;
-    }
-    const float mu = warp_sum(sum) / C;
-    float var = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = zr[c] - mu;
-      var += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(var) / C + eps);
-    for (int c = lane; c < C; c += 32)
-      out[(size_t)m * C + c] =
-          __float2bfloat16((zr[c] - mu) * rstd * gamma[c] + beta[c]);
-  }
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = low_f(u.x); v[1] = high_f(u.x); v[2] = low_f(u.y); v[3] = high_f(u.y);
+}
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-template <bool RES>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* gamma, const void* beta,
-           const void* mask, float keep, void* out, int M, int C, int Hd,
-           float eps, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_ln_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + TM - 1) / TM);
-  mlp_ln_kernel<RES><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(mask),
-      keep, static_cast<__nv_bfloat16*>(out), M, C, Hd, eps);
-  return static_cast<int>(cudaGetLastError());
+// (a, b) as P bf16 planes: hi, and with P = 2 lo = bf16(value - hi)
+template <int P>
+__device__ __forceinline__ void store_terms2(__nv_bfloat16* p, size_t plane,
+                                             float a, float b) {
+  const uint32_t hi = pack2(a, b);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  if (P == 2)
+    *reinterpret_cast<uint32_t*>(p + plane) = pack2(a - low_f(hi), b - high_f(hi));
+}
+template <int P>
+__device__ __forceinline__ void store_terms4(__nv_bfloat16* p, size_t plane,
+                                             const float (&v)[4]) {
+  const uint2 hi = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+  *reinterpret_cast<uint2*>(p) = hi;
+  if (P == 2)
+    *reinterpret_cast<uint2*>(p + plane) =
+        make_uint2(pack2(v[0] - low_f(hi.x), v[1] - high_f(hi.x)),
+                   pack2(v[2] - low_f(hi.y), v[3] - high_f(hi.y)));
 }
 
-// ---------------------------------------------------------------- K3b/K4b
-//
-// Replace `_mlp_ln_bwd` / `_mlp_bwd_kernel` (K3b) and `_mlp_ln_res_bwd` /
-// `_mlp_res_bwd_kernel` (K4b) of mvuld_tpu/ops/fused_dense.py. Per row:
-//
-//   recompute z (as the forward, mask and residual included), zhat, rstd
-//   dz  = (dy*g - mean(dy*g) - zhat * mean(dy*g*zhat)) * rstd
-//   dzm = dz * mask / keep (K4b) or dz;   dzb = bf16(dzm)
-//   per hidden chunk: h_pre = x@W1 + b1;  hb = bf16(GELU(h_pre))
-//                     dh = dzb @ W2^T;    dh_pre = dh * GELU'(h_pre)
-//                     dhb = bf16(dh_pre); dx += dhb @ W1^T
-//   dx (+ dz for K4b) written as bf16
-//   db1 = sum dh_pre, db2 = sum dzm, dgamma = sum dy*zhat, dbeta = sum dy
-//   dW1 = x^T dhb,  dW2 = hb^T dzb
-//
-// The bf16 roundings of dz and dh_pre before their products are the Pallas
-// kernel's. Design: `bwd_rows` is persistent (a grid of G blocks walks the
-// 16-row tiles); per tile it keeps x, dy, z/dz and the dx accumulator in
-// shared memory and walks the hidden chunks as the forward does, so the
-// [M, Hd] hidden is recomputed per tile and the products run on wmma bf16
-// tensor cores with fp32 sums. The column sums (db1, db2, dgamma, dbeta)
-// accumulate per block in shared memory in row order and leave as one
-// partial per block. The weight gradients contract over all M rows: each
-// tile hands its bf16 hb, dhb and dzb rows to `atb`, a wmma A^T.B kernel
-// whose blocks each own a 64 x 64 output tile and one row group of M (S
-// groups, sized to fill the card), so partials exist per row group only,
-// never per tile; `sum_partials` reduces them in a fixed order. Every
-// reduction is deterministic. Bound: 12*M*C*Hd bf16 tensor-core
-// operations (the Pallas cost estimate) against 989 TFLOP/s; the hb/dhb
-// round trip through device memory (4*M*Hd bytes) is the price of keeping
-// the weight-gradient sums off atomics.
+// ------------------------------------------------------------ epilogues
 
-constexpr int BM = 16;        // rows per backward tile
-
-struct BwdArgs {
-  const __nv_bfloat16 *x, *dy, *mask;
-  float keep;
-  const __nv_bfloat16* w1;
+// h = GELU(acc + b1) as terms; BWD keeps h_pre = acc + b1 (fp32)
+template <int P, bool BWD>
+struct HiddenEpi {
+  static constexpr bool kColSums = false;
   const float* b1;
-  const __nv_bfloat16* w2;
-  const float *b2, *gamma;
-  __nv_bfloat16 *dx, *dzb, *hb, *dhb;
+  __nv_bfloat16* h;
+  size_t plane;
+  float* h_pre;
+  int ld;
+  __device__ __forceinline__ float2 operator()(int r, int c, float v0,
+                                               float v1) const {
+    v0 += b1[c];
+    v1 += b1[c + 1];
+    const size_t e = (size_t)r * ld + c;
+    store_terms2<P>(h + e, plane, gelu_erf(v0), gelu_erf(v1));
+    if (BWD) store_pair(h_pre + e, v0, v1);
+    return make_float2(0.f, 0.f);
+  }
+};
+
+// z = (acc + b2) * mask / keep (+ x), fp32. BWD only tags the backward's
+// instantiation, so that a profile tells the two directions apart.
+template <typename T, bool RES, bool BWD>
+struct ZEpi {
+  static constexpr bool kColSums = false;
+  const float* b2;
+  const __nv_bfloat16* mask;
+  float inv_keep;
+  const T* x;
+  float* z;
+  int ld;
+  __device__ __forceinline__ float2 operator()(int r, int c, float v0,
+                                               float v1) const {
+    const size_t e = (size_t)r * ld + c;
+    v0 += b2[c];
+    v1 += b2[c + 1];
+    if (mask != nullptr) {
+      const float2 m = load_pair(mask + e);
+      v0 *= m.x * inv_keep;
+      v1 *= m.y * inv_keep;
+    }
+    if (RES) {
+      const float2 xv = load_pair(x + e);
+      v0 += xv.x;
+      v1 += xv.y;
+    }
+    store_pair(z + e, v0, v1);
+    return make_float2(0.f, 0.f);
+  }
+};
+
+// dh_pre = acc * GELU'(h_pre) as terms; its column sums give db1
+template <int P>
+struct DhEpi {
+  static constexpr bool kColSums = true;
+  const float* h_pre;
+  __nv_bfloat16* dh;
+  size_t plane;
+  int ld;
   float* col_part;
-  int M, C, Hd;
+  __device__ __forceinline__ float2 operator()(int r, int c, float v0,
+                                               float v1) const {
+    const size_t e = (size_t)r * ld + c;
+    const float2 hp = load_pair(h_pre + e);
+    v0 *= gelu_grad(hp.x);
+    v1 *= gelu_grad(hp.y);
+    store_terms2<P>(dh + e, plane, v0, v1);
+    return make_float2(v0, v1);
+  }
+};
+
+// dx = acc (+ dz) in x's type
+template <typename T, bool RES>
+struct DxEpi {
+  static constexpr bool kColSums = false;
+  const float* dz;
+  T* dx;
+  int ld;
+  __device__ __forceinline__ float2 operator()(int r, int c, float v0,
+                                               float v1) const {
+    const size_t e = (size_t)r * ld + c;
+    if (RES) {
+      const float2 d = load_pair(dz + e);
+      v0 += d.x;
+      v1 += d.y;
+    }
+    store_pair(dx + e, v0, v1);
+    return make_float2(0.f, 0.f);
+  }
+};
+
+// out[blockIdx.z] = acc, fp32: a weight gradient, or its row group's part
+struct PartEpi {
+  static constexpr bool kColSums = false;
+  float* out;
+  int ld;
+  size_t part;
+  __device__ __forceinline__ float2 operator()(int r, int c, float v0,
+                                               float v1) const {
+    store_pair(out + blockIdx.z * part + (size_t)r * ld + c, v0, v1);
+    return make_float2(0.f, 0.f);
+  }
+};
+
+// ------------------------------------------------------------ row passes
+
+// y = LN(z) * gamma + beta, one warp per row
+template <typename T>
+__global__ void __launch_bounds__(ROW_WARPS * 32) ln_rows_fwd(
+    const float* __restrict__ z, const float* __restrict__ gamma,
+    const float* __restrict__ beta, T* __restrict__ y, int M, int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (r >= M) return;
+  const float* zr = z + (size_t)r * C;
+  float v[VMAX][4];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < VMAX; ++i) {
+    const int c = (i * 32 + lane) * 4;
+    if (c < C) {
+      load4(zr + c, v[i]);
+      s += (v[i][0] + v[i][1]) + (v[i][2] + v[i][3]);
+    }
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < VMAX; ++i)
+    if ((i * 32 + lane) * 4 < C)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = v[i][e] - mu;
+        q += d * d;
+      }
+  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+  for (int i = 0; i < VMAX; ++i) {
+    const int c = (i * 32 + lane) * 4;
+    if (c < C) {
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = (v[i][e] - mu) * rstd * gamma[c + e] + beta[c + e];
+      store4(y + (size_t)r * C + c, o);
+    }
+  }
+}
+
+struct RowsBwd {
+  const float* gamma;
+  const __nv_bfloat16* mask;
+  float inv_keep;
+  float* z;               // [M][C]: z in; dz out (K4b's residual gradient)
+  __nv_bfloat16* dzb;     // [P][M][C]: dz * mask / keep as terms
+  size_t plane;
+  float* col_part;        // [G][3C]: db2 | dgamma | dbeta per row group
+  int M, C, rows_per_block;
   float eps;
 };
 
-size_t bwd_smem_bytes(int C, int Hd) {
-  // xs, dys (bf16 [BM][C]); acc, dzs (fp32 [BM][C]); hf, dhf (fp32
-  // [BM][HC]); hs, dhs (bf16 [BM][HC]); col (fp32 Hd + 3C); rstd (fp32 BM)
-  return (size_t)BM * C * (2 + 2 + 4 + 4) + (size_t)BM * HC * (4 + 4 + 2 + 2) +
-         ((size_t)Hd + 3 * C + BM) * 4;
-}
-
-template <bool RES>
-__global__ void __launch_bounds__(THREADS) bwd_rows(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = a.C, Hd = a.Hd;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);     // [BM][C]
-  __nv_bfloat16* dys = xs + (size_t)BM * C;                        // [BM][C]
-  float* acc = reinterpret_cast<float*>(dys + (size_t)BM * C);     // [BM][C]
-  float* dzs = acc + (size_t)BM * C;                               // [BM][C]
-  float* hf = dzs + (size_t)BM * C;                                // [BM][HC]
-  float* dhf = hf + BM * HC;                                       // [BM][HC]
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(dhf + BM * HC);
-  __nv_bfloat16* dhs = hs + BM * HC;                               // [BM][HC]
-  float* col = reinterpret_cast<float*>(dhs + BM * HC);  // db1|db2|dg|dbeta
-  float* rstd = col + Hd + 3 * C;                                  // [BM]
-  float* db2c = col + Hd;
-  float* dgc = db2c + C;
-  float* dbc = dgc + C;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int l = tid; l < Hd + 3 * C; l += THREADS) col[l] = 0.f;
-  const int ntiles = (a.M + BM - 1) / BM;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int m0 = tile * BM;
-    __syncthreads();
-    for (int idx = tid; idx < BM * C; idx += THREADS) {
-      const bool in = m0 + idx / C < a.M;
-      xs[idx] = in ? a.x[(size_t)m0 * C + idx] : __float2bfloat16(0.f);
-      dys[idx] = in ? a.dy[(size_t)m0 * C + idx] : __float2bfloat16(0.f);
-      acc[idx] = 0.f;
-    }
-    __syncthreads();
-
-    // z = GELU(x @ W1 + b1) @ W2, the forward's chunk walk
-    for (int h0 = 0; h0 < Hd; h0 += HC) {
-      {
-        const int fn = warp;   // HC / 16 == WARPS column fragments
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-        wmma::fill_fragment(f, 0.f);
-        for (int k = 0; k < C; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, xs + k, C);
-          wmma::load_matrix_sync(fb, a.w1 + (size_t)k * Hd + h0 + fn * 16, Hd);
-          wmma::mma_sync(f, fa, fb, f);
-        }
-        wmma::store_matrix_sync(hf + fn * 16, f, HC, wmma::mem_row_major);
-      }
-      __syncthreads();
-      for (int idx = tid; idx < BM * HC; idx += THREADS)
-        hs[idx] = __float2bfloat16(gelu_erf(hf[idx] + a.b1[h0 + idx % HC]));
-      __syncthreads();
-      for (int fn = warp; fn < C / 16; fn += WARPS) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-        wmma::load_matrix_sync(f, acc + fn * 16, C, wmma::mem_row_major);
+// The LayerNorm backward of rows [blockIdx.x * rows_per_block, ...), one
+// warp per row; each warp adds its rows' column terms, in row order, into
+// its own slice of shared memory, and the block adds the slices in warp
+// order into its partial.
+template <typename T, bool RES>
+__global__ void __launch_bounds__(ROW_WARPS * 32) ln_rows_bwd(
+    RowsBwd a, const T* __restrict__ dy) {
+  constexpr int P = sizeof(T) / 2;
+  extern __shared__ float red[];                  // [ROW_WARPS][3C]
+  const int C = a.C, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = red + (size_t)warp * 3 * C;       // db2 | dgamma | dbeta
+  for (int l = lane; l < 3 * C; l += 32) mine[l] = 0.f;
+  __syncwarp();
+  const int r_end = min(a.M, (blockIdx.x + 1) * a.rows_per_block);
+  for (int r = blockIdx.x * a.rows_per_block + warp; r < r_end; r += ROW_WARPS) {
+    float* zr = a.z + (size_t)r * C;
+    float v[VMAX][4], d[VMAX][4];
+    float s = 0.f;
 #pragma unroll
-        for (int k = 0; k < HC; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, hs + k, HC);
-          wmma::load_matrix_sync(fb, a.w2 + (size_t)(h0 + k) * C + fn * 16, C);
-          wmma::mma_sync(f, fa, fb, f);
-        }
-        wmma::store_matrix_sync(acc + fn * 16, f, C, wmma::mem_row_major);
-      }
-      __syncthreads();
-    }
-
-    // z (+ b2, mask, residual) → zhat in acc; rstd per row
-    for (int r = warp; r < BM; r += WARPS) {
-      const int m = m0 + r;
-      float* zr = acc + (size_t)r * C;
-      float sum = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        float z = zr[c] + a.b2[c];
-        if (a.mask != nullptr && m < a.M)
-          z *= __bfloat162float(a.mask[(size_t)m * C + c]) / a.keep;
-        if (RES) z += __bfloat162float(xs[(size_t)r * C + c]);
-        zr[c] = z;
-        sum += z;
-      }
-      const float mu = warp_sum(sum) / C;
-      float var = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = zr[c] - mu;
-        var += d * d;
-      }
-      const float rs = rsqrtf(warp_sum(var) / C + a.eps);
-      for (int c = lane; c < C; c += 32) zr[c] = (zr[c] - mu) * rs;
-      if (lane == 0) rstd[r] = rs;
-    }
-    __syncthreads();
-    for (int c = tid; c < C; c += THREADS)     // dgamma, dbeta: row order
-      for (int r = 0; r < BM; ++r) {
-        const float d = __bfloat162float(dys[(size_t)r * C + c]);
-        dgc[c] += d * acc[(size_t)r * C + c];
-        dbc[c] += d;
-      }
-    __syncthreads();
-    // LayerNorm backward → dz; dzm = dz·mask/keep into dzs and (bf16) dys;
-    // acc becomes the dx accumulator: dz for K4b, 0 for K3b
-    for (int r = warp; r < BM; r += WARPS) {
-      const int m = m0 + r;
-      float s1 = 0.f, s2 = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float dyg = __bfloat162float(dys[(size_t)r * C + c]) * a.gamma[c];
-        s1 += dyg;
-        s2 += dyg * acc[(size_t)r * C + c];
-      }
-      const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-      for (int c = lane; c < C; c += 32) {
-        const size_t e = (size_t)r * C + c;
-        const float dyg = __bfloat162float(dys[e]) * a.gamma[c];
-        const float dz = (dyg - m1 - acc[e] * m2) * rstd[r];
-        float dzm = dz;
-        if (a.mask != nullptr && m < a.M)
-          dzm *= __bfloat162float(a.mask[(size_t)m * C + c]) / a.keep;
-        dzs[e] = dzm;
-        const __nv_bfloat16 b = __float2bfloat16(dzm);
-        dys[e] = b;
-        a.dzb[(size_t)m * C + c] = b;
-        acc[e] = RES ? dz : 0.f;
+    for (int i = 0; i < VMAX; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      if (c < C) {
+        load4(zr + c, v[i]);
+        load4(dy + (size_t)r * C + c, d[i]);
+        s += (v[i][0] + v[i][1]) + (v[i][2] + v[i][3]);
       }
     }
-    __syncthreads();
-    for (int c = tid; c < C; c += THREADS)     // db2: row order
-      for (int r = 0; r < BM; ++r) db2c[c] += dzs[(size_t)r * C + c];
-
-    for (int h0 = 0; h0 < Hd; h0 += HC) {
-      __syncthreads();
-      {
-        const int fn = warp;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-        // h_pre chunk = x @ W1[:, h0:h0+HC]
-        wmma::fill_fragment(f, 0.f);
-        for (int k = 0; k < C; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, xs + k, C);
-          wmma::load_matrix_sync(fb, a.w1 + (size_t)k * Hd + h0 + fn * 16, Hd);
-          wmma::mma_sync(f, fa, fb, f);
-        }
-        wmma::store_matrix_sync(hf + fn * 16, f, HC, wmma::mem_row_major);
-        // dh chunk = dzb @ W2[h0:h0+HC, :]^T
-        wmma::fill_fragment(f, 0.f);
-        for (int k = 0; k < C; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dys + k, C);
-          wmma::load_matrix_sync(fb, a.w2 + (size_t)(h0 + fn * 16) * C + k, C);
-          wmma::mma_sync(f, fa, fb, f);
-        }
-        wmma::store_matrix_sync(dhf + fn * 16, f, HC, wmma::mem_row_major);
-      }
-      __syncthreads();
-      for (int idx = tid; idx < BM * HC; idx += THREADS) {
-        const int r = idx / HC, c = idx % HC;
-        const float v = hf[idx] + a.b1[h0 + c];
-        const float dhp = dhf[idx] * gelu_grad(v);
-        const size_t e = (size_t)(m0 + r) * Hd + h0 + c;
-        a.hb[e] = __float2bfloat16(gelu_erf(v));
-        dhf[idx] = dhp;
-        const __nv_bfloat16 b = __float2bfloat16(dhp);
-        dhs[idx] = b;
-        a.dhb[e] = b;
-      }
-      __syncthreads();
-      for (int c = tid; c < HC; c += THREADS)    // db1: row order
-        for (int r = 0; r < BM; ++r) col[h0 + c] += dhf[r * HC + c];
-      // dx += dhb @ W1[:, h0:h0+HC]^T
-      for (int fn = warp; fn < C / 16; fn += WARPS) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-        wmma::load_matrix_sync(f, acc + fn * 16, C, wmma::mem_row_major);
+    const float mu = warp_sum(s) / C;
+    float q = 0.f;
 #pragma unroll
-        for (int k = 0; k < HC; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dhs + k, HC);
-          wmma::load_matrix_sync(fb, a.w1 + (size_t)(fn * 16) * Hd + h0 + k, Hd);
-          wmma::mma_sync(f, fa, fb, f);
+    for (int i = 0; i < VMAX; ++i)
+      if ((i * 32 + lane) * 4 < C)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dd = v[i][e] - mu;
+          q += dd * dd;
         }
-        wmma::store_matrix_sync(acc + fn * 16, f, C, wmma::mem_row_major);
-      }
+    const float rstd = rsqrtf(warp_sum(q) / C + a.eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < VMAX; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      if (c < C)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[i][e] = (v[i][e] - mu) * rstd;                  // zhat
+          const float dyg = d[i][e] * a.gamma[c + e];
+          s1 += dyg;
+          s2 += dyg * v[i][e];
+          mine[C + c + e] += d[i][e] * v[i][e];
+          mine[2 * C + c + e] += d[i][e];
+        }
     }
-    __syncthreads();
-    for (int idx = tid; idx < BM * C; idx += THREADS)
-      if (m0 + idx / C < a.M)
-        a.dx[(size_t)m0 * C + idx] = __float2bfloat16(acc[idx]);
+    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+#pragma unroll
+    for (int i = 0; i < VMAX; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      if (c >= C) continue;
+      float dz[4], dzm[4], m[4] = {1.f, 1.f, 1.f, 1.f};
+      if (a.mask != nullptr) load4(a.mask + (size_t)r * C + c, m);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dz[e] = (d[i][e] * a.gamma[c + e] - m1 - v[i][e] * m2) * rstd;
+        dzm[e] = a.mask != nullptr ? dz[e] * (m[e] * a.inv_keep) : dz[e];
+        mine[c + e] += dzm[e];
+      }
+      store_terms4<P>(a.dzb + (size_t)r * C + c, a.plane, dzm);
+      if (RES) store4(zr + c, dz);
+    }
   }
   __syncthreads();
-  float* part = a.col_part + (size_t)blockIdx.x * (Hd + 3 * C);
-  for (int l = tid; l < Hd + 3 * C; l += THREADS) part[l] = col[l];
-}
-
-template <bool RES>
-int launch_bwd_rows(const BwdArgs& a, int G, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(a.C, a.Hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_rows<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_rows<RES><<<G, THREADS, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out[S][P][Q] = A[rows of group s]^T . B[rows of group s]; A [M, P] and
-// B [M, Q] bf16 row-major, M a multiple of 16. Block: one 64 x 64 output
-// tile of one row group; warp w owns rows 16*(w/2) and two 16-column
-// fragments.
-__global__ void __launch_bounds__(THREADS) atb(
-    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-    float* __restrict__ out, int M, int P, int Q, int rows_per_split) {
-  const int warp = threadIdx.x / 32;
-  const int p = blockIdx.y * 64 + (warp / 2) * 16;
-  const int q0 = blockIdx.x * 64 + (warp % 2) * 32;
-  if (p >= P) return;
-  const int m_begin = blockIdx.z * rows_per_split;
-  const int m_end = min(M, m_begin + rows_per_split);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2];
-  wmma::fill_fragment(f[0], 0.f);
-  wmma::fill_fragment(f[1], 0.f);
-  for (int m = m_begin; m < m_end; m += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-    wmma::load_matrix_sync(fa, A + (size_t)m * P + p, P);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (q0 + 16 * j >= Q) continue;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + (size_t)m * Q + q0 + 16 * j, Q);
-      wmma::mma_sync(f[j], fa, fb, f[j]);
-    }
+  for (int l = threadIdx.x; l < 3 * C; l += ROW_WARPS * 32) {
+    float t = 0.f;
+    for (int w = 0; w < ROW_WARPS; ++w) t += red[(size_t)w * 3 * C + l];
+    a.col_part[(size_t)blockIdx.x * 3 * C + l] = t;
   }
-  float* o = out + (size_t)blockIdx.z * P * Q + (size_t)p * Q;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    if (q0 + 16 * j < Q)
-      wmma::store_matrix_sync(o + q0 + 16 * j, f[j], Q, wmma::mem_row_major);
 }
 
-// dW = A^T B over Mp rows in S row groups; with S > 1 through wpart.
-int weight_grad(const __nv_bfloat16* A, const __nv_bfloat16* B, float* dw,
-                float* wpart, int Mp, int P, int Q, int S, int rows_per_split,
-                cudaStream_t stream) {
-  const dim3 grid((Q + 63) / 64, (P + 63) / 64, S);
-  atb<<<grid, THREADS, 0, stream>>>(A, B, S > 1 ? wpart : dw, Mp, P, Q,
-                                   rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  const size_t L = (size_t)P * Q;
-  sum_partials<<<(unsigned)((L + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      wpart, dw, S, L);
+// ------------------------------------------------------------ planning
+
+// The caller's scratch, carved into the passes' buffers (256-byte
+// aligned); with base 0 it measures the size.
+struct Plan {
+  __nv_bfloat16 *x_t, *w1_t, *w2_t;   // fp32 operands as two bf16 planes
+  __nv_bfloat16 *h, *dzb;             // [P][M][Hd] (h, then dhb), [P][M][C]
+  float *z, *h_pre, *db1_part, *col_part, *w_part;
+  float* sum_tmp;                     // the first level of two-level sums
+  int G, rows_per_block;              // row groups of the LN backward
+  int S, k_split;                     // row groups of the weight gradients
+  size_t bytes;
+};
+
+Plan make_plan(uintptr_t base, int M, int C, int Hd, int P, bool bwd, int sms) {
+  Plan q{};
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    const uintptr_t at = base + off;
+    off += (bytes + 255) / 256 * 256;
+    return at;
+  };
+  const size_t MC = (size_t)M * C, MH = (size_t)M * Hd, CH = (size_t)C * Hd;
+  if (P == 2) {
+    q.x_t = reinterpret_cast<__nv_bfloat16*>(take(2 * MC * 2));
+    q.w1_t = reinterpret_cast<__nv_bfloat16*>(take(2 * CH * 2));
+    q.w2_t = reinterpret_cast<__nv_bfloat16*>(take(2 * CH * 2));
+  }
+  q.h = reinterpret_cast<__nv_bfloat16*>(take(P * MH * 2));
+  q.z = reinterpret_cast<float*>(take(MC * 4));
+  if (bwd) {
+    q.h_pre = reinterpret_cast<float*>(take(MH * 4));
+    q.dzb = reinterpret_cast<__nv_bfloat16*>(take(P * MC * 2));
+    const int mt = (M + gemm::BM - 1) / gemm::BM;
+    q.db1_part = reinterpret_cast<float*>(take((size_t)mt * Hd * 4));
+    q.G = std::max(1, std::min((M + ROW_WARPS - 1) / ROW_WARPS, 2 * sms));
+    q.rows_per_block = (M + q.G - 1) / q.G;
+    q.G = (M + q.rows_per_block - 1) / q.rows_per_block;
+    q.col_part = reinterpret_cast<float*>(take((size_t)q.G * 3 * C * 4));
+    q.sum_tmp = reinterpret_cast<float*>(take(
+        std::max((size_t)(mt + GROUP - 1) / GROUP * Hd,
+                 (size_t)(q.G + GROUP - 1) / GROUP * 3 * C) * 4));
+    // enough (tile, group) blocks to fill the card twice, groups of at
+    // least 512 rows
+    const int tiles = ((C + gemm::BN - 1) / gemm::BN) * ((Hd + gemm::BN - 1) / gemm::BN);
+    const int S = std::max(1, std::min((2 * sms + tiles - 1) / tiles, M / 512));
+    q.k_split = ((M + S - 1) / S + gemm::BK - 1) / gemm::BK * gemm::BK;
+    q.S = (M + q.k_split - 1) / q.k_split;
+    q.w_part = q.S > 1 ? reinterpret_cast<float*>(take((size_t)q.S * CH * 4)) : nullptr;
+  }
+  q.bytes = off;
+  return q;
+}
+
+// out[g][l] = sum over s in [g * GROUP, (g + 1) * GROUP) ∩ [0, S) of
+// part[s][l], s in order: the first level of a fixed-order sum over many
+// partials (one thread per column would add them all one after another)
+__global__ void sum_groups(const float* __restrict__ part,
+                           float* __restrict__ out, int S, size_t L) {
+  const size_t l = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const int s1 = min(S, (int)(blockIdx.y + 1) * GROUP);
+  float t = 0.f;
+  for (int s = blockIdx.y * GROUP; s < s1; ++s) t += part[(size_t)s * L + l];
+  out[blockIdx.y * L + l] = t;
+}
+
+// out[l] = sum over s of part[s][l] in a fixed order; past GROUP partials
+// in two levels through tmp ([ceil(S / GROUP)][L])
+int sum_into(const float* part, float* out, int S, size_t L, float* tmp,
+             cudaStream_t s) {
+  const unsigned blocks = (unsigned)((L + 255) / 256);
+  if (S > GROUP && tmp != nullptr) {
+    const int groups = (S + GROUP - 1) / GROUP;
+    sum_groups<<<dim3(blocks, groups), 256, 0, s>>>(part, tmp, S, L);
+    int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    part = tmp;
+    S = groups;
+  }
+  sum_partials<<<blocks, 256, 0, s>>>(part, out, S, L);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dW [P x Q] = A^T B over the M rows (A [M][P], B [M][Q] as operands)
+template <int PL>
+int weight_grad(const Operand& A, const Operand& B, float* dw, const Plan& q,
+                int M, int Pn, int Qn, cudaStream_t s) {
+  const bool parts = q.S > 1;
+  int err = gemm::run<PL, true, false>(
+      A, B, Pn, Qn, M, q.k_split,
+      PartEpi{parts ? q.w_part : dw, Qn, (size_t)Pn * Qn}, s);
+  if (err != 0 || !parts) return err;
+  return sum_into(q.w_part, dw, q.S, (size_t)Pn * Qn, nullptr, s);
+}
+
+struct Args {
+  const void *x, *w1, *b1, *w2, *b2, *gamma, *beta, *mask;
+  float keep;
+  int M, C, Hd;
+  float eps;
+  void* work;
+  int sms;
+};
+
+// The products' operands x, W1, W2: as given (bf16), or split into the
+// plan's planes (fp32).
+template <int P>
+int operands(const Args& a, const Plan& q, Operand& X, Operand& W1,
+             Operand& W2, cudaStream_t s) {
+  const size_t MC = (size_t)a.M * a.C, CH = (size_t)a.C * a.Hd;
+  if (P == 1) {
+    X = {static_cast<const __nv_bfloat16*>(a.x), 0, a.C};
+    W1 = {static_cast<const __nv_bfloat16*>(a.w1), 0, a.Hd};
+    W2 = {static_cast<const __nv_bfloat16*>(a.w2), 0, a.C};
+    return 0;
+  }
+  X = {q.x_t, MC, a.C};
+  W1 = {q.w1_t, CH, a.Hd};
+  W2 = {q.w2_t, CH, a.C};
+  int err = gemm::split(static_cast<const float*>(a.x), q.x_t, MC, s);
+  if (err == 0) err = gemm::split(static_cast<const float*>(a.w1), q.w1_t, CH, s);
+  if (err == 0) err = gemm::split(static_cast<const float*>(a.w2), q.w2_t, CH, s);
+  return err;
+}
+
+// h (and h_pre), then z: the two products both directions start with
+template <typename T, bool RES, bool BWD>
+int hidden_and_z(const Args& a, const Plan& q, const Operand& X,
+                 const Operand& W1, const Operand& W2, cudaStream_t s) {
+  constexpr int P = sizeof(T) / 2;
+  const int M = a.M, C = a.C, Hd = a.Hd;
+  const size_t MH = (size_t)M * Hd;
+  int err = gemm::run<P, false, false>(
+      X, W1, M, Hd, C, C,
+      HiddenEpi<P, BWD>{static_cast<const float*>(a.b1), q.h, MH, q.h_pre, Hd}, s);
+  if (err != 0) return err;
+  const float inv_keep = 1.f / a.keep;
+  return gemm::run<P, false, false>(
+      Operand{q.h, MH, Hd}, W2, M, C, Hd, Hd,
+      ZEpi<T, RES, BWD>{static_cast<const float*>(a.b2),
+                   static_cast<const __nv_bfloat16*>(a.mask), inv_keep,
+                   static_cast<const T*>(a.x), q.z, C},
+      s);
+}
+
+template <typename T, bool RES>
+int forward(const Args& a, void* out, cudaStream_t s) {
+  constexpr int P = sizeof(T) / 2;
+  const Plan q = make_plan(reinterpret_cast<uintptr_t>(a.work), a.M, a.C, a.Hd,
+                           P, false, a.sms);
+  Operand X, W1, W2;
+  int err = operands<P>(a, q, X, W1, W2, s);
+  if (err == 0) err = hidden_and_z<T, RES, false>(a, q, X, W1, W2, s);
+  if (err != 0) return err;
+  ln_rows_fwd<T><<<(a.M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+      q.z, static_cast<const float*>(a.gamma), static_cast<const float*>(a.beta),
+      static_cast<T*>(out), a.M, a.C, a.eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool RES>
+int backward(const Args& a, const void* dy, void* dx, float* dw1, float* dw2,
+             float* dvec, cudaStream_t s) {
+  constexpr int P = sizeof(T) / 2;
+  const int M = a.M, C = a.C, Hd = a.Hd;
+  const size_t MC = (size_t)M * C, MH = (size_t)M * Hd;
+  const Plan q = make_plan(reinterpret_cast<uintptr_t>(a.work), M, C, Hd, P,
+                           true, a.sms);
+  Operand X, W1, W2;
+  int err = operands<P>(a, q, X, W1, W2, s);
+  if (err == 0) err = hidden_and_z<T, RES, true>(a, q, X, W1, W2, s);
+  if (err != 0) return err;
+
+  const size_t red = (size_t)ROW_WARPS * 3 * C * sizeof(float);
+  cudaError_t ce = cudaFuncSetAttribute(
+      ln_rows_bwd<T, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(red));
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  ln_rows_bwd<T, RES><<<q.G, ROW_WARPS * 32, red, s>>>(
+      RowsBwd{static_cast<const float*>(a.gamma),
+              static_cast<const __nv_bfloat16*>(a.mask), 1.f / a.keep, q.z,
+              q.dzb, MC, q.col_part, M, C, q.rows_per_block, a.eps},
+      static_cast<const T*>(dy));
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+
+  const Operand H{q.h, MH, Hd}, DZ{q.dzb, MC, C};
+  // dW2 = h^T dzb [Hd, C]
+  if ((err = weight_grad<P>(H, DZ, dw2, q, M, Hd, C, s)) != 0) return err;
+  // dhb = (dzb W2^T) * GELU'(h_pre) over h; db1 partials per row tile
+  err = gemm::run<P, false, true>(DZ, W2, M, Hd, C, C,
+                                  DhEpi<P>{q.h_pre, q.h, MH, Hd, q.db1_part}, s);
+  if (err != 0) return err;
+  // dx = dhb W1^T (+ dz)
+  err = gemm::run<P, false, true>(H, W1, M, C, Hd, Hd,
+                                  DxEpi<T, RES>{q.z, static_cast<T*>(dx), C}, s);
+  if (err != 0) return err;
+  // dW1 = x^T dhb [C, Hd]
+  if ((err = weight_grad<P>(X, H, dw1, q, M, C, Hd, s)) != 0) return err;
+  const int mt = (M + gemm::BM - 1) / gemm::BM;
+  if ((err = sum_into(q.db1_part, dvec, mt, Hd, q.sum_tmp, s)) != 0) return err;
+  return sum_into(q.col_part, dvec + Hd, q.G, 3 * (size_t)C, q.sum_tmp, s);
+}
+
+bool bad_shape(int M, int C, int Hd) {
+  return M <= 0 || C <= 0 || C % 16 != 0 || C > VMAX * 128 || Hd <= 0 ||
+         Hd % 16 != 0;
 }
 
 }  // namespace
 
+// Bytes of scratch a launch needs (`work`): the hidden, z, and for the
+// backward h_pre, dzb and the partial sums; with fp32 x also the split
+// operands. sms: the card's multiprocessor count (sets the row groups).
+extern "C" size_t mlp_ln_work_bytes(int M, int C, int Hd, int fp32, int bwd,
+                                    int sms) {
+  return make_plan(0, M, C, Hd, fp32 ? 2 : 1, bwd != 0, sms).bytes;
+}
+
+// K3 / K4. x, W1, W2 and out in x's type (fp32 when `fp32`, else bf16).
 extern "C" int mlp_ln_fwd(const void* x, const void* w1, const void* b1,
                           const void* w2, const void* b2, const void* gamma,
                           const void* beta, const void* mask, float keep,
                           void* out, int M, int C, int Hd, int residual,
-                          float eps, void* stream) {
-  if (C % 16 != 0 || Hd % HC != 0 || M <= 0)
+                          float eps, int fp32, void* work, int sms,
+                          void* stream) {
+  if (bad_shape(M, C, Hd) || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return residual ? launch<true>(x, w1, b1, w2, b2, gamma, beta, mask, keep,
-                                 out, M, C, Hd, eps, s)
-                  : launch<false>(x, w1, b1, w2, b2, gamma, beta, mask, keep,
-                                  out, M, C, Hd, eps, s);
+  const Args a{x, w1, b1, w2, b2, gamma, beta, mask, keep, M, C, Hd, eps,
+               work, sms};
+  if (fp32)
+    return residual ? forward<float, true>(a, out, s)
+                    : forward<float, false>(a, out, s);
+  return residual ? forward<__nv_bfloat16, true>(a, out, s)
+                  : forward<__nv_bfloat16, false>(a, out, s);
 }
 
-// K3b / K4b. Scratch from the caller: dzb [Mp, C], hb and dhb [Mp, Hd]
-// (bf16, Mp = M rounded up to 16), col_part [G, Hd + 3C] and, when S > 1,
-// wpart [S, C * Hd] (fp32). x must hold Mp rows (the rows past M zero).
-// dvec receives db1 | db2 | dgamma | dbeta (fp32, Hd + 3C).
+// K3b / K4b. dy and dx in x's type; dW1 [C, Hd], dW2 [Hd, C] and dvec
+// (db1 | db2 | dgamma | dbeta, Hd + 3C) fp32.
 extern "C" int mlp_ln_bwd(const void* x, const void* dy, const void* mask,
                           float keep, const void* w1, const void* b1,
                           const void* w2, const void* b2, const void* gamma,
-                          void* dx, void* dw1, void* dw2, void* dvec,
-                          void* dzb, void* hb, void* dhb, void* col_part,
-                          void* wpart, int M, int C, int Hd, int residual,
-                          float eps, int G, int S, int rows_per_split,
-                          void* stream) {
-  if (C % 16 != 0 || Hd % HC != 0 || M <= 0 || G <= 0 || S <= 0 ||
-      rows_per_split % BM != 0)
+                          void* dx, void* dw1, void* dw2, void* dvec, int M,
+                          int C, int Hd, int residual, float eps, int fp32,
+                          void* work, int sms, void* stream) {
+  if (bad_shape(M, C, Hd) || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a{static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(dy),
-                  static_cast<const __nv_bfloat16*>(mask), keep,
-                  static_cast<const __nv_bfloat16*>(w1),
-                  static_cast<const float*>(b1),
-                  static_cast<const __nv_bfloat16*>(w2),
-                  static_cast<const float*>(b2),
-                  static_cast<const float*>(gamma),
-                  static_cast<__nv_bfloat16*>(dx),
-                  static_cast<__nv_bfloat16*>(dzb),
-                  static_cast<__nv_bfloat16*>(hb),
-                  static_cast<__nv_bfloat16*>(dhb),
-                  static_cast<float*>(col_part), M, C, Hd, eps};
-  int err = residual ? launch_bwd_rows<true>(a, G, s)
-                     : launch_bwd_rows<false>(a, G, s);
-  if (err != 0) return err;
-  const int Mp = (M + BM - 1) / BM * BM;
-  const size_t L = (size_t)Hd + 3 * (size_t)C;
-  sum_partials<<<(unsigned)((L + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      static_cast<const float*>(col_part), static_cast<float*>(dvec), G, L);
-  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  // dW1 = x^T dhb [C, Hd]; dW2 = hb^T dzb [Hd, C]
-  err = weight_grad(static_cast<const __nv_bfloat16*>(x),
-                    static_cast<const __nv_bfloat16*>(dhb),
-                    static_cast<float*>(dw1), static_cast<float*>(wpart), Mp,
-                    C, Hd, S, rows_per_split, s);
-  if (err != 0) return err;
-  return weight_grad(static_cast<const __nv_bfloat16*>(hb),
-                     static_cast<const __nv_bfloat16*>(dzb),
-                     static_cast<float*>(dw2), static_cast<float*>(wpart), Mp,
-                     Hd, C, S, rows_per_split, s);
+  const Args a{x, w1, b1, w2, b2, gamma, nullptr, mask, keep, M, C, Hd, eps,
+               work, sms};
+  float *g1 = static_cast<float*>(dw1), *g2 = static_cast<float*>(dw2),
+        *gv = static_cast<float*>(dvec);
+  if (fp32)
+    return residual ? backward<float, true>(a, dy, dx, g1, g2, gv, s)
+                    : backward<float, false>(a, dy, dx, g1, g2, gv, s);
+  return residual ? backward<__nv_bfloat16, true>(a, dy, dx, g1, g2, gv, s)
+                  : backward<__nv_bfloat16, false>(a, dy, dx, g1, g2, gv, s);
 }

@@ -32,15 +32,18 @@ in x's dtype with the fp32 column sums db (dγ, dβ); dx = dz·Wᵀ and
 dW = xᵀ·dz are plain products with fp32 sums, as the JAX package leaves
 them to XLA with ``preferred_element_type=f32``.
 
-CUDA tensors run ``csrc/mlp_ln.cu`` and ``csrc/fused_dense.cu`` (bf16 only;
-anything else raises); CPU tensors run the plain versions. The wrappers
-never fall back from one to the other.
+CUDA tensors run ``csrc/mlp_ln.cu`` and ``csrc/fused_dense.cu`` (bf16 or
+fp32; anything else raises); CPU tensors run the plain versions. The
+wrappers never fall back from one to the other. With fp32 x the kernels
+split each fp32 operand into two bf16 terms and add three tensor-core
+products per product (hi·hi + hi·lo + lo·hi, fp32 sums, about 2⁻¹⁷ of each
+product, no TF32); ``_mlp_ln_split`` repeats their arithmetic in plain
+PyTorch for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -48,8 +51,8 @@ from mvuld_tpu_torch.ops import _build
 
 _LN_EPS = 1e-6
 _BERT_LN_EPS = 1e-5   # HF RobertaConfig.layer_norm_eps
-_HIDDEN_CHUNK = 128   # the kernel's hidden chunk; Hd must be a multiple
-_MAX_C = 1024         # the kernel's fp32 row-tile accumulator bound
+_HIDDEN_CHUNK = 128   # Hd must be a multiple (the kernels' column tile)
+_MAX_C = 1024         # the LayerNorm row pass holds a row in one warp
 
 
 def gelu(z):
@@ -138,44 +141,128 @@ def mlp_ln_bwd_plain(x, dy, w1, b1, w2, b2, gamma, residual: bool = False,
             hb.t() @ dzb, dzm.sum(0), dgamma, dbeta)
 
 
+def _terms(x, parts: int):
+    """fp32 x as ``parts`` bf16-valued fp32 terms: hi = bf16(x), then lo =
+    bf16(x − hi), the lo term taken from the fp32 value."""
+    out, rest = [], x
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _mm_terms(a, b):
+    """Σ a_i @ b_j over the term pairs with i + j ≤ 1 (hi·hi + hi·lo +
+    lo·hi; one product for bf16 operands), in fp32: the kernels' products."""
+    total = a[0] @ b[0]
+    if len(a) > 1:
+        total = total + a[0] @ b[1] + a[1] @ b[0]
+    return total
+
+
+def _mlp_ln_split(x, w1, b1, w2, b2, gamma, beta, residual: bool = False,
+                  eps: float = _LN_EPS, mask=None, keep_prob: float = 1.0,
+                  dy=None):
+    """``csrc/mlp_ln.cu``'s arithmetic in plain PyTorch, for the CPU tests
+    (nothing on the main path calls it): every product operand in x's type
+    as bf16 terms (two for fp32, ``_terms``) and three products for one
+    (``_mm_terms``); h, dz·mask/keep and dh_pre rounded to x's type (fp32:
+    split into terms) before their products as the passes write them; z,
+    h_pre and the column sums fp32. Returns y in x's type, or with ``dy``
+    (y, (dx, dW1, db1, dW2, db2, dγ, dβ)) as ``mlp_ln_bwd_plain``."""
+    dt = x.dtype
+    parts = 2 if dt == torch.float32 else 1
+    C = w1.shape[0]
+    tr = lambda ts: [t.t() for t in ts]  # noqa: E731
+    xf = x.reshape(-1, C).float()
+    xt = _terms(xf, parts)
+    w1t = _terms(w1.to(dt).float(), parts)
+    w2t = _terms(w2.to(dt).float(), parts)
+    h_pre = _mm_terms(xt, w1t) + b1.float()
+    ht = _terms(gelu(h_pre), parts)
+    z = _mm_terms(ht, w2t) + b2.float()
+    sm = _scaled_mask(mask, keep_prob, C)
+    if sm is not None:
+        z = z * sm
+    if residual:
+        z = z + xf
+    zc = z - z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
+    zhat = zc * rstd
+    y = (zhat * gamma.float() + beta.float()).to(dt).reshape(x.shape)
+    if dy is None:
+        return y
+    dyf = dy.reshape(-1, C).to(dt).float()
+    dyg = dyf * gamma.float()
+    dz = (dyg - dyg.mean(-1, keepdim=True)
+          - zhat * (dyg * zhat).mean(-1, keepdim=True)) * rstd
+    dzm = dz if sm is None else dz * sm
+    dzt = _terms(dzm, parts)
+    dh_pre = _mm_terms(dzt, tr(w2t)) * gelu_grad(h_pre)
+    dht = _terms(dh_pre, parts)
+    dx = _mm_terms(dht, tr(w1t))
+    if residual:
+        dx = dx + dz
+    return y, (dx.to(dt).reshape(x.shape), _mm_terms(tr(xt), dht),
+               dh_pre.sum(0), _mm_terms(tr(ht), dzt), dzm.sum(0),
+               (dyf * zhat).sum(0), dyf.sum(0))
+
+
 def _lib(name):
     fn = getattr(_build.load("mlp_ln"), name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 8 + [F, P] + [I] * 4 + [F, P]
-                       if name == "mlp_ln_fwd" else
-                       [P] * 3 + [F] + [P] * 14 + [I] * 4 + [F]
-                       + [I] * 3 + [P])
-        fn.restype = ctypes.c_int
+        fn.argtypes = {
+            "mlp_ln_work_bytes": [I] * 6,
+            "mlp_ln_fwd": [P] * 8 + [F, P] + [I] * 4 + [F, I, P, I, P],
+            "mlp_ln_bwd": [P] * 3 + [F] + [P] * 9 + [I] * 4 + [F, I, P, I, P],
+        }[name]
+        fn.restype = (ctypes.c_size_t if name == "mlp_ln_work_bytes"
+                      else ctypes.c_int)
     return fn
 
 
 def _aligned(t):
-    """A contiguous tensor whose data starts on 32 bytes (wmma loads)."""
+    """A contiguous tensor whose data starts on 32 bytes (the kernels load
+    16 and 32 bytes at a time)."""
     t = t.contiguous()
     return t if t.data_ptr() % 32 == 0 else t.clone()
+
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_kernel(x, w1, what):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     C, Hd = w1.shape
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16)")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16 "
+                         f"or float32)")
     if C % 16 or C > _MAX_C or Hd % _HIDDEN_CHUNK:
         raise ValueError(f"{what} kernel: C={C} must be a multiple of 16 and "
                          f"≤ {_MAX_C}, Hd={Hd} a multiple of {_HIDDEN_CHUNK}")
 
 
 def _kernel_operands(x, w1, b1, w2, b2, gamma, mask, keep_prob):
-    dev = x.device
+    """x and the weights in x's type (the kernels split fp32 ones into bf16
+    terms themselves), the vectors fp32, the mask bf16 ({0,1} is exact)."""
+    dev, dt = x.device, x.dtype
     C = w1.shape[0]
-    bf = lambda w: _aligned(w.to(device=dev, dtype=torch.bfloat16))  # noqa: E731
+    w = lambda t: _aligned(t.to(device=dev, dtype=dt))  # noqa: E731
     f32 = lambda v: v.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    m2 = (None if mask is None or keep_prob >= 1.0
-          else bf(mask.reshape(-1, C)))
-    return (_aligned(x.reshape(-1, C)), bf(w1), f32(b1), bf(w2), f32(b2),
+    m2 = (None if mask is None or keep_prob >= 1.0 else
+          _aligned(mask.reshape(-1, C).to(device=dev, dtype=torch.bfloat16)))
+    return (_aligned(x.reshape(-1, C)), w(w1), f32(b1), w(w2), f32(b2),
             f32(gamma), m2)
+
+
+def _work(M, C, Hd, fp32: bool, backward: bool, dev):
+    """The launch's scratch (hidden, z, ...; ``mlp_ln_work_bytes``) and the
+    card's multiprocessor count, which sets the backward's row groups."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = _lib("mlp_ln_work_bytes")(M, C, Hd, int(fp32), int(backward), sms)
+    return torch.empty(n, dtype=torch.uint8, device=dev), sms
 
 
 def _forward(x, w1, b1, w2, b2, gamma, beta, residual, eps, mask, keep_prob,
@@ -187,27 +274,22 @@ def _forward(x, w1, b1, w2, b2, gamma, beta, residual, eps, mask, keep_prob,
     what = counter.__name__
     _check_kernel(x, w1, what)
     C, Hd = w1.shape
-    x2, w1b, b1f, w2b, b2f, gf, m2 = _kernel_operands(
+    x2, w1k, b1f, w2k, b2f, gf, m2 = _kernel_operands(
         x, w1, b1, w2, b2, gamma, mask, keep_prob)
     bt = beta.to(device=x.device, dtype=torch.float32).contiguous()
+    M = x2.shape[0]
+    fp32 = x.dtype == torch.float32
+    work, sms = _work(M, C, Hd, fp32, False, x.device)
     out = torch.empty_like(x2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib("mlp_ln_fwd")(
-        x2.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
+        x2.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
         b2f.data_ptr(), gf.data_ptr(), bt.data_ptr(),
         0 if m2 is None else m2.data_ptr(), float(keep_prob), out.data_ptr(),
-        x2.shape[0], C, Hd, int(residual), eps, stream)
+        M, C, Hd, int(residual), eps, int(fp32), work.data_ptr(), sms, stream)
     counter.launches += 1
     _build.check(err, what)
     return out.reshape(x.shape)
-
-
-def _split_rows(Mp: int, tiles: int, sms: int):
-    """Row groups of the weight-gradient contraction: enough (tile, group)
-    blocks to fill the card, groups of at least 512 rows."""
-    S = max(1, min(math.ceil(2 * sms / tiles), Mp // 512))
-    rows = math.ceil(Mp / S / 16) * 16
-    return math.ceil(Mp / rows), rows
 
 
 def _backward(x, dy, w1, b1, w2, b2, gamma, residual, eps, mask, keep_prob,
@@ -219,33 +301,23 @@ def _backward(x, dy, w1, b1, w2, b2, gamma, residual, eps, mask, keep_prob,
     _check_kernel(x, w1, what)
     dev = x.device
     C, Hd = w1.shape
-    x2, w1b, b1f, w2b, b2f, gf, m2 = _kernel_operands(
+    x2, w1k, b1f, w2k, b2f, gf, m2 = _kernel_operands(
         x, w1, b1, w2, b2, gamma, mask, keep_prob)
     M = x2.shape[0]
-    Mp = -(-M // 16) * 16
-    if Mp != M:
-        x2 = torch.cat([x2, x2.new_zeros(Mp - M, C)])
-    dy2 = dy.reshape(-1, C).to(torch.bfloat16).contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    G = min(Mp // 16, 2 * sms)
-    S, rows = _split_rows(Mp, -(-C // 64) * -(-Hd // 64), sms)
+    fp32 = x.dtype == torch.float32
+    dy2 = _aligned(dy.reshape(-1, C).to(x.dtype))
+    work, sms = _work(M, C, Hd, fp32, True, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    bf16 = dict(dtype=torch.bfloat16, device=dev)
-    dx = torch.empty((M, C), **bf16)
+    dx = torch.empty_like(x2)
     dw1, dw2 = torch.empty((C, Hd), **f32), torch.empty((Hd, C), **f32)
     dvec = torch.empty((Hd + 3 * C,), **f32)
-    dzb = torch.empty((Mp, C), **bf16)
-    hb, dhb = torch.empty((Mp, Hd), **bf16), torch.empty((Mp, Hd), **bf16)
-    col_part = torch.empty((G, Hd + 3 * C), **f32)
-    wpart = torch.empty((S if S > 1 else 0, C * Hd), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib("mlp_ln_bwd")(
         x2.data_ptr(), dy2.data_ptr(), 0 if m2 is None else m2.data_ptr(),
-        float(keep_prob), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
+        float(keep_prob), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
         b2f.data_ptr(), gf.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-        dw2.data_ptr(), dvec.data_ptr(), dzb.data_ptr(), hb.data_ptr(),
-        dhb.data_ptr(), col_part.data_ptr(), wpart.data_ptr(), M, C, Hd,
-        int(residual), eps, G, S, rows, stream)
+        dw2.data_ptr(), dvec.data_ptr(), M, C, Hd, int(residual), eps,
+        int(fp32), work.data_ptr(), sms, stream)
     counter.launches += 1
     _build.check(err, what)
     db1, db2, dgamma, dbeta = dvec.split([Hd, C, C, C])
@@ -368,8 +440,9 @@ def _dense_lib(name):
     fn = getattr(_build.load("fused_dense"), name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 6 + [I] * 5 + [F, P] if name == "dense_act_ln_fwd"
-                       else [P] * 8 + [I] * 5 + [F, I, P])
+        fn.argtypes = ([P] * 6 + [I] * 5 + [F, I, P, P]
+                       if name == "dense_act_ln_fwd"
+                       else [P] * 8 + [I] * 5 + [F, I, I, P, P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -377,13 +450,15 @@ def _dense_lib(name):
 def _check_dense_kernel(x, K, N, ln, what, backward):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16)")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16 "
+                         f"or float32)")
     if K % 16 or N % 16:
         raise ValueError(f"{what} kernel: K={K} and N={N} must be multiples "
                          f"of 16")
     tm = _DENSE_TM
-    smem = tm * K * 2 + tm * 128 * 4
+    terms = 2 if x.dtype == torch.float32 else 1   # bf16 planes of the x tile
+    smem = terms * tm * K * 2 + tm * 128 * 4
     if ln or backward:
         smem += tm * N * 4
     if backward:
@@ -394,31 +469,39 @@ def _check_dense_kernel(x, K, N, ln, what, backward):
 
 
 def _dense_operands(x, w, b, gamma, beta, ln):
+    """x and W in x's type, the vectors fp32, and for fp32 x the scratch
+    into which the kernel splits W ([2, K, N] bf16 terms)."""
     dev = x.device
     f32 = lambda v: v.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    wb = _aligned(w.to(device=dev, dtype=torch.bfloat16))
+    wk = _aligned(w.to(device=dev, dtype=x.dtype))
     g = f32(gamma) if ln else f32(b)       # unread without LN
     bt = f32(beta) if ln else g
-    return _aligned(x), wb, f32(b), g, bt
+    terms = (torch.empty((2, *w.shape), dtype=torch.bfloat16, device=dev)
+             if x.dtype == torch.float32 else None)
+    return _aligned(x), wk, f32(b), g, bt, terms
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def dense_fwd(x, w, b, gamma=None, beta=None, act: str = "gelu",
               ln: bool = False):
     """K6 on x [M, K]: act(x@W + b), then LN·γ + β with ``ln``; [M, N] in
-    x's dtype. CUDA tensors run ``csrc/fused_dense.cu`` (bf16), CPU tensors
-    ``dense_fwd_plain``."""
+    x's dtype. CUDA tensors run ``csrc/fused_dense.cu`` (bf16 or fp32), CPU
+    tensors ``dense_fwd_plain``."""
     _check_dense(x, w, b, gamma, beta, ln)
     if x.device.type == "cpu":
         return dense_fwd_plain(x, w, b, gamma, beta, act, ln)
     (M, K), N = x.shape, w.shape[1]
     _check_dense_kernel(x, K, N, ln, "dense_fwd", False)
-    x2, wb, bf, gf, btf = _dense_operands(x, w, b, gamma, beta, ln)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    x2, wk, bf, gf, btf, terms = _dense_operands(x, w, b, gamma, beta, ln)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _dense_lib("dense_act_ln_fwd")(
-        x2.data_ptr(), wb.data_ptr(), bf.data_ptr(), gf.data_ptr(),
+        x2.data_ptr(), wk.data_ptr(), bf.data_ptr(), gf.data_ptr(),
         btf.data_ptr(), out.data_ptr(), M, K, N, int(act == "gelu"), int(ln),
-        _LN_EPS, stream)
+        _LN_EPS, int(terms is not None), _ptr(terms), stream)
     dense_fwd.launches += 1
     _build.check(err, "dense_fwd")
     return out
@@ -427,26 +510,28 @@ def dense_fwd(x, w, b, gamma=None, beta=None, act: str = "gelu",
 def dense_bwd(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
     """K6b on x [M, K], dy [M, N]: (dz [M, N] in x's dtype, vecs [1 or 3, N]
     fp32: db, and dγ, dβ with ``ln``). CUDA tensors run
-    ``csrc/fused_dense.cu`` (bf16), CPU tensors ``dense_bwd_plain``."""
+    ``csrc/fused_dense.cu`` (bf16 or fp32), CPU tensors
+    ``dense_bwd_plain``."""
     _check_dense(x, w, b, gamma, gamma, ln)
     if x.device.type == "cpu":
         return dense_bwd_plain(x, w, b, gamma, dy, act, ln)
     (M, K), N = x.shape, w.shape[1]
     _check_dense_kernel(x, K, N, ln, "dense_bwd", True)
     dev = x.device
-    x2, wb, bf, gf, _ = _dense_operands(x, w, b, gamma, gamma, ln)
-    dy2 = dy.reshape(M, N).to(torch.bfloat16).contiguous()
+    x2, wk, bf, gf, _, terms = _dense_operands(x, w, b, gamma, gamma, ln)
+    dy2 = dy.reshape(M, N).to(x.dtype).contiguous()
     nvec = 3 if ln else 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     G = min(-(-M // _DENSE_TM), 2 * sms)
-    dz = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    dz = torch.empty((M, N), dtype=x.dtype, device=dev)
     vecs = torch.empty((nvec, N), dtype=torch.float32, device=dev)
     col_part = torch.empty((G, nvec * N), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _dense_lib("dense_act_ln_bwd")(
-        x2.data_ptr(), wb.data_ptr(), bf.data_ptr(), gf.data_ptr(),
+        x2.data_ptr(), wk.data_ptr(), bf.data_ptr(), gf.data_ptr(),
         dy2.data_ptr(), dz.data_ptr(), vecs.data_ptr(), col_part.data_ptr(),
-        M, K, N, int(act == "gelu"), int(ln), _LN_EPS, G, stream)
+        M, K, N, int(act == "gelu"), int(ln), _LN_EPS, G,
+        int(terms is not None), _ptr(terms), stream)
     dense_bwd.launches += 1
     _build.check(err, "dense_bwd")
     return dz, vecs
@@ -459,6 +544,15 @@ dense_bwd.launches = 0
 def _mm_f32(a, b):
     if a.device.type == "cuda" and a.dtype == torch.bfloat16:
         return torch.mm(a, b, out_dtype=torch.float32)
+    if a.device.type == "cuda":
+        # fp32 operands: full fp32 products, as the JAX package's XLA dots
+        # at f32 precision — TF32 (10-bit mantissas) is switched off here
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return a.float() @ b.float()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
     return a.float() @ b.float()
 
 

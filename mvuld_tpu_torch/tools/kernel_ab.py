@@ -1,0 +1,130 @@
+"""Same-card A/B of the kernels' times between source trees.
+
+  python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...] [--phase mlp dense]
+      [--sass fused_dense ...] [--sass-dir DIR]
+
+For each TREE in the order given (parent, change, change, parent, say),
+one fresh Python process with TREE as its working directory imports that
+tree's ``chip_smoke.py`` and ``mvuld_tpu_torch``, builds the tree's kernels
+and runs its checks of the chosen phases (each kernel against its plain
+version, then timed on CUDA events):
+
+  mlp    K3 and K3b at the bucket-16 and batch-64 SwinV2 shapes, K4 and
+         K4b at the e2e model's shapes (``check_mlp`` / ``check_mlp_bwd``)
+  dense  K6 and K6b at blockbench's shapes (``check_dense``)
+
+and prints one line per kernel shape, then one JSON line
+``{"ab": [{"tree", "run", "kernel", "shape", "path", "ms", "plain_ms",
+"ok"}, ...]}``. Profiles are skipped. With ``--sass``, each tree also
+prints a digest of every kernel's instructions in the named libraries
+(``cuobjdump -sass``, addresses and encodings dropped), by mangled name
+without its per-file prefix: equal digests mean the same machine code;
+with ``--sass-dir`` it also writes the listings there, one file per run
+and library (``<run>-<library>.sass``), to be compared with ``diff``.
+Needs a CUDA card; compares only what runs in one call on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_CHILD = r"""
+import hashlib, json, os, re, subprocess, sys
+import torch
+import chip_smoke as cs
+from mvuld_tpu_torch.ops import _build
+
+phases = sys.argv[1].split(",")
+sass = [n for n in sys.argv[2].split(",") if n]
+dump_to = sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.profile_run = lambda *a, **k: None
+_build.build_all(["mlp_ln", "fused_dense"] + sass)
+tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+for name in sass:
+    dump = subprocess.run([tool, "-sass", _build._lib_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", m.group(1))
+            funcs[cur] = []
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            funcs[cur].append(line.split("*/", 1)[1].split("/*")[0].strip())
+    for f, ins in sorted(funcs.items()):
+        digest = hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12]
+        print(f"AB_SASS {name} {f} {len(ins)} {digest}", flush=True)
+    if dump_to:
+        with open(f"{dump_to}-{name}.sass", "w") as out:
+            for f, ins in sorted(funcs.items()):
+                out.write(f"## {f}\n" + "".join(i + "\n" for i in ins))
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+rows = []
+if "mlp" in phases:
+    cs.check_mlp(dev, gen, rows, "mlp_ln", cs.K3_SHAPES)
+    cs.check_mlp(dev, gen, rows, "mlp_ln", cs.SWIN_K3_SHAPES, "swin")
+    cs.check_mlp(dev, gen, rows, "mlp_ln_res", cs.K4_SHAPES)
+    cs.check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", cs.K3_SHAPES)
+    cs.check_mlp_bwd(dev, gen, rows, "mlp_ln_bwd", cs.SWIN_K3_SHAPES, "swin")
+    cs.check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", cs.K4_SHAPES)
+if "dense" in phases:
+    cs.check_dense(dev, gen, rows)
+out = [dict(kernel=r["kernel"], shape=r["shape"], path=r["path"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            ok=bool(r.get("ok", r["err"] <= (r["tol"] or 0.0))))
+       for r in rows]
+print("AB_ROWS " + json.dumps(out), flush=True)
+"""
+
+
+def run_tree(tree: str, phases, sass, dump_to="") -> list:
+    proc = subprocess.run([sys.executable, "-c", _CHILD, ",".join(phases),
+                           ",".join(sass), dump_to],
+                          cwd=tree, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("AB_SASS "):
+            print(f"{tree}: {line}", flush=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("AB_ROWS "):
+            return json.loads(line[len("AB_ROWS "):])
+    raise RuntimeError(f"{tree}: no result line\n{proc.stdout[-4000:]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="source trees, in run order")
+    ap.add_argument("--phase", nargs="+", default=["mlp", "dense"],
+                    choices=["mlp", "dense"])
+    ap.add_argument("--sass", nargs="*", default=[],
+                    help="libraries (csrc/<name>.cu) to digest")
+    ap.add_argument("--sass-dir", default="",
+                    help="write each run's listings of those libraries here")
+    args = ap.parse_args(argv)
+    if args.sass_dir:
+        os.makedirs(args.sass_dir, exist_ok=True)
+    results = []
+    for i, tree in enumerate(args.trees):
+        dump_to = (os.path.join(os.path.abspath(args.sass_dir), str(i))
+                   if args.sass_dir else "")
+        for r in run_tree(os.path.abspath(tree), args.phase, args.sass,
+                          dump_to):
+            r.update(tree=tree, run=i)
+            results.append(r)
+            print(f"run {i} {tree}: {r['kernel']} {r['shape']} [{r['path']}] "
+                  f"ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
+                  f"ok={r['ok']}", flush=True)
+    print(json.dumps({"ab": results}), flush=True)
+    return 0 if all(r["ok"] for r in results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

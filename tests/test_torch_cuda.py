@@ -7,10 +7,12 @@ which the GPU machine need not have):
 Kernels: K1, K2, K5 (flat attention; K2 and K5 also at the model's
 windows, twice to the bit, on misaligned views, on an underflowing row and
 with ``mxu_bf16``), K7/K7b (map layout), K8/K8b (head layout with a mask
-operand), K3/K3b, K4/K4b (MLP + LayerNorm), K6/K6b (dense with its
-epilogue). Tolerances: fp32 attention 1e-4 (both compute
-in fp32, another summation order); bf16 outputs two bf16 ulps at the
-largest value (both round one fp32 result to bf16).
+operand), K3/K3b, K4/K4b (MLP + LayerNorm: bf16 and fp32 x, the model's
+shapes, ragged rows, misaligned views, a backward that repeats to the
+bit), K6/K6b (dense with its epilogue, bf16 and fp32). Tolerances: fp32
+outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
+and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
+at the largest value (both round one fp32 result to bf16).
 """
 
 import math
@@ -73,17 +75,119 @@ def test_mlp_ln_kernels_match_plain(dev, name, M, C):
     assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
 
 
-def test_mlp_ln_kernel_rejects_fp32(dev):
-    from mvuld_tpu_torch.ops.fused_dense import mlp_ln
-    x = torch.zeros(4, 16, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        mlp_ln(x, torch.zeros(16, 128), torch.zeros(128), torch.zeros(128, 16),
-               torch.zeros(16), torch.ones(16), torch.zeros(16))
-
-
 def _rel_l2(got, want):
     got, want = got.float(), want.float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _mlp_inputs(dev, seed, M, C, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    Hd = 4 * C
+    x = r(M, C).to(dtype)
+    params = (r(C, Hd, sc=C ** -0.5), r(Hd, sc=0.02), r(Hd, C, sc=Hd ** -0.5),
+              r(C, sc=0.02), 1 + r(C, sc=0.1), r(C, sc=0.1))
+    mask = (torch.rand(M, C, device=dev, generator=g) < 0.9).to(dtype)
+    return x, params, mask, r(M, C).to(dtype)
+
+
+def _mlp_run(residual, x, params, mask, dy, plain=False):
+    """(y, the 7 gradients) of K3/K3b, or K4/K4b with ``mask`` at keep 0.9
+    (no mask when it is None), through the kernels or the plain versions."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    kw = dict(residual=residual, eps=1e-5 if residual else 1e-6)
+    if residual and mask is not None:
+        kw.update(mask=mask, keep_prob=0.9)
+    if plain:
+        return (fd.mlp_ln_plain(x, *params, **kw),
+                fd.mlp_ln_bwd_plain(x, dy, *params[:5], **kw))
+    extra = (mask, 0.9) if residual and mask is not None else ()
+    if residual:
+        return (fd.mlp_ln_res(x, *params, *extra),
+                fd.mlp_ln_res_bwd(x, dy, *params[:5], *extra))
+    return fd.mlp_ln(x, *params), fd.mlp_ln_bwd(x, dy, *params[:5])
+
+
+def _assert_mlp_close(got, want, dtype):
+    """y: fp32 within 1e-4 of its largest value, bf16 two ulps; gradients
+    within relative L2 1e-4 (fp32: two-term products) or 1e-2 (bf16: dz and
+    dh_pre rounded before their products, a boundary value either way)."""
+    (y, grads), (y_p, grads_p) = got, want
+    assert y.dtype == dtype and grads[0].dtype == dtype
+    tol = (1e-4 * float(y_p.float().abs().max()) if dtype == torch.float32
+           else _bf16_tol(y_p))
+    assert float((y.float() - y_p.float()).abs().max()) <= tol
+    lim = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(grads, grads_p):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_l2(a, b) <= lim
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["k3", "k4_mask"])
+@pytest.mark.parametrize("M,C", [(37, 128), (300, 768)])
+def test_mlp_ln_kernels_take_fp32(dev, residual, M, C):
+    """fp32 x launches the kernels (two bf16 terms per operand, no TF32)
+    and matches the fp32 plain versions at the fp32 tolerances."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    x, params, mask, dy = _mlp_inputs(dev, 40, M, C, torch.float32)
+    fwd, bwd = ((fd.mlp_ln_res, fd.mlp_ln_res_bwd) if residual
+                else (fd.mlp_ln, fd.mlp_ln_bwd))
+    f0, b0 = fwd.launches, bwd.launches
+    got = _mlp_run(residual, x, params, mask, dy)
+    torch.cuda.synchronize()
+    assert fwd.launches == f0 + 1 and bwd.launches == b0 + 1
+    _assert_mlp_close(got, _mlp_run(residual, x, params, mask, dy, plain=True),
+                      torch.float32)
+
+
+# (residual, M, C, masked): K3 at each SwinV2 stage's width with a ragged
+# row count, K4 at the e2e model's function and line shapes
+MODEL_MLP = [(False, 20071, 128, False), (False, 12545, 256, False),
+             (False, 12544, 512, False), (True, 8192, 768, False),
+             (True, 8192, 768, True), (True, 32768, 768, False),
+             (True, 32768, 768, True)]
+
+
+@pytest.mark.parametrize("residual,M,C,masked", MODEL_MLP,
+                         ids=["k3_stage1", "k3_stage2", "k3_stage3",
+                              "k4_function", "k4_function_mask", "k4_lines",
+                              "k4_lines_mask"])
+def test_mlp_kernels_at_the_model_shapes(dev, residual, M, C, masked):
+    """K3/K3b and K4/K4b (with and without the keep-mask) at the model's
+    shapes against the plain versions."""
+    x, params, mask, dy = _mlp_inputs(dev, 41, M, C, torch.bfloat16)
+    mask = mask if masked else None
+    _assert_mlp_close(_mlp_run(residual, x, params, mask, dy),
+                      _mlp_run(residual, x, params, mask, dy, plain=True),
+                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["k3", "k4_mask"])
+def test_mlp_kernels_take_views_off_a_16_byte_boundary(dev, residual):
+    """The kernels copy 16 bytes a thread; x and dy views that start
+    elsewhere are copied by the wrapper, not refused."""
+    M, C = 77, 256
+    x, params, mask, _ = _mlp_inputs(dev, 42, M, C, torch.bfloat16)
+    flat = torch.randn(2 * M * C + 1, device=dev).to(torch.bfloat16)
+    x, dy = flat[1:1 + M * C].reshape(M, C), flat[1 + M * C:].reshape(M, C)
+    assert x.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+    _assert_mlp_close(_mlp_run(residual, x, params, mask, dy),
+                      _mlp_run(residual, x, params, mask, dy, plain=True),
+                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True], ids=["k3b", "k4b_mask"])
+def test_mlp_backward_repeats_to_the_bit(dev, residual, dtype):
+    """No atomics: the column and weight-gradient sums go through fixed-order
+    partials, so two launches give the same bits (ragged M, several row
+    groups)."""
+    x, params, mask, dy = _mlp_inputs(dev, 43, 4099, 256, dtype)
+    first = _mlp_run(residual, x, params, mask, dy)[1]
+    again = _mlp_run(residual, x, params, mask, dy)[1]
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -240,6 +344,39 @@ def test_dense_kernels_match_plain(dev, act, ln, M, K, N):
     assert _rel_l2(dz, dz_p) <= 2e-2
     assert vecs.shape == vecs_p.shape == ((3 if ln else 1), N)
     assert _rel_l2(vecs, vecs_p) <= 1e-3
+
+
+@pytest.mark.parametrize("act,ln", [("gelu", False), ("none", True),
+                                    ("gelu", True), ("none", False)])
+def test_dense_kernels_take_fp32(dev, act, ln):
+    """fp32 x launches K6/K6b (x and W as two bf16 terms, no TF32): y and
+    dz within 1e-4 of their largest values, the column sums within relative
+    L2 1e-3 (fp32 sums in another order); through autograd, dx and dW
+    (fp32 products outside the kernel, TF32 off) within relative L2 1e-4 of
+    fp32 products of the plain dz."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(44)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    M, K, N = 200, 256, 512
+    x, w, b = r(M, K), r(K, N, sc=K ** -0.5), r(N, sc=0.1)
+    gamma, beta, dy = 1 + r(N, sc=0.1), r(N, sc=0.1), r(M, N)
+    f0, b0 = fd.dense_fwd.launches, fd.dense_bwd.launches
+    y = fd.dense_fwd(x, w, b, gamma, beta, act, ln)
+    dz, vecs = fd.dense_bwd(x, w, b, gamma, dy, act, ln)
+    y_p = fd.dense_fwd_plain(x, w, b, gamma, beta, act, ln)
+    dz_p, vecs_p = fd.dense_bwd_plain(x, w, b, gamma, dy, act, ln)
+    torch.cuda.synchronize()
+    assert fd.dense_fwd.launches == f0 + 1 and fd.dense_bwd.launches == b0 + 1
+    assert y.dtype == torch.float32 and dz.dtype == torch.float32
+    for a, want in ((y, y_p), (dz, dz_p)):
+        assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert _rel_l2(vecs, vecs_p) <= 1e-3
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = (fd.dense_ln(xg, wg, b, gamma, beta, act) if ln
+           else fd.dense_act(xg, wg, b, act))
+    gx, gw = torch.autograd.grad(out, (xg, wg), dy)
+    assert _rel_l2(gx, dz_p @ w.t()) <= 1e-4
+    assert _rel_l2(gw, x.t() @ dz_p) <= 1e-4
 
 
 def test_dense_autograd_runs_the_kernels(dev):
