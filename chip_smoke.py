@@ -16,8 +16,8 @@ Phases, in order; any failure exits non-zero:
      K3b, K4b at the shapes one batch-16 training step gives them; K1, K2,
      K5 (also against K2), K3 and K3b at the shapes one batch-64 SwinV2
      fine-tune step gives them (the plain attention versions over chunks
-     of windows there), with a profile of one K2 and one K5 launch by
-     pass; K1, K2 and K5 on fp32 inputs, with bf16 product operands
+     of windows there), with a profile of one K1, one K2 and one K5
+     launch by pass; K1, K2 and K5 on fp32 inputs, with bf16 product operands
      (``mxu_bf16``) and on a row whose row sum underflows, and K2's time
      with ``mxu_bf16``; K6/K6b at blockbench's stage-3 shapes; K3/K3b,
      K4/K4b and K6/K6b also on fp32 x (one shape each), with a profile of
@@ -55,7 +55,8 @@ Phases, in order; any failure exits non-zero:
      forward and backward through autograd at stage-1 (shifted) and stage-3
      full width, K7/K7b/K8/K8b launches counted, the map and head layouts
      held against each other on the same numbers re-laid and both against
-     ``flat_attention`` (K1/K2); a profile of one K8b and one K7b launch;
+     ``flat_attention`` (K1/K2); a profile of one K7, one K8b and one K7b
+     launch;
   8. the staged path at full width from seeded arrays: a warm-up and three
      AdamW steps of the text classifier (``build_text_training``,
      UniXcoder-base, batch 16 × 512 tokens), the trained encoder and
@@ -83,12 +84,10 @@ import time
 from types import SimpleNamespace
 
 # Published H100 SXM peaks (dense): device memory 3.35 TB/s, bf16 tensor
-# cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s, and the
-# special-function units' exp rate: 16 per SM per clock × 132 SMs ×
-# 1.98 GHz boost.
+# cores 989 TFLOP/s, and the special-function units' exp rate: 16 per SM
+# per clock × 132 SMs × 1.98 GHz boost.
 HBM_BYTES_S = 3.35e12
 BF16_TC_FLOP_S = 989e12
-FP32_FLOP_S = 67e12
 SFU_EXP_S = 16 * 132 * 1.98e9
 
 BATCH = 16          # serving bucket
@@ -284,7 +283,11 @@ def check_attention(dev, gen, rows, shapes, path):
             qs, ks, vs, attn_mask=mask, scale=1.0), 5)
         nbytes = Bn * N * 3 * C * 2 + H * N * N * 4 + Bn * N * C * 2
         t_bytes = nbytes / HBM_BYTES_S
-        t_ops = max(4 * Bn * H * N * N * hd / FP32_FLOP_S,
+        # K1 runs its products on the tensor cores (as every attention
+        # kernel): the least time the card needs for the work whatever
+        # implements it, 4·Bn·H·N²·hd flops at the bf16 tensor-core rate or
+        # one exp per logit at the special-function rate ("operations")
+        t_ops = max(4 * Bn * H * N * N * hd / BF16_TC_FLOP_S,
                     Bn * H * N * N / SFU_EXP_S)
         shape = f"stage{stage} Bn={Bn} N={N} C={C} H={H} shift={shift}"
         rows.append(dict(kernel="window_attention_flat", shape=shape,
@@ -295,6 +298,10 @@ def check_attention(dev, gen, rows, shapes, path):
         # K1's row sums: fp32 sums of the same terms in another order
         r_err = rel_err(window_attention_flat(*args, return_rowsum=True)[1],
                         r)
+        if path == "e2e" and stage == 1 and shift:
+            # where a K1 launch spends its time: prep, the one pass
+            profile_run(f"K1 {shape}", lambda: window_attention_flat(
+                *args, return_rowsum=True))
         print(f"K1 row sums {shape}: max rel err {r_err:.3e} (tol 1e-4)",
               flush=True)
         if not r_err <= 1e-4:
@@ -531,9 +538,9 @@ def check_layouts(dev, gen, rows):
     """K8/K8b (head layout, the shift mask as a [nW, N, N] operand) and
     K7/K7b (map layout read in place, mask synthesised, fp32 outputs) at
     every stage's bucket-16 shape, bf16 inputs, against their plain versions
-    over chunks of windows. The backward kernels' bound is taken at the
-    tensor-core and special-function rates (they run on the tensor cores),
-    the forward kernels' at the fp32 rate as before. Tolerances as K1/K2's: bf16 outputs two bf16
+    over chunks of windows. Every kernel's bound is taken at the
+    tensor-core and special-function rates (they run on the tensor cores).
+    Tolerances as K1/K2's: bf16 outputs two bf16
     ulps at the largest value, fp32 outputs 1e-4 of the largest; dbias 1e-4
     and dscale 1e-3 of their largest. Library yardstick: SDPA with a float
     mask (and its backward with the mask's gradient), once per shape. The
@@ -589,11 +596,12 @@ def check_layouts(dev, gen, rows):
 
         elems = Bn * H * N * hd
         sq = H * N * N * 4
-        ops_f = max(4 * elems * N / FP32_FLOP_S, Bn * H * N * N / SFU_EXP_S)
-        # K8b/K7b run their products on the tensor cores, so their bound is
-        # the least time the card needs for the work whatever implements
-        # it: 10·Bn·H·N²·hd flops at the bf16 tensor-core rate, or one exp
-        # per logit at the special-function rate (both "operations")
+        # every kernel runs its products on the tensor cores, so its bound
+        # is the least time the card needs for the work whatever implements
+        # it: 4·Bn·H·N²·hd flops forward, 10·Bn·H·N²·hd backward at the bf16
+        # tensor-core rate, or one exp per logit at the special-function
+        # rate (both "operations")
+        ops_f = max(4 * elems * N / BF16_TC_FLOP_S, Bn * H * N * N / SFU_EXP_S)
         ops_b = max(10 * elems * N / BF16_TC_FLOP_S, Bn * H * N * N / SFU_EXP_S)
         mask_bytes = 0 if mask is None else mask.numel() * 4
 
@@ -1548,8 +1556,11 @@ def ops_phase(dev, counters):
         if not (o_err <= o_tol and max(l2) <= 2e-2):
             raise AssertionError(f"{label}: the flat and map layouts "
                                  f"disagree")
-        # where a backward launch spends its time, by kernel
+        # where a launch spends its time, by kernel (K7: prep, row pass,
+        # output pass)
         with torch.no_grad():
+            profile_run(f"{label} K7", lambda: wa.window_attention_map_fwd(
+                qkv, bias, ls, shift))
             profile_run(f"{label} K8b", lambda: wa.window_attention_bwd(
                 q, k, v, bias, ls, wh.to(torch.bfloat16), mask))
             profile_run(f"{label} K7b", lambda: wa.window_attention_map_bwd(
@@ -1724,10 +1735,14 @@ def staged_phase(dev):
 
 
 def _category(name: str) -> str:
-    if "flat_fwd" in name:
-        return "K1 window_attention_flat"
-    if "attn_fwd" in name:
-        return "K7/K8 window attention forward (exact softmax)"
+    if "attn_fwd_flat" in name:
+        return "K1 window attention forward: the one pass"
+    if "attn_fwd_stats" in name:
+        return "K7/K8 window attention forward: row pass"
+    if "attn_fwd_out" in name:
+        return "K7/K8 window attention forward: output pass"
+    if "prep_forward" in name:
+        return "K1/K7/K8 window attention forward: operand prep"
     if "attn_bwd" in name or "prep_operands" in name:
         return "K2/K5/K7b/K8b window attention backward passes"
     if "dense_fwd" in name:
@@ -1792,8 +1807,8 @@ def profile_run(label: str, fn, category=None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):      # a trace now and then comes back without device
-        with profile(activities=[ProfilerActivity.CPU,     # events: once more
+    for _ in range(4):      # a trace now and then comes back without device
+        with profile(activities=[ProfilerActivity.CPU,     # events: again
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1822,7 +1837,7 @@ def profile_run(label: str, fn, category=None) -> None:
 
 
 KERNELS = {
-    "window_attention_flat": ("mvuld_tpu_torch/csrc/window_attention_flat.cu",
+    "window_attention_flat": ("mvuld_tpu_torch/csrc/window_attention.cu",
                               "mvuld_tpu/ops/window_attention.py:883"),
     "window_attention_flat_bwd": (
         "mvuld_tpu_torch/csrc/window_attention.cu",
@@ -1912,8 +1927,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.time()
-    _build.build_all(["window_attention_flat", "window_attention", "mlp_ln",
-                      "fused_dense"])
+    _build.build_all(["window_attention", "mlp_ln", "fused_dense"])
     print(f"build: {time.time() - t0:.1f}s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         entry = ""

@@ -1,13 +1,12 @@
-// K8/K8b: SwinV2 cosine window attention in the head layout, forward and
-// backward; K7/K7b: the same attention read straight from the feature map;
-// K2/K5: the backward of the flat layout's fixed-shift softmax (its forward,
-// K1, is window_attention_flat.cu).
+// K1/K2/K5: SwinV2 flat-layout cosine window attention, forward and its two
+// backwards; K8/K8b: the same attention in the head layout; K7/K7b: read
+// straight from the feature map.
 //
-// They replace the Pallas TPU kernels `pallas_window_attention` (K8),
-// `pallas_window_attention_bwd` (K8b), `pallas_window_attention_map` (K7),
-// `pallas_window_attention_map_bwd` (K7b), `pallas_window_attention_flat_bwd2`
-// (K2) and `pallas_window_attention_flat_bwd` (K5) of
-// mvuld_tpu/ops/window_attention.py. Per window b and head h:
+// They replace the Pallas TPU kernels `pallas_window_attention_flat` (K1),
+// `pallas_window_attention_flat_bwd2` (K2), `pallas_window_attention_flat_bwd`
+// (K5), `pallas_window_attention` (K8), `pallas_window_attention_bwd` (K8b),
+// `pallas_window_attention_map` (K7) and `pallas_window_attention_map_bwd`
+// (K7b) of mvuld_tpu/ops/window_attention.py. Per window b and head h:
 //
 //   q^ = q * rsqrt(sum q^2 + 1e-12), k^ likewise (fp32)
 //   s  = q^.k^ * scale_h + bias[h] + mask          (s_cos = q^.k^)
@@ -18,7 +17,7 @@
 //   dq = (dq^ - q^ (q^.dq^)) * qn, dk likewise     (rsqrt-norm backward)
 //   dbias[h] = sum over windows of ds;  dscale[h] = sum of ds * s_cos
 //
-// One set of kernels serves both layouts: a layout descriptor (`Lay`) turns
+// One set of kernels serves the layouts: a layout descriptor (`Lay`) turns
 // (window, head, token) into an address, so the head layout reads q, k, v
 // [Bn, H, N, hd] and the map layout reads the window's tokens in place from
 // qkv [B, Hp, Wp, 3, H, hd] and writes [B, Hp, Wp, H, hd] (dqkv in qkv's
@@ -27,43 +26,41 @@
 // the last window row / column of the rolled map attend only within their
 // shift region, -100 otherwise), or absent.
 //
-// Exact softmax. With an arbitrary mask operand no fixed shift bounds the
-// logits, so the row maximum is found first. The forward's block (query
-// tile of 64 rows, head, window) walks the 64-row key tiles twice: the
-// first walk keeps a running (max, sum of exp) per row with a rescale when
-// the maximum grows, the second forms p = exp(s - max) / sum, stages the
-// 64 x 64 tile of p in shared memory and adds p.v. p is formed whole before
-// the second product because the bf16 variants round p itself (K8 rounds p
-// to v's type, `mxu_bf16` rounds every product operand), and a rounded
-// unnormalised e would not be that number. Its products are fp32 FMAs on
-// 4 x 4 register micro-tiles: about 6*N^2*hd FMA-flops per window and head
-// (s twice) against the bound's 4.
-//
-// The backward (K8b, K7b) runs on the bf16 tensor cores (attn_mma.cuh).
-// What bounds it: 10*N^2*hd flops per window and head are 0.2 ms of the
-// tensor cores at SwinV2-Base-448's stage 1 (Bn 256, H 4, N 784), one exp
-// per logit 0.15 ms of the special-function units, the operands 0.13 ms of
-// device memory; what it really pays is the per-logit work around the
-// products (bias and mask reads from L2, the exp, the bf16 splits) and the
-// copies of operand tiles into shared memory. The design:
-//   - `prep_operands` normalises q and k in fp32 and writes every product
-//     operand once as bf16 terms in the head layout, whatever the input
-//     layout and type. With `round_ops` (`mxu_bf16`) only the first term of
-//     each is used, one MMA per product: operands rounded to bf16, sums
-//     fp32, the TPU kernel's bf16 MXU arithmetic. Otherwise the operands
-//     are split: q^ and k^ into three terms and six MMAs per logit product
-//     (their error is multiplied by the scale, up to 100, ahead of the
-//     exp), p, ds, and v, g where they are fp32, into two terms and three
-//     MMAs; v and g that already are bf16 have one term.
-//   - one pass over the logits per reduction: row statistics (lr = -(max +
-//     log sum exp) in log2 units, t = sum(dp * p)), dq over the keys,
-//     dk/dv over the queries, dbias and dscale over the windows. Each pass
-//     forms s and dp of a 16 x 16 block with `mma.sync.m16n8k16`, keeps p
-//     and ds in the accumulator registers, and feeds them, packed to bf16,
+// Every kernel runs on the bf16 tensor cores (attn_mma.cuh). What bounds the
+// work: at SwinV2-Base-448's stage 1 (Bn 256, H 4, N 784), summed over the
+// windows and heads, the forward's 4*N^2*hd flops are 0.08 ms of the tensor
+// cores, the backward's 10*N^2*hd 0.2 ms, one exp per logit 0.15 ms of the
+// special-function units, the operands 0.05-0.13 ms of device memory; what
+// the kernels really pay is the per-logit work around the products (bias
+// and mask reads from L2, the exp, the bf16 splits) and the copies of
+// operand tiles into shared memory. The design:
+//   - a preparation kernel (`prep_forward`, `prep_operands`) normalises q
+//     and k in fp32 and writes every product operand once as bf16 terms in
+//     the head layout, whatever the input layout and type. With `round_ops`
+//     (`mxu_bf16`) only the first term of each is used, one MMA per product:
+//     operands rounded to bf16, sums fp32, the TPU kernel's bf16 MXU
+//     arithmetic. Otherwise the operands are split: q^ and k^ into three
+//     terms and six MMAs per logit product (their error is multiplied by
+//     the scale, up to 100, ahead of the exp), p, e, ds, and v, g where they
+//     are fp32, into two terms and three MMAs; v and g that already are
+//     bf16 have one term.
+//   - one pass over the logits per reduction. Each pass forms s (and in the
+//     backward dp) of a 16 x 16 block with `mma.sync.m16n8k16`, keeps p (e,
+//     ds) in the accumulator registers, and feeds them, packed to bf16,
 //     straight back as the A fragment of the second product: no tile of
-//     logits passes through shared memory and no sum needs an atomic. dq
-//     and dk/dv are two kernels because the second product of one needs
-//     the block the other holds transposed (the dk/dv pass forms s^T).
+//     logits passes through shared memory and no sum needs an atomic.
+//     The forwards: K1's fixed-shift softmax is one pass (e = 2^(x log2e -
+//     m_h log2e), sum e in registers, out = (e.v) * r with r = 1 / max(sum
+//     e, 1e-30)); the exact softmax (K7, K8) a row pass that writes lr2 =
+//     -(row max + log2 of the row sum) in log2 units, then an output pass
+//     that forms p = 2^(x log2e + lr2) and adds p.v. p is normalised before
+//     the second product because the bf16 variants round p itself (K8
+//     rounds p to v's type, `mxu_bf16` every operand), and a rounded
+//     unnormalised exp would not be that number. The backwards: row
+//     statistics (lr2 and t = sum(dp * p)), dq over the keys, dk/dv over
+//     the queries, dbias and dscale over the windows; dq and dk/dv are two
+//     kernels because the second product of one needs the block the other
+//     holds transposed (the dk/dv pass forms s^T).
 //   - a block owns 16 W rows of a window and head, W warps of 16 rows, the
 //     ceil(N / 16) strips spread evenly over the fewest blocks of at most
 //     8 warps: N = 784 is 7 blocks of 7 warps, N = 196 two of 7 (13
@@ -82,15 +79,15 @@
 //     are added by `sum_partials` in a fixed order, so two runs and the two
 //     layouts give the same bits.
 //
-// The flat layout (K2, K5) is a third `Lay`: a head layout whose token
+// The flat layout (K1, K2, K5) is a third `Lay`: a head layout whose token
 // stride is qkv's row of 3C values (q, k, v at offsets 0, C, 2C; dq, dk, dv
-// at the same offsets of dqkv) and C for o and g, with the shift mask
-// synthesised as K7b's. Its softmax subtracts a fixed per-head shift m_h =
+// at the same offsets of dqkv) and C for out, o and g, with the shift mask
+// synthesised as K7's. Its softmax subtracts a fixed per-head shift m_h =
 // scale_h + max(bias[h]) in place of the row maximum, so its p has the
 // same form, p = 2^(x log2e + lr2) with lr2 = log2 r - m_h log2e, and the
 // passes after the row statistics are the exact softmax's. Only the row
-// terms differ: K2 reads r and rowsum(g * o) from the forward, and
-// `prep_operands` turns them into lr2 and t once per row (no row pass);
+// terms differ: K2 reads r (K1 writes it) and rowsum(g * o) from the
+// forward, and `prep_operands` turns them into lr2 and t once per row;
 // K5 runs a fixed-shift row pass (ROWSUMS: sums of e = p at lr2 = -m_h
 // log2e and of e * dp, no maximum) that writes lr2 and t' = r * sum(e dp)
 // with r = 1 / max(sum e, 1e-30), never r^2 (r may reach 1e30).
@@ -108,19 +105,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int BT = 64;    // rows per query or key tile
-constexpr int LD = 33;    // padded row of a [BT][32] fp32 tile
-constexpr int LDS = 65;   // padded row of a [BT][BT] fp32 tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ float rnd(float x, int on) {
-  return on ? __bfloat162float(__float2bfloat16(x)) : x;
-}
 
 // Where token i of window b, head h starts (in elements). Head layout:
 // b*win + h*head + i*tok. Map layout: window b = (image, window row, window
@@ -146,230 +130,13 @@ struct Geo {
   Lay in, out;                    // q, k, v, dq, dk, dv; out and g
 };
 
-__device__ __forceinline__ int region(int idx, int ws, int shift, bool last_i,
-                                      bool last_j) {
-  const int r = idx / ws, c = idx % ws;
-  return 3 * (last_i && r >= ws - shift) + (last_j && c >= ws - shift);
-}
-
-// The mask of one window: an operand slice, the shift regions, or nothing.
-struct WinMask {
-  const float* op;
-  bool synth, last_i, last_j;
-};
-
-__device__ __forceinline__ WinMask win_mask(const Geo& G, const float* mask, int b) {
-  WinMask W{nullptr, false, false, false};
-  if (mask != nullptr) {
-    W.op = mask + (size_t)(b % G.nWmask) * G.N * G.N;
-  } else if (G.shift > 0) {
-    const int wid = b % (G.nWh * G.nWw);
-    W.synth = true;
-    W.last_i = wid / G.nWw == G.nWh - 1;
-    W.last_j = wid % G.nWw == G.nWw - 1;
-  }
-  return W;
-}
-
-// s = s_cos * scale + bias + mask at (i, j), both inside N
-__device__ __forceinline__ float logit(const Geo& G, const WinMask& W,
-                                       const float* bias, float sc, int h, int i,
-                                       int j, float s_cos) {
-  float x = s_cos * sc + bias[((size_t)h * G.N + i) * G.N + j];
-  if (W.op != nullptr) x += W.op[(size_t)i * G.N + j];
-  if (W.synth && region(i, G.ws, G.shift, W.last_i, W.last_j) !=
-                     region(j, G.ws, G.shift, W.last_i, W.last_j))
-    x += -100.f;
-  return x;
-}
-
-// Query tile of window b, head h, rows i0..i0+63 (zero past N): Qs = q^
-// (rounded under round_ops).
-template <typename T>
-__device__ void stage_query(const T* q, const Geo& G, int b, int h, int i0,
-                            float* Qs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BT; r += THREADS / 32) {
-    const int i = i0 + r;
-    const float qv = i < G.N ? to_f(q[at(G.in, b, h, i) + lane]) : 0.f;
-    const float n = rsqrtf(warp_sum(qv * qv) + 1e-12f);
-    Qs[r * LD + lane] = rnd(qv * n, G.round_ops);
-  }
-}
-
-// Key tile: Ks = k^ and, where given, Vs = v (rounded under round_ops);
-// zero past N.
-template <typename T>
-__device__ void stage_key(const T* k, const T* v, const Geo& G, int b, int h,
-                          int j0, float* Ks, float* Vs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BT; r += THREADS / 32) {
-    const int j = j0 + r;
-    float kv = 0.f, vv = 0.f;
-    if (j < G.N) {
-      const size_t a = at(G.in, b, h, j) + lane;
-      kv = to_f(k[a]);
-      if (Vs != nullptr) vv = to_f(v[a]);
-    }
-    const float n = rsqrtf(warp_sum(kv * kv) + 1e-12f);
-    Ks[r * LD + lane] = rnd(kv * n, G.round_ops);
-    if (Vs != nullptr) Vs[r * LD + lane] = rnd(vv, G.round_ops);
-  }
-}
-
-// This thread's 4 x 4 micro-tile of s_cos = q^.k^: rows ty + 16a of the
-// query tile, columns tx + 16c of the key tile.
-__device__ __forceinline__ void dots(const float* Qs, const float* Ks,
-                                     float s[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < 32; ++d) {
-    float qa[4], kc[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * LD + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) kc[c] = Ks[(tx + 16 * c) * LD + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] += qa[a] * kc[c];
-  }
-}
-
-// The micro-tile's logits: x = s_cos*scale + bias + mask inside N x N; a key
-// past N gives -inf (it takes no part in the softmax), a query row past N a
-// finite 0 (its results are never stored).
-__device__ __forceinline__ void logits(const Geo& G, const WinMask& W,
-                                       const float* bias, float sc, int h,
-                                       int i0, int j0, const float s[4][4],
-                                       float x[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      x[a][c] = j >= G.N ? -CUDART_INF_F
-                         : (i >= G.N ? 0.f : logit(G, W, bias, sc, h, i, j, s[a][c]));
-    }
-  }
-}
-
-// One key tile's step of the running row statistics: the 16 threads of a
-// row (adjacent lanes) agree on the tile's maximum, rescale what they hold
-// and add the tile's exp sums.
-__device__ __forceinline__ void online_step(const float x[4][4], float m[4],
-                                            float l[4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float tmax = fmaxf(fmaxf(x[a][0], x[a][1]), fmaxf(x[a][2], x[a][3]));
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    const float mn = fmaxf(m[a], tmax);
-    float ue = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) ue += expf(x[a][c] - mn);
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      ue += __shfl_xor_sync(0xffffffffu, ue, off);
-    l[a] = l[a] * expf(m[a] - mn) + ue;   // the factor is 0 on the first tile
-    m[a] = mn;
-  }
-}
-
-// ---------------------------------------------------------------- forward
-
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS) attn_fwd(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ mask, TO* __restrict__ out, Geo G) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* P = Vs + BT * LD;          // [BT][LDS]
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * BT;
-  const float sc = scale[h];
-  const WinMask W = win_mask(G, mask, b);
-  stage_query<T>(q, G, b, h, i0, Qs);
-
-  float m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -CUDART_INF_F;
-    l[a] = 0.f;
-  }
-  for (int j0 = 0; j0 < G.N; j0 += BT) {      // first walk: max and sum
-    __syncthreads();
-    stage_key<T>(k, v, G, b, h, j0, Ks, nullptr);
-    __syncthreads();
-    float s[4][4], x[4][4];
-    dots(Qs, Ks, s);
-    logits(G, W, bias, sc, h, i0, j0, s, x);
-    online_step(x, m, l);
-  }
-
-  float acc[4][2];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) acc[a][0] = acc[a][1] = 0.f;
-  for (int j0 = 0; j0 < G.N; j0 += BT) {      // second walk: p and p.v
-    __syncthreads();
-    stage_key<T>(k, v, G, b, h, j0, Ks, Vs);
-    __syncthreads();
-    float s[4][4], x[4][4];
-    dots(Qs, Ks, s);
-    logits(G, W, bias, sc, h, i0, j0, s, x);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        P[(ty + 16 * a) * LDS + tx + 16 * c] =
-            rnd(expf(x[a][c] - m[a]) / l[a], G.round_p);
-    __syncthreads();
-    for (int j = 0; j < BT; ++j) {
-      const float v0 = Vs[j * LD + tx], v1 = Vs[j * LD + tx + 16];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float pv = P[(ty + 16 * a) * LDS + j];
-        acc[a][0] += pv * v0;
-        acc[a][1] += pv * v1;
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    if (i < G.N) {
-      TO* o = out + at(G.out, b, h, i);
-      store(o + tx, acc[a][0]);
-      store(o + tx + 16, acc[a][1]);
-    }
-  }
-}
-
-// --------------------------------------------------------------- backward
+// ------------------------------------------------------ shared by the passes
 //
-// Five kernels on the helpers of attn_mma.cuh. `prep_operands` normalises q
-// and k in fp32 and writes every product operand once as bf16 terms in the
-// head layout (q^, k^ three terms, v and g one or two), so the kernels
-// after it copy tiles with `cp.async` and do no staging arithmetic.
-// `attn_bwd_rows` serves three of them: a block owns 16 W "own" rows of
-// one window and head (W warps, 16 rows each: queries for ROWSTATS,
-// ROWSUMS and DQ, keys for DKV), keeps their A fragments in registers and
-// walks the other side in double-buffered tiles of TK rows, 16 at a time:
-// s and dp of a 16 x 16 block on the tensor cores, the logits and p, ds in
-// registers, and the second products straight from those registers.
-// `attn_bwd_sums` owns a 16 W x TJ tile of one head and walks a range of
-// windows.
+// Every kernel below works on the helpers of attn_mma.cuh. A preparation
+// kernel (`prep_forward`, `prep_operands`) normalises q and k in fp32 and
+// writes every product operand once as bf16 terms in the head layout, so
+// the passes after it copy tiles with `cp.async` and do no staging
+// arithmetic.
 
 constexpr int TK = 64;     // other-side rows per tile
 constexpr int TJ = 64;     // key columns of a dbias tile
@@ -400,64 +167,6 @@ struct Staged {
   size_t stride;
   float *qn, *kn;
 };
-
-// K2's row terms from the forward: its output o (out's layout and type),
-// its reciprocal row sums r [Bn, H, N] and the fixed shifts m [H]; null
-// pointers for every other backward.
-template <typename TO>
-struct FwdRows {
-  const TO* o;
-  const float *r, *shiftm;
-};
-
-// One thread per eight values of a (window, head, token) row. With F.o, it
-// also writes the row's lr2 = log2 r - m_h log2e and t = rowsum(g * o),
-// summed in fp32 from o and g in their own type (lr, tt [Bn, H, N]).
-template <typename T, typename TO>
-__global__ void __launch_bounds__(256) prep_operands(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const TO* __restrict__ g, Staged S, int Bn, Geo G, FwdRows<TO> F,
-    float* __restrict__ lr, float* __restrict__ tt) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t row = idx >> 2, total = (size_t)Bn * G.H * G.N;
-  const int c = static_cast<int>(idx & 3);
-  const bool in = row < total;          // whole quads; the shuffles need all
-  const size_t rr = in ? row : 0;
-  const int i = static_cast<int>(rr % G.N), h = static_cast<int>(rr / G.N % G.H);
-  const int b = static_cast<int>(rr / G.N / G.H);
-  const size_t src = at(G.in, b, h, i) + 8 * c, dst = rr * HD + 8 * c;
-  const size_t gsrc = at(G.out, b, h, i) + 8 * c;
-  float x[8];
-  load8(q + src, x);
-  float n = normalise8(x);
-  if (in) {
-    store_terms<PX>(x, S.q + dst, S.stride);
-    if (c == 0) S.qn[rr] = n;
-  }
-  load8(k + src, x);
-  n = normalise8(x);
-  float t = 0.f;
-  if (F.o != nullptr) {
-    float gv[8], ov[8];
-    load8(g + gsrc, gv);
-    load8(F.o + gsrc, ov);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) t += gv[e] * ov[e];
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-  }
-  if (!in) return;
-  store_terms<PX>(x, S.k + dst, S.stride);
-  if (c == 0) S.kn[rr] = n;
-  load8(v + src, x);
-  store_terms<Terms<T>::n>(x, S.v + dst, S.stride);
-  load8(g + gsrc, x);
-  store_terms<Terms<TO>::n>(x, S.g + dst, S.stride);
-  if (F.o != nullptr && c == 0) {
-    lr[rr] = fmaf(-F.shiftm[h], LOG2E, log2f(F.r[rr]));
-    tt[rr] = t;
-  }
-}
 
 // The logit source: x = s_cos * scale + (bias + mask), p = 2^(x log2e +
 // lr2) with lr2 = -(row max + log2 of the row sum) in log2 units for the
@@ -549,6 +258,321 @@ __device__ __forceinline__ int window_bands(const Geo& G, bool synth, int b) {
   if (!synth) return 0;
   const int wid = b % (G.nWh * G.nWw);
   return (wid % G.nWw == G.nWw - 1 ? 1 : 0) | (wid / G.nWw == G.nWh - 1 ? 2 : 0);
+}
+
+// ---------------------------------------------------------------- forward
+//
+// `prep_forward` writes the forward's product operands; each `attn_fwd_*`
+// pass is a block of W warps that owns 16 W query rows of one window and
+// head (`plan_rows`), keeps their q^ fragments in registers and walks the
+// key tiles (k^ and v, double buffered) 16 keys at a time: s of a 16 x 16
+// block on the tensor cores, its logits and p (or e) in the accumulator
+// registers and, but in the row pass, p.v from those registers into a
+// 16 x 32 fp32 accumulator per warp.
+
+// the forward passes: the exact softmax's row statistics (lr2) and its
+// output; the fixed-shift softmax's output and row sums in one pass
+enum { FWD_STATS = 0, FWD_OUT = 1, FWD_FLAT = 2 };
+
+template <typename TO>
+struct FwdP {
+  Staged S;                  // q^, k^, v (g and the norms unused)
+  const float *bias, *scale, *mask, *shiftm;
+  float* lr;                 // [Bn, H, N]: lr2, written by FWD_STATS
+  float* r;                  // [Bn, H, N]: K1's 1 / max(sum e, 1e-30), or null
+  TO* out;
+};
+
+// One thread per eight values of a (window, head, token) row: q^ and k^ as
+// PX terms, v as one (bf16) or two (fp32), in the head layout.
+template <typename T>
+__global__ void __launch_bounds__(256) prep_forward(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    Staged S, int Bn, Geo G) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = idx >> 2, total = (size_t)Bn * G.H * G.N;
+  const int c = static_cast<int>(idx & 3);
+  const bool in = row < total;          // whole quads; the shuffles need all
+  const size_t rr = in ? row : 0;
+  const int i = static_cast<int>(rr % G.N), h = static_cast<int>(rr / G.N % G.H);
+  const int b = static_cast<int>(rr / G.N / G.H);
+  const size_t src = at(G.in, b, h, i) + 8 * c, dst = rr * HD + 8 * c;
+  float x[8];
+  load8(q + src, x);
+  normalise8(x);
+  if (in) store_terms<PX>(x, S.q + dst, S.stride);
+  load8(k + src, x);
+  normalise8(x);
+  if (!in) return;
+  store_terms<PX>(x, S.k + dst, S.stride);
+  load8(v + src, x);
+  store_terms<Terms<T>::n>(x, S.v + dst, S.stride);
+}
+
+// The body of the three passes. PV: the terms of v. FWD_STATS writes lr2 =
+// -(row max + log2 of the row sum) in log2 units; FWD_OUT forms p = 2^(x
+// log2e + lr2) and writes p.v; FWD_FLAT forms e = 2^(x log2e - m_h log2e)
+// (m_h bounds every logit: no maximum) and writes (e.v) * r with r = 1 /
+// max(sum e, 1e-30), and r itself when A.r is given. p (e) takes two terms
+// unless `round_p`, v two when it is fp32 unless `round_ops`; out is
+// written at G.out. Grid (own tiles, H, Bn), 32 W threads.
+template <int PV, typename TO, int MODE>
+__device__ __forceinline__ void fwd_rows(const FwdP<TO>& A, const Geo& G) {
+  constexpr int PY = MODE == FWD_STATS ? 0 : PV;     // terms of v in a key tile
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int W = blockDim.x >> 5, R = 16 * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // with a mask operand, neighbouring blocks take the windows that share a
+  // mask slice (window z % images of slice z / images), so it stays in L2
+  const int images = G.nWmask > 0 ? gridDim.z / G.nWmask : 1;
+  const int b = G.nWmask > 0 ? (blockIdx.z % images) * G.nWmask + blockIdx.z / images
+                             : blockIdx.z;
+  const int h = blockIdx.y, own0 = blockIdx.x * R;
+  const int N = G.N, N16 = (N + 15) & ~15;
+  const int so = R * LDB, st = TK * LDB;
+  constexpr int OTH = (PX + PY) * TK * LDB;        // one key tile: k^, then v
+  __nv_bfloat16* ownX = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* oth = ownX + PX * so;             // [2][OTH]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(oth + 2 * OTH);
+
+  const bool split = !G.round_ops, p_split = !G.round_p;
+  const bool synth = A.mask == nullptr && G.shift > 0;
+  const int nx = split ? PX : 1, ny = split ? PY : 1;
+  const float sc = A.scale[h];
+  const size_t row0 = ((size_t)b * G.H + h) * N;
+  const Staged& S = A.S;
+  const __nv_bfloat16* kx = S.k + row0 * HD;
+  const __nv_bfloat16* vy = S.v + row0 * HD;
+
+  auto fetch_tile = [&](int t) {
+    const int o0 = t * TK, rows = min(TK, N16 - o0);
+    __nv_bfloat16* buf = oth + (t & 1) * OTH;
+    copy_rows_async<PX>(kx, S.stride, nx, o0, rows, N, buf, st);
+    if constexpr (PY > 0) copy_rows_async<PY>(vy, S.stride, ny, o0, rows, N, buf + PX * st, st);
+  };
+
+  copy_rows_async<PX>(S.q + row0 * HD, S.stride, PX, own0, R, N, ownX, so);
+  fetch_tile(0);
+  cp_async_commit();
+  stage_flags(G, synth, N16, flags);
+
+  const Logits LG{A.bias + (size_t)h * N * N,
+                  A.mask == nullptr ? nullptr : A.mask + (size_t)(b % G.nWmask) * N * N,
+                  flags, sc, N, window_bands(G, synth, b)};
+  const bool active = own0 + 16 * warp < N;     // else a strip of padding
+  const int ra = own0 + 16 * warp + g8, rb = ra + 8;
+  uint32_t ax[PX][2][4];
+  int fa = 0, fb = 0;
+  // what p adds to x log2e: FWD_OUT the rows' lr2 (p = 0 past N), FWD_FLAT
+  // -m_h log2e (K5's row pass forms the same e)
+  float lr[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  if constexpr (MODE == FWD_FLAT) lr[0] = lr[1] = -A.shiftm[h] * LOG2E;
+  float add_next[2][4];
+  if (active) {
+    if constexpr (MODE == FWD_OUT) {
+      if (ra < N) lr[0] = A.lr[row0 + ra];
+      if (rb < N) lr[1] = A.lr[row0 + rb];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) LG.addends<false>(ra, rb, 8 * nt + 2 * t4, add_next[nt]);
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+
+  const int ntiles = (N16 + TK - 1) / TK;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) fetch_tile(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile t (and the own rows) have landed
+    __syncthreads();
+    if (t == 0 && active) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p) load_a(ax[p], ownX + p * so, 16 * warp);
+      fa = flags[ra];
+      fb = flags[rb];
+    }
+    const int o0 = t * TK, rows = min(TK, N16 - o0);
+    const __nv_bfloat16* othX = oth + (t & 1) * OTH;
+    const __nv_bfloat16* othY = othX + PX * st;
+
+    for (int sub = 0; active && sub < rows; sub += 16) {
+      float s[2][4], x[2][4], add[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add[nt][e] = add_next[nt][e];
+        // the next 16 columns' addends, in flight during this block's MMAs
+        LG.addends<false>(ra, rb, o0 + sub + 16 + 8 * nt + 2 * t4, add_next[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        mma_terms_nk<PX, PX>(s[nt], ax, othX, st, sub + 8 * nt, split);
+      }
+      const bool edge = o0 + sub + 16 > N;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        LG.logits(o0 + sub + 8 * nt + 2 * t4, fa, fb, s[nt], add[nt], x[nt], edge);
+
+      if constexpr (MODE == FWD_STATS) {
+        // this thread's four columns of each row: a running maximum (in
+        // log2 units) and the sum of 2^(y - max)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float y0 = x[0][2 * r] * LOG2E, y1 = x[0][2 * r + 1] * LOG2E;
+          const float y2 = x[1][2 * r] * LOG2E, y3 = x[1][2 * r + 1] * LOG2E;
+          const float tmax = fmaxf(fmaxf(y0, y1), fmaxf(y2, y3));
+          if (tmax > m[r]) {
+            l[r] *= fast_exp2(m[r] - tmax);
+            m[r] = tmax;
+          }
+          l[r] += (fast_exp2(y0 - m[r]) + fast_exp2(y1 - m[r])) +
+                  (fast_exp2(y2 - m[r]) + fast_exp2(y3 - m[r]));
+        }
+      } else {
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] = LG.p(x[nt][e], lr[e >> 1]);
+        if constexpr (MODE == FWD_FLAT) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            l[r] += (p[0][2 * r] + p[0][2 * r + 1]) + (p[1][2 * r] + p[1][2 * r + 1]);
+        }
+        uint32_t hi[4], lo[4];
+        acc_to_a(p, hi, lo);
+        mma_terms_kn<PY>(acc, hi, lo, othY, st, sub, p_split, split);
+      }
+    }
+    __syncthreads();                  // tile t is consumed
+  }
+  if (!active) return;
+
+  float f[2] = {1.f, 1.f};            // what the output rows are multiplied by
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r == 0 ? ra : rb;
+    if constexpr (MODE == FWD_STATS) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {     // the row's four threads
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float mn = fmaxf(m[r], mo);
+        l[r] = l[r] * fast_exp2(m[r] - mn) + lo * fast_exp2(mo - mn);
+        m[r] = mn;
+      }
+      if (t4 == 0 && i < N) A.lr[row0 + i] = -(m[r] + log2f(l[r]));
+    } else if constexpr (MODE == FWD_FLAT) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      f[r] = 1.f / fmaxf(l[r], 1e-30f);
+      if (A.r != nullptr && t4 == 0 && i < N) A.r[row0 + i] = f[r];
+    }
+  }
+  if constexpr (MODE != FWD_STATS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r == 0 ? ra : rb;
+      if (i >= N) continue;
+      TO* out = A.out + at(G.out, b, h, i);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store2(out + 8 * nt + 2 * t4, acc[nt][2 * r] * f[r], acc[nt][2 * r + 1] * f[r]);
+    }
+  }
+}
+
+// the passes as kernels of their own names (profiles tell them apart)
+template <typename TO>
+__global__ void __launch_bounds__(32 * MAXW, 2) attn_fwd_stats(FwdP<TO> A, Geo G) {
+  fwd_rows<1, TO, FWD_STATS>(A, G);
+}
+template <int PV, typename TO>
+__global__ void __launch_bounds__(32 * MAXW, 2) attn_fwd_out(FwdP<TO> A, Geo G) {
+  fwd_rows<PV, TO, FWD_OUT>(A, G);
+}
+template <int PV, typename TO>
+__global__ void __launch_bounds__(32 * MAXW, 2) attn_fwd_flat(FwdP<TO> A, Geo G) {
+  fwd_rows<PV, TO, FWD_FLAT>(A, G);
+}
+
+// --------------------------------------------------------------- backward
+//
+// Five kernels. `prep_operands` writes q^, k^ (three terms), v and g (one
+// or two). `attn_bwd_rows` serves three of them: a block owns 16 W "own"
+// rows of one window and head (W warps, 16 rows each: queries for
+// ROWSTATS, ROWSUMS and DQ, keys for DKV), keeps their A fragments in
+// registers and walks the other side in double-buffered tiles of TK rows,
+// 16 at a time: s and dp of a 16 x 16 block on the tensor cores, the
+// logits and p, ds in registers, and the second products straight from
+// those registers. `attn_bwd_sums` owns a 16 W x TJ tile of one head and
+// walks a range of windows.
+
+// K2's row terms from the forward: its output o (out's layout and type),
+// its reciprocal row sums r [Bn, H, N] and the fixed shifts m [H]; null
+// pointers for every other backward.
+template <typename TO>
+struct FwdRows {
+  const TO* o;
+  const float *r, *shiftm;
+};
+
+// One thread per eight values of a (window, head, token) row. With F.o, it
+// also writes the row's lr2 = log2 r - m_h log2e and t = rowsum(g * o),
+// summed in fp32 from o and g in their own type (lr, tt [Bn, H, N]).
+template <typename T, typename TO>
+__global__ void __launch_bounds__(256) prep_operands(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const TO* __restrict__ g, Staged S, int Bn, Geo G, FwdRows<TO> F,
+    float* __restrict__ lr, float* __restrict__ tt) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = idx >> 2, total = (size_t)Bn * G.H * G.N;
+  const int c = static_cast<int>(idx & 3);
+  const bool in = row < total;          // whole quads; the shuffles need all
+  const size_t rr = in ? row : 0;
+  const int i = static_cast<int>(rr % G.N), h = static_cast<int>(rr / G.N % G.H);
+  const int b = static_cast<int>(rr / G.N / G.H);
+  const size_t src = at(G.in, b, h, i) + 8 * c, dst = rr * HD + 8 * c;
+  const size_t gsrc = at(G.out, b, h, i) + 8 * c;
+  float x[8];
+  load8(q + src, x);
+  float n = normalise8(x);
+  if (in) {
+    store_terms<PX>(x, S.q + dst, S.stride);
+    if (c == 0) S.qn[rr] = n;
+  }
+  load8(k + src, x);
+  n = normalise8(x);
+  float t = 0.f;
+  if (F.o != nullptr) {
+    float gv[8], ov[8];
+    load8(g + gsrc, gv);
+    load8(F.o + gsrc, ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t += gv[e] * ov[e];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+  }
+  if (!in) return;
+  store_terms<PX>(x, S.k + dst, S.stride);
+  if (c == 0) S.kn[rr] = n;
+  load8(v + src, x);
+  store_terms<Terms<T>::n>(x, S.v + dst, S.stride);
+  load8(g + gsrc, x);
+  store_terms<Terms<TO>::n>(x, S.g + dst, S.stride);
+  if (F.o != nullptr && c == 0) {
+    lr[rr] = fmaf(-F.shiftm[h], LOG2E, log2f(F.r[rr]));
+    tt[rr] = t;
+  }
 }
 
 template <typename TO>
@@ -1030,32 +1054,10 @@ __global__ void __launch_bounds__(32 * MAXW, 1) attn_bwd_sums(
   }
 }
 
-constexpr size_t TILE_F = (size_t)BT * LD;
-constexpr size_t SQ_F = (size_t)BT * LDS;
-constexpr size_t SMEM_FWD = (3 * TILE_F + SQ_F) * 4;
-
 template <typename F>
 cudaError_t allow_smem(F fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-struct FwdArgs {
-  const void *q, *k, *v, *bias, *scale, *mask;
-  void* out;
-};
-
-template <typename T, typename TO>
-int launch_fwd(const FwdArgs& A, int Bn, const Geo& G, cudaStream_t stream) {
-  cudaError_t err = allow_smem(attn_fwd<T, TO>, SMEM_FWD);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nt = (G.N + BT - 1) / BT;
-  attn_fwd<T, TO><<<dim3(nt, G.H, Bn), THREADS, SMEM_FWD, stream>>>(
-      static_cast<const T*>(A.q), static_cast<const T*>(A.k),
-      static_cast<const T*>(A.v), static_cast<const float*>(A.bias),
-      static_cast<const float*>(A.scale), static_cast<const float*>(A.mask),
-      static_cast<TO*>(A.out), G);
-  return static_cast<int>(cudaGetLastError());
 }
 
 struct BwdArgs {
@@ -1074,6 +1076,54 @@ struct Plan {
 Plan plan_rows(int N) {
   const int strips = (N + 15) / 16, tiles = (strips + MAXW - 1) / MAXW;
   return Plan{(strips + tiles - 1) / tiles, tiles};
+}
+
+struct FwdArgs {
+  const void *q, *k, *v, *bias, *scale, *mask, *shiftm;
+  void *out, *lr, *r, *ops;
+};
+
+// K1 (FLAT: the fixed-shift softmax in one pass) or K7/K8 (the row pass,
+// then the output pass), after prep_forward.
+template <typename T, typename TO, bool FLAT>
+int launch_fwd(const FwdArgs& A, int Bn, const Geo& G, cudaStream_t stream) {
+  constexpr int PV = Terms<T>::n;
+  const int N16 = (G.N + 15) & ~15;
+  const Plan P = plan_rows(G.N);
+  auto smem = [&](int py, int r) {
+    return (size_t)(PX * r + 2 * (PX + py) * TK) * LDB * 2 + N16;
+  };
+  cudaError_t err;
+  if constexpr (FLAT) {
+    err = allow_smem(attn_fwd_flat<PV, TO>, smem(PV, 16 * MAXW));
+  } else {
+    err = allow_smem(attn_fwd_stats<TO>, smem(0, 16 * MAXW));
+    if (err == cudaSuccess) err = allow_smem(attn_fwd_out<PV, TO>, smem(PV, 16 * MAXW));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t rows_total = (size_t)Bn * G.H * G.N, stride = rows_total * HD;
+  __nv_bfloat16* ops = static_cast<__nv_bfloat16*>(A.ops);
+  const Staged S{ops, ops + PX * stride, ops + 2 * PX * stride, nullptr, stride,
+                 nullptr, nullptr};
+  prep_forward<T><<<(unsigned)((4 * rows_total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(A.q), static_cast<const T*>(A.k),
+      static_cast<const T*>(A.v), S, Bn, G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const FwdP<TO> F{S, static_cast<const float*>(A.bias),
+                   static_cast<const float*>(A.scale), static_cast<const float*>(A.mask),
+                   static_cast<const float*>(A.shiftm), static_cast<float*>(A.lr),
+                   static_cast<float*>(A.r), static_cast<TO*>(A.out)};
+  const dim3 grid(P.tiles, G.H, Bn);
+  const int threads = 32 * P.W, R = 16 * P.W;
+  if constexpr (FLAT) {
+    attn_fwd_flat<PV, TO><<<grid, threads, smem(PV, R), stream>>>(F, G);
+  } else {
+    attn_fwd_stats<TO><<<grid, threads, smem(0, R), stream>>>(F, G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    attn_fwd_out<PV, TO><<<grid, threads, smem(PV, R), stream>>>(F, G);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward whose row terms come from ROWS (EXACT_ROWS, FORWARD_ROWS or
@@ -1196,19 +1246,43 @@ bool misaligned(std::initializer_list<const void*> ptrs) {
 
 // K8 (layout 0: q, k, v, out [Bn, H, N, 32]) and K7 (layout 1: q, k, v point
 // at the three parts of qkv [B, Hp, Wp, 3, H, 32], out [B, Hp, Wp, H, 32],
-// Bn = B * nWh * nWw). `geo` holds the twelve integers of `make_geo`.
+// Bn = B * nWh * nWw). `geo` holds the twelve integers of `make_geo`; every
+// row of q, k, v is 16-byte aligned. Scratch: lr [Bn, H, N] fp32; ops (6 +
+// terms of v) * Bn * H * N * 32 bf16, terms 1 for a bf16 and 2 for an fp32
+// tensor.
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* scale,
-                                    const void* mask, void* out, int in_bf16,
-                                    int out_bf16, int Bn, const int* geo,
-                                    void* stream) {
+                                    const void* mask, void* out, void* lr,
+                                    void* ops, int in_bf16, int out_bf16, int Bn,
+                                    const int* geo, void* stream) {
   const Geo G = make_geo(geo);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FwdArgs A{q, k, v, bias, scale, mask, out};
-  if (in_bf16 && out_bf16) return launch_fwd<__nv_bfloat16, __nv_bfloat16>(A, Bn, G, s);
-  if (in_bf16) return launch_fwd<__nv_bfloat16, float>(A, Bn, G, s);
-  if (!out_bf16) return launch_fwd<float, float>(A, Bn, G, s);
+  const FwdArgs A{q, k, v, bias, scale, mask, nullptr, out, lr, nullptr, ops};
+  if (misaligned({q, k, v, ops})) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_bf16 && out_bf16)
+    return launch_fwd<__nv_bfloat16, __nv_bfloat16, false>(A, Bn, G, s);
+  if (in_bf16) return launch_fwd<__nv_bfloat16, float, false>(A, Bn, G, s);
+  if (!out_bf16) return launch_fwd<float, float, false>(A, Bn, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1, flat layout: qkv [Bn, N, 3C] bf16 or fp32 (16-byte aligned), out [Bn,
+// N, C] in its type, shiftm [H] the fixed shifts m_h, r [Bn, H, N] fp32 (or
+// null: not written); geo with layout 2. Scratch: ops as
+// window_attention_fwd's.
+extern "C" int window_attention_flat_fwd(const void* qkv, const void* bias,
+                                         const void* scale, const void* shiftm,
+                                         void* out, void* r, void* ops, int is_bf16,
+                                         int Bn, const int* geo, void* stream) {
+  const Geo G = make_geo(geo);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t step = (size_t)G.H * HD * (is_bf16 ? 2 : 4);   // C values
+  const char* in = static_cast<const char*>(qkv);
+  const FwdArgs A{in,     in + step, in + 2 * step, bias, scale, nullptr,
+                  shiftm, out,       nullptr,       r,    ops};
+  if (geo[9] != 2 || misaligned({qkv, ops})) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_fwd<__nv_bfloat16, __nv_bfloat16, true>(A, Bn, G, s)
+                 : launch_fwd<float, float, true>(A, Bn, G, s);
 }
 
 // K8b and K7b. g has out's layout and type; dq, dk, dv have q's layout and

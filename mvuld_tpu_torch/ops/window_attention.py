@@ -22,10 +22,10 @@ or column of the rolled map attend only when they share a shift region,
 JAX package's v2 backward ``pallas_window_attention_flat_bwd2``) and
 ``window_attention_flat_bwd_v1`` (K5, its v1 backward
 ``pallas_window_attention_flat_bwd``) run CUDA kernels for CUDA tensors —
-K1 ``csrc/window_attention_flat.cu``, K2 and K5 the tensor-core backward
-passes of ``csrc/window_attention.cu`` that K7b/K8b run too, whose
-arithmetic ``_flat_bwd_split`` repeats — and the plain versions for CPU
-tensors; they never fall back from one to the other. ``flat_attention``
+the tensor-core passes of ``csrc/window_attention.cu`` that K7-K8b run
+too: K1 one fixed-shift pass (its arithmetic ``_flat_fwd_split``), K2 and
+K5 the backward passes (``_flat_bwd_split``) — and the plain versions for
+CPU tensors; they never fall back from one to the other. ``flat_attention``
 is the training entry. Its backward generation follows ``MVULD_ATTN_BWD``
 as in the JAX package: v2 (the default) runs K1 with its reciprocal row
 sums r = 1/max(Σe, 1e-30) ([Bn, H, N] fp32) in the forward and K2 from
@@ -46,9 +46,10 @@ map, the shift mask synthesised from the window's grid position, fp32
 output ``[B, Hp, Wp, H, hd]`` and fp32 dqkv whatever qkv's dtype; kernels K7
 ``window_attention_map_fwd`` and K7b ``window_attention_map_bwd``). All four
 run ``csrc/window_attention.cu`` for CUDA tensors and the ``*_plain``
-versions for CPU tensors; the two backward kernels form their products on
-the bf16 tensor cores from split operands (``csrc/attn_mma.cuh``), which
-``_core_bwd_split`` repeats in plain PyTorch for the CPU tests. The JAX
+versions for CPU tensors; the kernels form their products on the bf16
+tensor cores from split operands (``csrc/attn_mma.cuh``), which
+``_core_fwd_split`` (the forwards: a row pass, then the output pass) and
+``_core_bwd_split`` repeat in plain PyTorch for the CPU tests. The JAX
 module's mask registry (``register_mask`` / ``make_window_attention``)
 exists only to give ``custom_vjp`` a static argument; here the mask is a
 plain non-differentiable argument of the autograd function.
@@ -262,12 +263,12 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _GEO = ctypes.POINTER(ctypes.c_int)
 # C entry → (source under csrc/, argument types)
 _ENTRIES = {
-    "window_attention_flat_fwd": ("window_attention_flat",
-                                  [_PTR] * 6 + [_INT] * 10 + [_PTR]),
+    "window_attention_flat_fwd": ("window_attention",
+                                  [_PTR] * 7 + [_INT] * 2 + [_GEO, _PTR]),
     "window_attention_flat_bwd": ("window_attention",
                                   [_PTR] * 17 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_fwd": ("window_attention",
-                             [_PTR] * 7 + [_INT] * 3 + [_GEO, _PTR]),
+                             [_PTR] * 9 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_bwd": ("window_attention",
                              [_PTR] * 18 + [_INT] * 4 + [_GEO, _PTR]),
 }
@@ -314,8 +315,8 @@ def _f32(x, dev):
 
 
 def _aligned(x):
-    """x at a 16-byte aligned address (the backward kernels load 16 bytes a
-    thread): a view that starts elsewhere is copied."""
+    """x at a 16-byte aligned address (the kernels load 16 bytes a thread):
+    a view that starts elsewhere is copied."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -343,33 +344,51 @@ def _bwd_scratch(Bn, H, N, v_terms, g_terms, dev):
             part_db, part_ds, ops, torch.empty((2, Bn, H, N), **f32), nchunk)
 
 
+def _fwd_scratch(Bn, H, N, v_terms, exact, dev):
+    """Scratch of the forward kernels in ``csrc/window_attention.cu``: the
+    product operands as bf16 terms (q̂ and k̂ three each, v ``v_terms``:
+    one for a bf16 tensor, two for fp32), (6 + v_terms)·Bn·H·N·64 bytes
+    (7 × 51 MB at the bucket-16 stage 1, 7 × 205 MB at the batch-64
+    fine-tune's), and for the exact softmax (``exact``) its row statistics
+    lr [Bn, H, N] fp32."""
+    ops = torch.empty((6 + v_terms, Bn, H, N, _HEAD_DIM), dtype=torch.bfloat16,
+                      device=dev)
+    lr = (torch.empty((Bn, H, N), dtype=torch.float32, device=dev) if exact
+          else None)
+    return ops, lr
+
+
 def window_attention_flat(qkv, bias, logit_scale, shift: int = 0,
                           nWh: int = 1, nWw: int = 1,
                           return_rowsum: bool = False,
                           mxu_bf16: bool = False):
     """Flat-layout fused window attention forward (K1).
 
-    CUDA tensors run ``csrc/window_attention_flat.cu`` (qkv in bf16 or fp32,
-    head dim 32; anything else raises); CPU tensors run
-    ``window_attention_flat_plain``. With ``return_rowsum`` also returns
-    the reciprocal row sums [Bn, H, N] fp32; ``mxu_bf16`` (or
+    CUDA tensors run the one-pass tensor-core forward of
+    ``csrc/window_attention.cu`` (qkv in bf16 or fp32, head dim 32;
+    anything else raises; ``_flat_fwd_split`` is its arithmetic); CPU
+    tensors run ``window_attention_flat_plain``. With ``return_rowsum``
+    also returns the reciprocal row sums [Bn, H, N] fp32; ``mxu_bf16`` (or
     ``MVULD_ATTN_MXU_BF16=1``) rounds the product operands to bf16."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
     if qkv.device.type == "cpu":
         return window_attention_flat_plain(qkv, bias, logit_scale, shift,
                                            nWh, nWw, return_rowsum, mxu_bf16)
     _check_cuda(qkv, Bn, C // H, "window_attention_flat")
-    qkv = qkv.contiguous()
+    dev = qkv.device
+    qkv = _aligned(qkv.contiguous())
     bias, scale, m = _kernel_scalars(qkv, bias, logit_scale)
-    out = torch.empty((Bn, N, C), dtype=qkv.dtype, device=qkv.device)
-    r = (torch.empty((Bn, H, N), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((Bn, N, C), dtype=qkv.dtype, device=dev)
+    r = (torch.empty((Bn, H, N), dtype=torch.float32, device=dev)
          if return_rowsum else None)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    bf = int(qkv.dtype == torch.bfloat16)
+    ops, _ = _fwd_scratch(Bn, H, N, 2 - bf, False, dev)
+    rnd = _mxu_bf16_default(mxu_bf16)
     err = _lib("window_attention_flat_fwd")(
         qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), m.data_ptr(),
-        out.data_ptr(), 0 if r is None else r.data_ptr(),
-        int(qkv.dtype == torch.bfloat16), Bn, N, C, H, ws, int(shift),
-        int(nWh), int(nWw), int(_mxu_bf16_default(mxu_bf16)), stream)
+        out.data_ptr(), 0 if r is None else r.data_ptr(), ops.data_ptr(), bf,
+        Bn, _geo(N, H, ws, shift, nWh, nWw, 0, rnd, rnd, 2),
+        torch.cuda.current_stream(dev).cuda_stream)
     window_attention_flat.launches += 1
     _build.check(err, "window_attention_flat")
     return (out, r) if return_rowsum else out
@@ -688,6 +707,73 @@ def _split_bwd(qh, kh, v, g, v_bf16, g_bf16, sc, probs, round_ops=False):
     return dqh, dkh, dv, dbias, dscale
 
 
+_LOG2E = 1.4426950408889634
+
+
+def _fwd_products(qh, kh, v, v_bf16, round_ops, round_p, probs):
+    """The forward kernels' products on bf16 terms (``_split16``) summed in
+    fp32 (``_mm_split``), for a softmax given as ``probs(s_cos)`` → p (or
+    e): s_cos from q̂ and k̂ in three terms each (six products), p·v from p
+    in two terms (one under ``round_p``) and v in one when it already is a
+    bf16 number (``v_bf16``) or under ``round_ops``, two otherwise (three
+    products at most); ``round_ops`` keeps q̂'s and k̂'s first terms. Returns
+    (p·v, p) in fp32."""
+    order = 0 if round_ops else 2
+    s_cos = _mm_split(_split16(qh, 3), _split16(kh, 3), order)
+    p = probs(s_cos)
+    vt = [t.transpose(-1, -2)
+          for t in _split16(v, 1 if v_bf16 or round_ops else 2)]
+    return _mm_split(_split16(p, 1 if round_p else 2), vt, 1), p
+
+
+def _core_fwd_split(q, k, v, bias, scale, mask, v_bf16, round_ops=False,
+                    round_p=False):
+    """K7 / K8 as the forward passes of ``csrc/window_attention.cu`` compute
+    them (``_fwd_products``): a row pass gives lr2 = −(max y + log₂ Σ
+    2^(y − max y)) of y = x·log₂e per query row, and the output pass forms
+    p = 2^(y + lr2), normalised before it is rounded (``round_p``: K8 rounds
+    p to v's dtype, ``mxu_bf16`` every operand), and adds p·v. fp32 q, k, v
+    [Bn, H, N, hd] → fp32 [Bn, H, N, hd]. The CPU tests hold it to the
+    card's tolerances against the JAX kernels; no CUDA path calls it."""
+    qh = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
+    kh = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+
+    def probs(s_cos):
+        y = _add_mask(s_cos * scale[:, None, None] + bias.float(),
+                      mask) * _LOG2E
+        mx = y.amax(-1, keepdim=True)
+        lr2 = -(mx + torch.log2(torch.exp2(y - mx).sum(-1, keepdim=True)))
+        return torch.exp2(y + lr2)
+
+    return _fwd_products(qh, kh, v, v_bf16, round_ops, round_p, probs)[0]
+
+
+def _flat_fwd_split(qkv, bias, logit_scale, shift=0, nWh=1, nWw=1,
+                    mxu_bf16=False):
+    """K1 as the one-pass forward of ``csrc/window_attention.cu`` computes
+    it (``_fwd_products``): e = 2^(x·log₂e − m_h·log₂e), the fixed-shift
+    softmax's unnormalised exp, its row sums Σe in fp32 from the unrounded
+    e, out = (e·v)·r with r = 1/max(Σe, 1e-30); ``mxu_bf16`` rounds q̂, k̂,
+    e and v. Returns fp32 (out [Bn, N, C], r [Bn, H, N]). The CPU tests hold
+    it to the card's tolerances against the JAX kernel; no CUDA path calls
+    it."""
+    Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
+    qh, kh, v, _, _ = _normalised_qkv(qkv, Bn, N, H, C // H)
+    scale, m = shift_and_scale(logit_scale, bias)
+    rnd = _mxu_bf16_default(mxu_bf16)
+
+    def probs(s_cos):
+        x = _add_shift_mask(s_cos * scale[:, None, None] + bias.float(), qkv,
+                            ws, shift, nWh, nWw)
+        return torch.exp2(x * _LOG2E - (m * _LOG2E)[:, None, None])
+
+    ev, e = _fwd_products(qh, kh, v, qkv.dtype == torch.bfloat16, rnd, rnd,
+                          probs)
+    r = 1.0 / e.sum(-1).clamp_min(1e-30)
+    out = (ev * r[..., None]).permute(0, 2, 1, 3).reshape(Bn, N, C)
+    return out, r
+
+
 def _core_bwd_split(q, k, v, bias, scale, mask, g, v_bf16, g_bf16):
     """``_core_bwd`` with every product formed as the K7b/K8b kernels form
     it when ``round_ops`` is off (``_split_bwd``). The CPU tests hold this
@@ -835,8 +921,9 @@ def window_attention_map_bwd_plain(qkv, bias, logit_scale, g, shift: int = 0,
 def window_attention_fwd(q, k, v, bias, logit_scale, mask=None):
     """Head-layout window attention forward (K8): q, k, v [Bn, H, N, hd],
     bias [H, N, N], logit_scale [H], mask [nW, N, N] or None → [Bn, H, N,
-    hd] in q's dtype. CUDA tensors run ``csrc/window_attention.cu`` (bf16 or
-    fp32, head dim 32; anything else raises); CPU tensors run
+    hd] in q's dtype. CUDA tensors run the tensor-core forward passes of
+    ``csrc/window_attention.cu`` (bf16 or fp32, head dim 32; anything else
+    raises; ``_core_fwd_split`` is their arithmetic); CPU tensors run
     ``window_attention_plain``."""
     mask = _mask_tensor(mask, q.device)
     Bn, H, N, hd = _head_geometry(q, k, v, bias, logit_scale, mask,
@@ -845,15 +932,16 @@ def window_attention_fwd(q, k, v, bias, logit_scale, mask=None):
         return window_attention_plain(q, k, v, bias, logit_scale, mask)
     _check_cuda(q, Bn, hd, "window_attention")
     dev, dt = q.device, q.dtype
-    q, k, v = q.contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous()
+    q, k, v = (_aligned(t.to(dt).contiguous()) for t in (q, k, v))
     bias, scale = _f32(bias, dev), _f32(logit_scale.reshape(-1), dev)
     mask = None if mask is None else mask.contiguous()
     out = torch.empty_like(q)
     bf = int(dt == torch.bfloat16)
+    ops, lr = _fwd_scratch(Bn, H, N, 2 - bf, True, dev)
     err = _lib("window_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         scale.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        out.data_ptr(), bf, bf, Bn,
+        out.data_ptr(), lr.data_ptr(), ops.data_ptr(), bf, bf, Bn,
         _geo(N, H, nWmask=0 if mask is None else mask.shape[0], round_p=bf),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_fwd.launches += 1
@@ -905,24 +993,28 @@ def window_attention_map_fwd(qkv, bias, logit_scale, shift: int = 0,
                              mxu_bf16: bool = False):
     """Map-layout window attention forward (K7): qkv [B, Hp, Wp, 3, H, hd]
     as the projection writes it (already rolled for ``shift`` > 0), read in
-    place → fp32 [B, Hp, Wp, H, hd]. CUDA tensors run
-    ``csrc/window_attention.cu``; CPU tensors ``window_attention_map_plain``."""
+    place → fp32 [B, Hp, Wp, H, hd]. CUDA tensors run the tensor-core
+    forward passes of ``csrc/window_attention.cu`` (``_core_fwd_split`` is
+    their arithmetic); CPU tensors ``window_attention_map_plain``."""
     B, Hp, Wp, H, hd, ws, N = _map_geometry(qkv, bias, logit_scale,
                                             "window_attention_map")
     if qkv.device.type == "cpu":
         return window_attention_map_plain(qkv, bias, logit_scale, shift,
                                           mxu_bf16)
     nWh, nWw = Hp // ws, Wp // ws
-    _check_cuda(qkv, B * nWh * nWw, hd, "window_attention_map")
+    Bn = B * nWh * nWw
+    _check_cuda(qkv, Bn, hd, "window_attention_map")
     dev, r = qkv.device, _mxu_bf16_default(mxu_bf16)
-    qkv = qkv.contiguous()
+    qkv = _aligned(qkv.contiguous())
     bias, scale = _f32(bias, dev), _f32(logit_scale.reshape(-1), dev)
     out = torch.empty((B, Hp, Wp, H, hd), dtype=torch.float32, device=dev)
+    bf = int(qkv.dtype == torch.bfloat16)
+    ops, lr = _fwd_scratch(Bn, H, N, 2 - bf, True, dev)
     step = H * hd * qkv.element_size()
     err = _lib("window_attention_fwd")(
         qkv.data_ptr(), qkv.data_ptr() + step, qkv.data_ptr() + 2 * step,
-        bias.data_ptr(), scale.data_ptr(), 0, out.data_ptr(),
-        int(qkv.dtype == torch.bfloat16), 0, B * nWh * nWw,
+        bias.data_ptr(), scale.data_ptr(), 0, out.data_ptr(), lr.data_ptr(),
+        ops.data_ptr(), bf, 0, Bn,
         _geo(N, H, ws, shift, nWh, nWw, 0, r, r, 1, Hp, Wp),
         torch.cuda.current_stream(dev).cuda_stream)
     window_attention_map_fwd.launches += 1

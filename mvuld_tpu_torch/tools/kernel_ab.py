@@ -1,21 +1,28 @@
 """Same-card A/B of the kernels' times between source trees.
 
-  python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...] [--phase mlp dense]
-      [--sass fused_dense ...] [--sass-dir DIR]
+  python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...]
+      [--phase mlp dense attention layouts] [--sass window_attention ...]
+      [--sass-dir DIR]
 
 For each TREE in the order given (parent, change, change, parent, say),
 one fresh Python process with TREE as its working directory imports that
-tree's ``chip_smoke.py`` and ``mvuld_tpu_torch``, builds the tree's kernels
-and runs its checks of the chosen phases (each kernel against its plain
-version, then timed on CUDA events):
+tree's ``chip_smoke.py`` and ``mvuld_tpu_torch``, builds every kernel source
+of the tree and runs its checks of the chosen phases (each kernel against
+its plain version, then timed on CUDA events):
 
-  mlp    K3 and K3b at the bucket-16 and batch-64 SwinV2 shapes, K4 and
-         K4b at the e2e model's shapes (``check_mlp`` / ``check_mlp_bwd``)
-  dense  K6 and K6b at blockbench's shapes (``check_dense``)
+  mlp        K3 and K3b at the bucket-16 and batch-64 SwinV2 shapes, K4 and
+             K4b at the e2e model's shapes (``check_mlp`` / ``check_mlp_bwd``)
+  dense      K6 and K6b at blockbench's shapes (``check_dense``)
+  attention  K1 and K2 at the bucket-16 shapes, K1, K2 and K5 at the
+             batch-64 fine-tune's (``check_attention``)
+  layouts    K7, K7b, K8 and K8b at every stage's bucket-16 shape
+             (``check_layouts``)
 
-and prints one line per kernel shape, then one JSON line
-``{"ab": [{"tree", "run", "kernel", "shape", "path", "ms", "plain_ms",
-"ok"}, ...]}``. Profiles are skipped. With ``--sass``, each tree also
+and prints one line per kernel shape, one line per kernel and path with
+the sum over its shapes of launches × ms (per bucket-16 forward, training
+step or pass, as ``chip_smoke.py`` counts them), then one JSON line
+``{"ab": [{"tree", "run", "kernel", "shape", "path", "per_fwd", "ms",
+"plain_ms", "ok"}, ...]}``. Profiles are skipped. With ``--sass``, each tree also
 prints a digest of every kernel's instructions in the named libraries
 (``cuobjdump -sass``, addresses and encodings dropped), by mangled name
 without its per-file prefix: equal digests mean the same machine code;
@@ -43,7 +50,8 @@ sass = [n for n in sys.argv[2].split(",") if n]
 dump_to = sys.argv[3]
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.profile_run = lambda *a, **k: None
-_build.build_all(["mlp_ln", "fused_dense"] + sass)
+_build.build_all(sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR)
+                        if f.endswith(".cu")))
 tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
 for name in sass:
     dump = subprocess.run([tool, "-sass", _build._lib_path(name)],
@@ -75,8 +83,13 @@ if "mlp" in phases:
     cs.check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", cs.K4_SHAPES)
 if "dense" in phases:
     cs.check_dense(dev, gen, rows)
+if "attention" in phases:
+    cs.check_attention(dev, gen, rows, cs.K1_SHAPES, "e2e")
+    cs.check_attention(dev, gen, rows, cs.SWIN_K1_SHAPES, "swin")
+if "layouts" in phases:
+    cs.check_layouts(dev, gen, rows)
 out = [dict(kernel=r["kernel"], shape=r["shape"], path=r["path"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
+            per_fwd=r["per_fwd"], ms=r["ms"], plain_ms=r["plain_ms"],
             ok=bool(r.get("ok", r["err"] <= (r["tol"] or 0.0))))
        for r in rows]
 print("AB_ROWS " + json.dumps(out), flush=True)
@@ -103,7 +116,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="source trees, in run order")
     ap.add_argument("--phase", nargs="+", default=["mlp", "dense"],
-                    choices=["mlp", "dense"])
+                    choices=["mlp", "dense", "attention", "layouts"])
     ap.add_argument("--sass", nargs="*", default=[],
                     help="libraries (csrc/<name>.cu) to digest")
     ap.add_argument("--sass-dir", default="",
@@ -115,13 +128,19 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         dump_to = (os.path.join(os.path.abspath(args.sass_dir), str(i))
                    if args.sass_dir else "")
+        totals = {}
         for r in run_tree(os.path.abspath(tree), args.phase, args.sass,
                           dump_to):
             r.update(tree=tree, run=i)
             results.append(r)
+            key = (r["kernel"], r["path"])
+            totals[key] = totals.get(key, 0.0) + r["per_fwd"] * r["ms"]
             print(f"run {i} {tree}: {r['kernel']} {r['shape']} [{r['path']}] "
                   f"ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
                   f"ok={r['ok']}", flush=True)
+        for (kernel, path), ms in totals.items():
+            print(f"run {i} {tree}: {kernel} [{path}] sum of launches × ms "
+                  f"{ms:.3f}", flush=True)
     print(json.dumps({"ab": results}), flush=True)
     return 0 if all(r["ok"] for r in results) else 1
 

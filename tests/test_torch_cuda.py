@@ -6,8 +6,10 @@ which the GPU machine need not have):
   python -m pytest --noconftest tests/test_torch_cuda.py -q
 Kernels: K1, K2, K5 (flat attention; K2 and K5 also at the model's
 windows, twice to the bit, on misaligned views, on an underflowing row and
-with ``mxu_bf16``), K7/K7b (map layout), K8/K8b (head layout with a mask
-operand), K3/K3b, K4/K4b (MLP + LayerNorm: bf16 and fp32 x, the model's
+with ``mxu_bf16``; K2 from K1's outputs), K7/K7b (map layout), K8/K8b
+(head layout with a mask operand; the three forwards K1, K7, K8 also at
+the model's windows, twice to the bit, on misaligned views, with
+``mxu_bf16``, K1 on an underflowing row), K3/K3b, K4/K4b (MLP + LayerNorm: bf16 and fp32 x, the model's
 shapes, ragged rows, misaligned views, a backward that repeats to the
 bit), K6/K6b (dense with its epilogue, bf16 and fp32). Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
@@ -780,3 +782,170 @@ def test_flat_kernels_mxu_bf16_match_rounded_plain(dev, kind, dtype):
                                    plain=True))
     for a, b, rel in zip(got, want, [2.0 ** -6] * 3 + [1e-3, 1e-2]):
         assert float((a.float() - b.float()).abs().max()) <= rel * big(b)
+
+
+# K1, K7 and K8 on the tensor-core forward passes of csrc/window_attention.cu,
+# at the model's windows: N = 49, 196 and 784 (ws 7, 14, 28: the last strip
+# of 16 rows ragged but at 784), unshifted and shifted on a 2×2 grid of
+# windows, bf16 and fp32, all three layouts on the same seeded numbers.
+# Tolerances as every forward's: fp32 outputs (K7's always) within 1e-4 of
+# their largest value, bf16 ones within two bf16 ulps, K1's row sums within
+# relative 1e-4; with ``mxu_bf16`` (kernel and plain version round the same
+# operands, a value on a rounding boundary may go either way, and the logit
+# it feeds moves by up to the scale times a bf16 ulp) outputs within two
+# bf16 ulps of their largest value and K1's row sums within relative 2⁻⁶.
+
+FORWARD_COUNTERS = {"k1": "window_attention_flat",
+                    "k7": "window_attention_map_fwd",
+                    "k8": "window_attention_fwd"}
+
+
+def _map_qkv(dev, seed, ws, dtype, B=2, H=2):
+    g, bias, ls = _attn_inputs(dev, seed, H, ws * ws, dtype)
+    qkv = torch.randn(B, 2 * ws, 2 * ws, 3, H, 32, device=dev, generator=g
+                      ).to(dtype)
+    return qkv, bias, ls
+
+
+def _off16(t):
+    """A copy of t whose first element sits 2 or 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+def _forward(kind, qkv, bias, ls, shift, mxu_bf16=False, plain=False,
+             view=lambda t: t):
+    """K1 (on the map re-laid as flat windows; returns [out, r]), K7 (the
+    map read in place) or K8 (q, k, v of the windows, the shift mask as an
+    operand); ``view`` is applied to the kernel's inputs."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    B, Hp, _, _, H, hd = qkv.shape
+    ws = math.isqrt(bias.shape[-1])
+    nW1, N, C = Hp // ws, ws * ws, H * hd
+    if kind == "k7":
+        fn = (wa.window_attention_map_plain if plain
+              else wa.window_attention_map_fwd)
+        return [fn(view(qkv), bias, ls, shift, mxu_bf16)]
+    if kind == "k8":
+        q, k, v = (view(t.to(qkv.dtype).contiguous())
+                   for t in wa._map_to_windows(qkv, ws))
+        mask = wa.window_region_mask(ws, shift, nW1, nW1) if shift else None
+        fn = wa.window_attention_plain if plain else wa.window_attention_fwd
+        return [fn(q, k, v, bias, ls, mask)]
+    flat = qkv.reshape(B, nW1, ws, nW1, ws, 3 * C).permute(
+        0, 1, 3, 2, 4, 5).reshape(B * nW1 * nW1, N, 3 * C)
+    fn = (wa.window_attention_flat_plain if plain
+          else wa.window_attention_flat)
+    return list(fn(view(flat), bias, ls, shift, nW1, nW1, return_rowsum=True,
+                   mxu_bf16=mxu_bf16))
+
+
+def _assert_forward_close(kind, got, want, mxu_bf16=False):
+    out, ref = got[0], want[0]
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    rel = (2.0 ** -6 if mxu_bf16 or out.dtype == torch.bfloat16 else 1e-4)
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= rel * float(ref.float().abs().max())
+    if kind == "k1":      # with mxu_bf16 a flipped q̂ or k̂ rounding moves r
+        assert float(((got[1] - want[1]) / want[1]).abs().max()) \
+            <= (2.0 ** -6 if mxu_bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("kind", ["k1", "k7", "k8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True], ids=["shift0", "shifted"])
+@pytest.mark.parametrize("ws", [7, 14, 28])
+def test_forward_kernels_at_the_model_windows(dev, ws, shifted, dtype, kind):
+    from mvuld_tpu_torch.ops import window_attention as wa
+    qkv, bias, ls = _map_qkv(dev, 40, ws, dtype)
+    shift = ws // 2 if shifted else 0
+    counter = getattr(wa, FORWARD_COUNTERS[kind])
+    before = counter.launches
+    got = _forward(kind, qkv, bias, ls, shift)
+    want = _forward(kind, qkv, bias, ls, shift, plain=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _assert_forward_close(kind, got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["k1", "k7"])
+def test_forward_kernels_mxu_bf16_match_rounded_plain(dev, kind, dtype):
+    qkv, bias, ls = _map_qkv(dev, 41, 14, dtype)
+    got = _forward(kind, qkv, bias, ls, 7, mxu_bf16=True)
+    want = _forward(kind, qkv, bias, ls, 7, mxu_bf16=True, plain=True)
+    _assert_forward_close(kind, got, want, mxu_bf16=True)
+    assert not torch.equal(got[0], _forward(kind, qkv, bias, ls, 7)[0])
+
+
+@pytest.mark.parametrize("kind", ["k1", "k7", "k8"])
+def test_forward_kernels_repeat_to_the_bit(dev, kind):
+    qkv, bias, ls = _map_qkv(dev, 42, 14, torch.bfloat16)
+    first = _forward(kind, qkv, bias, ls, 7)
+    again = _forward(kind, qkv, bias, ls, 7)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["k1", "k7", "k8"])
+def test_forward_kernels_take_views_off_a_16_byte_boundary(dev, kind):
+    """The kernels load 16 bytes a thread; a view that starts elsewhere is
+    copied by the wrapper, not refused."""
+    qkv, bias, ls = _map_qkv(dev, 43, 8, torch.bfloat16)
+    got = _forward(kind, qkv, bias, ls, 4, view=_off16)
+    want = _forward(kind, qkv, bias, ls, 4, plain=True)
+    _assert_forward_close(kind, got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_forward_underflowing_row(dev, dtype):
+    """Query row 3 of every window has each logit 90-110 below the fixed
+    shift m_h (scale 10, bias in [0, 1) but −90 on that row): its exps flush
+    to zero in the kernel (ex2.approx.ftz) and are subnormal in the plain
+    version, the row sum falls under the 1e-30 clamp on both sides, r =
+    1e30, and the output stays finite and within the usual tolerances."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    qkv, _, _, _ = _flat_inputs(dev, 44, 8, 8, 2, dtype)
+    g = torch.Generator(device=dev).manual_seed(45)
+    bias = torch.rand(2, 64, 64, device=dev, generator=g)
+    bias[:, 3, :] = -90.0
+    ls = torch.full((2,), 10.0, device=dev)
+    got = list(wa.window_attention_flat(qkv, bias, ls, 4, 2, 2,
+                                        return_rowsum=True))
+    want = list(wa.window_attention_flat_plain(qkv, bias, ls, 4, 2, 2,
+                                               return_rowsum=True))
+    assert bool((got[1][:, :, 3] == 1e30).all())
+    _assert_forward_close("k1", got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_backward_from_the_forward_kernel(dev, dtype):
+    """K2 from the new K1's output and row sums: within the backward's
+    tolerances of the plain backward fed the same (o, r); against the plain
+    backward fed the plain forward's (o, r) within those tolerances in fp32
+    and within relative L2 2e-2 in bf16, where a bf16 o may sit one rounding
+    step from the plain forward's and t = rowsum(g·o) moves with it."""
+    from mvuld_tpu_torch.ops import window_attention as wa
+    qkv, bias, ls, gout = _flat_inputs(dev, 46, 8, 14, 2, dtype)
+    geom = (7, 2, 2)
+    o, r = wa.window_attention_flat(qkv, bias, ls, *geom, return_rowsum=True)
+    got = _split_dqkv(wa.window_attention_flat_bwd(qkv, bias, ls, o, r, gout,
+                                                   *geom))
+    same = _split_dqkv(wa.window_attention_flat_bwd_plain(
+        qkv, bias, ls, o, r, gout, *geom))
+    for a, b, t in zip(got, same, _grad_tols(same, dtype)):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= t
+    want = _split_dqkv(_flat_grads("k2", qkv, bias, ls, gout, geom,
+                                   plain=True))
+    if dtype == torch.float32:
+        for a, b, t in zip(got, want, _grad_tols(want, dtype)):
+            assert float((a - b).abs().max()) <= t
+    else:
+        assert max(_rel_l2(a, b) for a, b in zip(got, want)) <= 2e-2

@@ -4,7 +4,8 @@ the head layout (K8/K8b) and the map layout (K7/K7b) against their Pallas
 kernels in interpret mode, autograd through the port's two entry points
 against ``jax.grad`` of the JAX references, and the card kernels'
 split-operand arithmetic (``_core_bwd_split`` for K7b/K8b,
-``_flat_bwd_split`` for K2/K5) against the Pallas backward kernels.
+``_flat_bwd_split`` for K2/K5, ``_core_fwd_split`` for K7/K8,
+``_flat_fwd_split`` for K1) against the Pallas kernels.
 
 Both compute the kernel numerics (rsqrt normalisation, fixed per-head
 softmax shift, row sums clamped at 1e-30, the shift mask from the window
@@ -481,6 +482,114 @@ def test_flat_split_underflowing_row(kind):
     _assert_card_tolerances(
         [got[0][..., i * C:(i + 1) * C] for i in range(3)] + list(got[1:]),
         want, False)
+
+
+# The forwards: K1 (one fixed-shift pass) and K7/K8 (a row pass, then the
+# output pass) form s and p·v on the card as bf16 tensor-core products of
+# split operands. ``_flat_fwd_split`` and ``_core_fwd_split`` are that
+# arithmetic, held here against the Pallas forwards in interpret mode at the
+# card's tolerances: fp32 outputs within 1e-4 of their largest value, bf16
+# outputs within two bf16 ulps of it, K1's row sums within relative 1e-4;
+# with ``mxu_bf16`` (both sides round the same operands to bf16, and a value
+# on a rounding boundary may go either way) outputs within two bf16 ulps.
+
+def _assert_fwd_close(got, want, rel):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def _fwd_rel(bf16, mxu):
+    return 2.0 ** -6 if bf16 or mxu else 1e-4
+
+
+def _flat_forward_against_pallas(qkv, bias, scale, geom, bf16, mxu):
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jq = jnp.asarray(qkv, jdt)
+    jo, jr = jwa.pallas_window_attention_flat(
+        jq, jnp.asarray(bias), jnp.asarray(scale), interpret=True,
+        return_rowsum=True, out_dtype=jdt, mxu_bf16=mxu, **geom)
+    tq = torch.as_tensor(np.array(jq.astype(jnp.float32)))
+    out, r = twa._flat_fwd_split(tq.bfloat16() if bf16 else tq,
+                                 *_t(bias, scale), **geom, mxu_bf16=mxu)
+    Bn, N = qkv.shape[:2]
+    want_r = torch.as_tensor(np.array(jr)).permute(1, 0, 2, 3).reshape(
+        Bn, -1, N)
+    assert float(((r - want_r) / want_r).abs().max()) <= 1e-4
+    _assert_fwd_close(out.bfloat16() if bf16 else out, jo,
+                      _fwd_rel(bf16, mxu))
+    return r
+
+
+FWD_CASES = [(shift, bf16, scale, False) for shift in (0, 2)
+                  for bf16 in (False, True) for scale in (None, 100.0)] + [
+    (2, bf16, None, True) for bf16 in (False, True)]
+FWD_IDS = [f"shift{s}_{'bf16' if b else 'fp32'}_"
+                f"{'scale100' if c else 'scale1'}{'_mxu_bf16' if m else ''}"
+                for s, b, c, m in FWD_CASES]
+
+
+@pytest.mark.parametrize("shift,bf16,scale100,mxu", FWD_CASES,
+                         ids=FWD_IDS)
+def test_flat_forward_split_products_match_pallas_interpret(shift, bf16,
+                                                            scale100, mxu):
+    qkv, bias, scale, _ = _flat_inputs(46)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    geom = dict(shift=shift, nWh=2, nWw=2) if shift else {}
+    _flat_forward_against_pallas(qkv, bias, scale, geom, bf16, mxu)
+
+
+def test_flat_forward_split_underflowing_row():
+    """Query row 3's row sum falls under the 1e-30 clamp: r = 1e30 on both
+    sides, and the output stays finite."""
+    qkv, bias, scale, _ = _underflowing_row_inputs(47)
+    r = _flat_forward_against_pallas(qkv, bias, scale, {}, False, False)
+    assert bool((r[:, :, 3] == 1e30).all()) and bool((r[:, :, 4] < 1e30).all())
+
+
+@pytest.mark.parametrize("shift,bf16,scale100,mxu", FWD_CASES,
+                         ids=FWD_IDS)
+def test_map_forward_split_products_match_pallas_interpret(shift, bf16,
+                                                           scale100, mxu):
+    """K7: the mask synthesised from the shift, fp32 output whatever qkv's
+    dtype (v takes one term when qkv is bf16)."""
+    qkv, bias, scale, _ = _map_inputs(48, hd=32)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    jq = jnp.asarray(qkv, jnp.bfloat16 if bf16 else jnp.float32)
+    want = jwa.pallas_window_attention_map(
+        jq, jnp.asarray(bias), jnp.asarray(scale), shift, interpret=True,
+        mxu_bf16=mxu)
+    tq, tb, ts = _t(np.array(jq.astype(jnp.float32)), bias, scale)
+    out = twa._core_fwd_split(*twa._map_to_windows(tq, 4), tb, ts,
+                              twa._map_mask(tq, 4, shift, 8, 8), bf16, mxu,
+                              mxu)
+    _assert_fwd_close(twa._windows_to_map(out, 2, 8, 8, 4), want,
+                      2.0 ** -6 if mxu else 1e-4)
+
+
+@pytest.mark.parametrize("masked,bf16,scale100", SPLIT_CASES, ids=SPLIT_IDS)
+def test_head_forward_split_products_match_pallas_interpret(masked, bf16,
+                                                            scale100):
+    """K8: the mask operand, output in q's dtype, p rounded to v's dtype
+    before p·v."""
+    q, k, v, bias, scale, _ = _head_inputs(49, hd=32)
+    if scale100:
+        scale = np.full_like(scale, scale100)
+    mask = _shift_mask() if masked else None
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = jwa.pallas_window_attention(jq, jk, jv, jnp.asarray(bias),
+                                       jnp.asarray(scale), mask,
+                                       interpret=True)
+    tq, tk, tv = _t(*(np.array(a.astype(jnp.float32)) for a in (jq, jk, jv)))
+    out = twa._core_fwd_split(tq, tk, tv, *_t(bias, scale),
+                              twa._mask_tensor(mask, tq.device), bf16, False,
+                              bf16)
+    _assert_fwd_close(out.bfloat16() if bf16 else out, want,
+                      _fwd_rel(bf16, False))
 
 
 def test_split_terms_rebuild_the_operand():
