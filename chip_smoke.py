@@ -126,6 +126,8 @@ GRAD_NOISE = 3.0         # … against fp32, or this × the plain bf16 path's
 # C = 512, Hd = 2048): (label, M, K, N, act, ln)
 DENSE_SHAPES = [("fc1_gelu", 64 * 784, 512, 2048, "gelu", False),
                 ("fc2_ln", 64 * 784, 2048, 512, "none", True)]
+# … and at a row count that no tile divides (path "ragged")
+DENSE_RAGGED = [("fc2_ln_ragged", 50000, 2048, 512, "none", True)]
 VEC_TOL = 1e-3           # K6b's fp32 column sums, relative L2
 
 # the staged path: functions cached and trained on (train / val / test),
@@ -870,11 +872,12 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e", fp32=False):
 
 def check_dense(dev, gen, rows, fp32=False):
     """K6 and K6b against their plain versions at blockbench's stage-3
-    shapes: the bf16 outputs (y, dz) within two bf16 ulps of their largest
-    value (with ``fp32`` x: 1e-4 of it), K6b's fp32 column sums (db, dγ,
-    dβ) within relative L2 VEC_TOL (sums over 50176 rows in another order).
-    Yardstick: ``torch.addmm`` on the product alone (the epilogue not
-    included)."""
+    shapes and the ragged one: the bf16 outputs (y, dz) within two bf16
+    ulps of their largest value (with ``fp32`` x: 1e-4 of it), K6b's fp32
+    column sums (db, dγ, dβ) within relative L2 VEC_TOL (sums over 50176
+    rows in another order). Yardstick: ``torch.addmm`` on the product alone
+    (the epilogue not included). One launch of each at blockbench's shapes
+    is profiled by pass (bf16)."""
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
@@ -882,7 +885,11 @@ def check_dense(dev, gen, rows, fp32=False):
     dtype = torch.float32 if fp32 else torch.bfloat16
     tol_of = ((lambda ref: 1e-4 * float(ref.abs().max())) if fp32  # noqa: E731
               else bf16_tol)
-    for label, M, K, N, act, ln in DENSE_SHAPES:
+    base = "fp32" if fp32 else "blockbench"
+    for label, M, K, N, act, ln, path in (
+            [(*d, base) for d in DENSE_SHAPES]
+            + [(*d, ("fp32 " if fp32 else "") + "ragged")
+               for d in DENSE_RAGGED]):
         r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev,  # noqa: E731
                                                 generator=gen)
         x, w, b = r(M, K).to(dtype), r(K, N, sc=K ** -0.5), r(N, sc=0.02)
@@ -897,7 +904,6 @@ def check_dense(dev, gen, rows, fp32=False):
         wb, bb = w.to(dtype), b.to(dtype)
         lib_ms = time_ms(lambda: torch.addmm(bb, x, wb), 10)
         shape = f"{label} M={M} K={K} N={N}" + (" fp32" if fp32 else "")
-        path = "fp32" if fp32 else "blockbench"
         size = x.element_size()
         t_ops = 2 * M * K * N * (3 if fp32 else 1) / BF16_TC_FLOP_S * 1e3
         err = float((got.float() - want.float()).abs().max())
@@ -928,6 +934,11 @@ def check_dense(dev, gen, rows, fp32=False):
                          t_bytes=((M * K + K * N + 2 * M * N) * size
                                   + len(vecs) * N * 4) / HBM_BYTES_S * 1e3,
                          t_ops=t_ops))
+        if path == "blockbench":
+            profile_run(f"K6 {label} launch", lambda: fd.dense_fwd(*fargs),
+                        category=_dense_pass)
+            profile_run(f"K6b {label} launch", lambda: fd.dense_bwd(*bargs),
+                        category=_dense_pass)
         del x, dy, got, want, dz, dz_p
 
 
@@ -1745,9 +1756,10 @@ def _category(name: str) -> str:
         return "K1/K7/K8 window attention forward: operand prep"
     if "attn_bwd" in name or "prep_operands" in name:
         return "K2/K5/K7b/K8b window attention backward passes"
-    if "dense_fwd" in name:
+    if "dense_ln_rows" in name or (
+            "DenseEpi" in name and not _backward_tag(name, "DenseEpi")):
         return "K6 dense_fwd"
-    if "dense_bwd_rows" in name:
+    if any(k in name for k, _ in DENSE_PASSES):
         return "K6b dense_bwd"
     if "ln_rows_fwd" in name or any(
             k in name and not _backward_tag(name, k) for k in _TAGGED):
@@ -1789,6 +1801,22 @@ def _backward_tag(name: str, key: str) -> bool:
     args = (tail[:tail.find(">") + 1] if tail.startswith("<")
             else tail[:tail.find("EE") + 2])
     return args.endswith("true>") or args.endswith("Lb1EE")
+
+
+# csrc/fused_dense.cu's passes by a piece of their kernel's name; DenseEpi
+# serves both directions (its last template argument tells the backward's)
+DENSE_PASSES = (("DenseDzEpi", "dz = dy·GELU′(x·W + b) (db partials)"),
+                ("DenseEpi", "x·W + b, act (y, or a or z fp32)"),
+                ("dense_ln_rows", "LayerNorm rows"),
+                ("dense_ln_stats", "LayerNorm backward row statistics"),
+                ("dense_dz_cols", "dz, column partials"))
+
+
+def _dense_pass(name: str) -> str:
+    for key, label in DENSE_PASSES + MLP_PASSES[-3:]:
+        if key in name:
+            return label
+    return _category(name)
 
 
 def _mlp_pass(name: str) -> str:
@@ -1963,6 +1991,8 @@ def main() -> int:
     bad = []
     per = lambda r: {"blockbench": "blockbench iteration",  # noqa: E731
                      "ops": "entry-point pass", "fp32": "launch (fp32 x)",
+                     "ragged": "launch (ragged M)",
+                     "fp32 ragged": "launch (fp32 x, ragged M)",
                      "swin": f"batch-{SWIN_BATCH} fine-tune step"}.get(
         r["path"], "batch-16 step" if "bwd" in r["kernel"]
         else "bucket-16 forward")

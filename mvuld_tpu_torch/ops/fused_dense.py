@@ -37,8 +37,9 @@ fp32; anything else raises); CPU tensors run the plain versions. The
 wrappers never fall back from one to the other. With fp32 x the kernels
 split each fp32 operand into two bf16 terms and add three tensor-core
 products per product (hi·hi + hi·lo + lo·hi, fp32 sums, about 2⁻¹⁷ of each
-product, no TF32); ``_mlp_ln_split`` repeats their arithmetic in plain
-PyTorch for the CPU tests.
+product, no TF32); ``_mlp_ln_split`` and ``_dense_split`` repeat their
+arithmetic in plain PyTorch for the CPU tests, and ``dense_envelope`` states
+the shapes K6/K6b take.
 """
 
 from __future__ import annotations
@@ -383,8 +384,8 @@ mlp_ln_res_bwd.launches = 0
 
 # ------------------------------------------------------- K6 / K6b: dense_*
 
-_DENSE_TM = 16                 # the kernels' row tile
-_SMEM_LIMIT = 227 * 1024       # shared memory one block may use on sm_90
+# the GEMM core's grid holds at most 65535 row tiles of 128 rows
+_DENSE_MAX_M = 65535 * 128
 
 
 def _check_dense(x, w, b, gamma, beta, ln: bool):
@@ -397,6 +398,24 @@ def _check_dense(x, w, b, gamma, beta, ln: bool):
     if bad:
         raise ValueError(f"fused dense: shapes {bad} do not fit w "
                          f"[K={K}, N={N}]")
+
+
+def dense_envelope(M: int, K: int, N: int, dtype) -> None:
+    """The shapes and types K6/K6b take, checked before any launch: x
+    [M, K] @ W [K, N] in bf16 or fp32, K and N positive multiples of 16 (the
+    GEMM core copies 16 bytes at a time), 1 ≤ M ≤ 65535·128 (its grid of
+    row tiles). Ragged M, K and N are zero-filled by the core's copies, and
+    the LayerNorm row passes walk a row of any length, so LN sets no limit.
+    Raises ValueError; a pure function of its arguments."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"dense kernels: x dtype {dtype} (want bfloat16 or "
+                         f"float32)")
+    if K < 16 or N < 16 or K % 16 or N % 16:
+        raise ValueError(f"dense kernels: K={K} and N={N} must be positive "
+                         f"multiples of 16")
+    if not 1 <= M <= _DENSE_MAX_M:
+        raise ValueError(f"dense kernels: M={M} rows (want 1 to "
+                         f"{_DENSE_MAX_M})")
 
 
 def _epilogue(z, act: str, ln: bool, gamma, beta):
@@ -415,13 +434,9 @@ def dense_fwd_plain(x, w, b, gamma=None, beta=None, act: str = "gelu",
     return _epilogue(z, act, ln, gamma, beta).to(x.dtype)
 
 
-def dense_bwd_plain(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
-    """Plain PyTorch version of K6b on x [M, K], dy [M, N]: (dz [M, N] in
-    x's dtype, vecs [1 or 3, N] fp32: db, and dγ, dβ with ``ln``)."""
-    dt = x.dtype
-    z = x.float() @ w.to(dt).float() + b.float()
-    a = gelu(z) if act == "gelu" else z
-    d = dy.to(dt).float()
+def _dense_bwd_vecs(z, a, d, gamma, act: str, ln: bool):
+    """dz (fp32) and the column sums [db (, dγ, dβ)] from z, a = act(z)
+    and the output gradient d (fp32)."""
     vecs = []
     if ln:
         zc = a - a.mean(-1, keepdim=True)
@@ -433,56 +448,76 @@ def dense_bwd_plain(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
              - zhat * (dg * zhat).mean(-1, keepdim=True)) * rstd
     if act == "gelu":
         d = d * gelu_grad(z)
-    return d.to(dt), torch.stack([d.sum(0)] + vecs)
+    return d, [d.sum(0)] + vecs
+
+
+def dense_bwd_plain(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
+    """Plain PyTorch version of K6b on x [M, K], dy [M, N]: (dz [M, N] in
+    x's dtype, vecs [1 or 3, N] fp32: db, and dγ, dβ with ``ln``)."""
+    dt = x.dtype
+    z = x.float() @ w.to(dt).float() + b.float()
+    a = gelu(z) if act == "gelu" else z
+    d, vecs = _dense_bwd_vecs(z, a, dy.to(dt).float(), gamma, act, ln)
+    return d.to(dt), torch.stack(vecs)
+
+
+def _dense_split(x, w, b, gamma=None, beta=None, act: str = "gelu",
+                 ln: bool = False, dy=None):
+    """``csrc/fused_dense.cu``'s arithmetic in plain PyTorch, for the CPU
+    tests (nothing on the main path calls it): x and W in x's type as bf16
+    terms (two for fp32, ``_terms``) and three products for one
+    (``_mm_terms``); z, the LayerNorm and the column sums fp32; dz rounded
+    to x's type as the passes write it, then dx = dz·Wᵀ and dW = xᵀ·dz with
+    fp32 sums as ``_FusedDense.backward`` takes them. Returns y in x's type,
+    or with ``dy`` (y, (dx, dW, db[, dγ, dβ]))."""
+    dt = x.dtype
+    parts = 2 if dt == torch.float32 else 1
+    xf, wb = x.float(), w.to(dt).float()
+    z = _mm_terms(_terms(xf, parts), _terms(wb, parts)) + b.float()
+    a = gelu(z) if act == "gelu" else z
+    y = _epilogue(a, "none", ln, gamma, beta).to(dt)
+    if dy is None:
+        return y
+    d, vecs = _dense_bwd_vecs(z, a, dy.to(dt).float(), gamma, act, ln)
+    dzb = d.to(dt).float()
+    return y, ((dzb @ wb.t()).to(dt), xf.t() @ dzb, *vecs)
 
 
 def _dense_lib(name):
     fn = getattr(_build.load("fused_dense"), name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 6 + [I] * 5 + [F, I, P, P]
-                       if name == "dense_act_ln_fwd"
-                       else [P] * 8 + [I] * 5 + [F, I, I, P, P])
-        fn.restype = ctypes.c_int
+        fn.argtypes = {
+            "dense_work_bytes": [I] * 8,
+            "dense_act_ln_fwd": [P] * 6 + [I] * 5 + [F, I, P, P],
+            "dense_act_ln_bwd": [P] * 7 + [I] * 5 + [F, I, P, I, P],
+        }[name]
+        fn.restype = (ctypes.c_size_t if name == "dense_work_bytes"
+                      else ctypes.c_int)
     return fn
 
 
-def _check_dense_kernel(x, K, N, ln, what, backward):
+def _dense_launch_args(x, w, b, gamma, beta, act, ln, what, backward):
+    """Check the device and the envelope, then x and W in x's type, the
+    vectors fp32, the launch's scratch (``dense_work_bytes``: the LN
+    scratch, the column partials, fp32 x's split operands; freed when the
+    call returns) and the card's multiprocessor count."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"{what} kernel: x dtype {x.dtype} (want bfloat16 "
-                         f"or float32)")
-    if K % 16 or N % 16:
-        raise ValueError(f"{what} kernel: K={K} and N={N} must be multiples "
-                         f"of 16")
-    tm = _DENSE_TM
-    terms = 2 if x.dtype == torch.float32 else 1   # bf16 planes of the x tile
-    smem = terms * tm * K * 2 + tm * 128 * 4
-    if ln or backward:
-        smem += tm * N * 4
-    if backward:
-        smem += (3 if ln else 1) * N * 4 + tm * 16
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{what} kernel: K={K}, N={N} need {smem} bytes of "
-                         f"shared memory (at most {_SMEM_LIMIT})")
-
-
-def _dense_operands(x, w, b, gamma, beta, ln):
-    """x and W in x's type, the vectors fp32, and for fp32 x the scratch
-    into which the kernel splits W ([2, K, N] bf16 terms)."""
+    (M, K), N = x.shape, w.shape[1]
+    dense_envelope(M, K, N, x.dtype)
     dev = x.device
     f32 = lambda v: v.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
-    wk = _aligned(w.to(device=dev, dtype=x.dtype))
-    g = f32(gamma) if ln else f32(b)       # unread without LN
-    bt = f32(beta) if ln else g
-    terms = (torch.empty((2, *w.shape), dtype=torch.bfloat16, device=dev)
-             if x.dtype == torch.float32 else None)
-    return _aligned(x), wk, f32(b), g, bt, terms
-
-
-def _ptr(t):
-    return 0 if t is None else t.data_ptr()
+    bf = f32(b)
+    g = f32(gamma) if ln else bf       # unread without LN
+    bt = f32(beta) if ln and beta is not None else g
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = _dense_lib("dense_work_bytes")(
+        M, K, N, int(act == "gelu"), int(ln), int(x.dtype == torch.float32),
+        int(backward), sms)
+    work = torch.empty(n, dtype=torch.uint8, device=dev)
+    return (_aligned(x), _aligned(w.to(device=dev, dtype=x.dtype)), bf, g, bt,
+            work, sms)
 
 
 def dense_fwd(x, w, b, gamma=None, beta=None, act: str = "gelu",
@@ -493,15 +528,15 @@ def dense_fwd(x, w, b, gamma=None, beta=None, act: str = "gelu",
     _check_dense(x, w, b, gamma, beta, ln)
     if x.device.type == "cpu":
         return dense_fwd_plain(x, w, b, gamma, beta, act, ln)
+    x2, wk, bf, gf, btf, work, _ = _dense_launch_args(
+        x, w, b, gamma, beta, act, ln, "dense_fwd", False)
     (M, K), N = x.shape, w.shape[1]
-    _check_dense_kernel(x, K, N, ln, "dense_fwd", False)
-    x2, wk, bf, gf, btf, terms = _dense_operands(x, w, b, gamma, beta, ln)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _dense_lib("dense_act_ln_fwd")(
         x2.data_ptr(), wk.data_ptr(), bf.data_ptr(), gf.data_ptr(),
         btf.data_ptr(), out.data_ptr(), M, K, N, int(act == "gelu"), int(ln),
-        _LN_EPS, int(terms is not None), _ptr(terms), stream)
+        _LN_EPS, int(x.dtype == torch.float32), work.data_ptr(), stream)
     dense_fwd.launches += 1
     _build.check(err, "dense_fwd")
     return out
@@ -515,23 +550,19 @@ def dense_bwd(x, w, b, gamma, dy, act: str = "gelu", ln: bool = False):
     _check_dense(x, w, b, gamma, gamma, ln)
     if x.device.type == "cpu":
         return dense_bwd_plain(x, w, b, gamma, dy, act, ln)
+    x2, wk, bf, gf, _, work, sms = _dense_launch_args(
+        x, w, b, gamma, None, act, ln, "dense_bwd", True)
     (M, K), N = x.shape, w.shape[1]
-    _check_dense_kernel(x, K, N, ln, "dense_bwd", True)
     dev = x.device
-    x2, wk, bf, gf, _, terms = _dense_operands(x, w, b, gamma, gamma, ln)
-    dy2 = dy.reshape(M, N).to(x.dtype).contiguous()
-    nvec = 3 if ln else 1
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    G = min(-(-M // _DENSE_TM), 2 * sms)
+    dy2 = _aligned(dy.reshape(M, N).to(x.dtype))
     dz = torch.empty((M, N), dtype=x.dtype, device=dev)
-    vecs = torch.empty((nvec, N), dtype=torch.float32, device=dev)
-    col_part = torch.empty((G, nvec * N), dtype=torch.float32, device=dev)
+    vecs = torch.empty((3 if ln else 1, N), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _dense_lib("dense_act_ln_bwd")(
         x2.data_ptr(), wk.data_ptr(), bf.data_ptr(), gf.data_ptr(),
-        dy2.data_ptr(), dz.data_ptr(), vecs.data_ptr(), col_part.data_ptr(),
-        M, K, N, int(act == "gelu"), int(ln), _LN_EPS, G,
-        int(terms is not None), _ptr(terms), stream)
+        dy2.data_ptr(), dz.data_ptr(), vecs.data_ptr(), M, K, N,
+        int(act == "gelu"), int(ln), _LN_EPS, int(x.dtype == torch.float32),
+        work.data_ptr(), sms, stream)
     dense_bwd.launches += 1
     _build.check(err, "dense_bwd")
     return dz, vecs

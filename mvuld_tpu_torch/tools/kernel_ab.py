@@ -12,7 +12,8 @@ its plain version, then timed on CUDA events):
 
   mlp        K3 and K3b at the bucket-16 and batch-64 SwinV2 shapes, K4 and
              K4b at the e2e model's shapes (``check_mlp`` / ``check_mlp_bwd``)
-  dense      K6 and K6b at blockbench's shapes (``check_dense``)
+  dense      K6 and K6b at blockbench's shapes and a ragged row count, bf16
+             and fp32 x (``check_dense``)
   attention  K1 and K2 at the bucket-16 shapes, K1, K2 and K5 at the
              batch-64 fine-tune's (``check_attention``)
   layouts    K7, K7b, K8 and K8b at every stage's bucket-16 shape
@@ -83,6 +84,7 @@ if "mlp" in phases:
     cs.check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", cs.K4_SHAPES)
 if "dense" in phases:
     cs.check_dense(dev, gen, rows)
+    cs.check_dense(dev, gen, rows, fp32=True)
 if "attention" in phases:
     cs.check_attention(dev, gen, rows, cs.K1_SHAPES, "e2e")
     cs.check_attention(dev, gen, rows, cs.SWIN_K1_SHAPES, "swin")

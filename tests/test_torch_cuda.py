@@ -11,7 +11,9 @@ with ``mxu_bf16``; K2 from K1's outputs), K7/K7b (map layout), K8/K8b
 the model's windows, twice to the bit, on misaligned views, with
 ``mxu_bf16``, K1 on an underflowing row), K3/K3b, K4/K4b (MLP + LayerNorm: bf16 and fp32 x, the model's
 shapes, ragged rows, misaligned views, a backward that repeats to the
-bit), K6/K6b (dense with its epilogue, bf16 and fp32). Tolerances: fp32
+bit), K6/K6b (dense with its epilogue, bf16 and fp32, at the GEMM core's
+tile edges, blockbench's shapes and a 3072-wide LayerNorm; a backward that
+repeats to the bit). Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
 and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
 at the largest value (both round one fp32 result to bf16).
@@ -379,6 +381,79 @@ def test_dense_kernels_take_fp32(dev, act, ln):
     gx, gw = torch.autograd.grad(out, (xg, wg), dy)
     assert _rel_l2(gx, dz_p @ w.t()) <= 1e-4
     assert _rel_l2(gw, x.t() @ dz_p) <= 1e-4
+
+
+# (M, K, N): tile edges of the GEMM core (rows past 128, K past a 64-deep
+# k-step, N past a 128-column tile), blockbench's fc1 and fc2, and a
+# LayerNorm over 3072 columns
+DENSE_EDGES = [(37, 64, 256), (200, 256, 64), (130, 80, 144)]
+DENSE_CASES = ([(M, K, N, act, ln) for M, K, N in DENSE_EDGES
+                for act, ln in (("gelu", False), ("none", True),
+                                ("gelu", True), ("none", False))]
+               + [(64 * 784, 512, 2048, "gelu", False),
+                  (64 * 784, 2048, 512, "none", True),
+                  (300, 512, 3072, "gelu", True)])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,act,ln", DENSE_CASES)
+def test_dense_passes_match_plain(dev, M, K, N, act, ln, dtype):
+    """K6 and K6b on the GEMM core against their plain versions: y and dz
+    within two bf16 ulps of their largest values (fp32 x: 1e-4 of them),
+    the column sums within relative L2 1e-3 (fp32 sums in another
+    order)."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    r = lambda *s, sc=1.0: sc * torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    x, w, b = r(M, K).to(dtype), r(K, N, sc=K ** -0.5), r(N, sc=0.1)
+    gamma, beta, dy = 1 + r(N, sc=0.1), r(N, sc=0.1), r(M, N).to(dtype)
+    f0, b0 = fd.dense_fwd.launches, fd.dense_bwd.launches
+    y = fd.dense_fwd(x, w, b, gamma, beta, act, ln)
+    dz, vecs = fd.dense_bwd(x, w, b, gamma, dy, act, ln)
+    y_p = fd.dense_fwd_plain(x, w, b, gamma, beta, act, ln)
+    dz_p, vecs_p = fd.dense_bwd_plain(x, w, b, gamma, dy, act, ln)
+    torch.cuda.synchronize()
+    assert fd.dense_fwd.launches == f0 + 1 and fd.dense_bwd.launches == b0 + 1
+    assert y.dtype == dz.dtype == dtype and y.shape == dz.shape == (M, N)
+    for a, want in ((y, y_p), (dz, dz_p)):
+        tol = (1e-4 * float(want.abs().max()) if dtype == torch.float32
+               else _bf16_tol(want))
+        assert float((a.float() - want.float()).abs().max()) <= tol
+    assert vecs.shape == vecs_p.shape == ((3 if ln else 1), N)
+    assert _rel_l2(vecs, vecs_p) <= 1e-3
+
+
+@pytest.mark.parametrize("act,ln", [("gelu", False), ("none", True),
+                                    ("none", False)])
+def test_dense_bwd_repeats_to_the_bit(dev, act, ln):
+    """K6b's column sums go through per-tile or per-row-group partials
+    added in a fixed order, with no atomics: two launches give the same
+    bits, at a row count that makes many partials."""
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(5003, 256, device=dev, generator=g).bfloat16()
+    w = torch.randn(256, 512, device=dev, generator=g) / 16
+    b, gamma = torch.zeros(512, device=dev), torch.ones(512, device=dev)
+    dy = torch.randn(5003, 512, device=dev, generator=g).bfloat16()
+    first = fd.dense_bwd(x, w, b, gamma, dy, act, ln)
+    second = fd.dense_bwd(x, w, b, gamma, dy, act, ln)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_dense_ln_autograd_runs_the_kernels(dev):
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    x = torch.randn(130, 80, device=dev).bfloat16().requires_grad_()
+    w = (0.1 * torch.randn(80, 144, device=dev)).requires_grad_()
+    b = torch.zeros(144, device=dev, requires_grad=True)
+    gamma = torch.ones(144, device=dev, requires_grad=True)
+    beta = torch.zeros(144, device=dev, requires_grad=True)
+    f0, b0 = fd.dense_fwd.launches, fd.dense_bwd.launches
+    y = fd.dense_ln(x, w, b, gamma, beta, "gelu")
+    grads = torch.autograd.grad(y.float().sum(), (x, w, b, gamma, beta))
+    assert fd.dense_fwd.launches == f0 + 1 and fd.dense_bwd.launches == b0 + 1
+    assert grads[0].dtype == torch.bfloat16 and grads[0].shape == x.shape
+    assert all(torch.isfinite(t.float()).all() for t in grads)
 
 
 def test_dense_autograd_runs_the_kernels(dev):
