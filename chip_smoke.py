@@ -63,7 +63,14 @@ Phases, in order; any failure exits non-zero:
      SwinV2-Base-448 as frozen featurizers filling the fusion cache columns
      (``encode_cache_columns``), and ``train_fusion.main`` on those caches
      with the splits resident on the card;
-  9. print the kernels JSON line, the card line, and the result line last.
+  9. the fusion zoo on those caches at production width: each of the 23
+     keys of ``FUSION_MODELS`` at batch 32, one train-mode step (dropout
+     0) on the card against the same weights on the CPU in fp32 (logits,
+     loss, gradients, BatchNorm statistics), the time of a train step
+     (dropout on, AdamW) and of an eval forward; ``train_fusion.main
+     --arch`` for four keys; each bilinear operator's forward and backward
+     on the card against the CPU;
+  10. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -138,6 +145,30 @@ FUSION_BATCH = 32
 FUSION_EPOCHS = 3
 # the op entry points' pass: these K1_SHAPES rows, once each
 OPS_SHAPES = ((1, 14), (3, 0))         # (stage, shift)
+# the fusion zoo on the staged caches: every key at batch 32, one
+# train-mode step (dropout 0) on the card against the CPU, in fp64 and in
+# fp32 (TF32 off): relative L2 of the logits, the loss and the BatchNorm
+# statistics within ZOO_TOL, of each gradient tensor within ZOO_GRAD_TOL;
+# in fp32, where that fails, the card's error from the CPU's fp64 result
+# within ZOO_NOISE × the CPU fp32 result's own (gradients that cancel in
+# exact arithmetic behind a train-mode BN over features nearly constant
+# across the batch, the GRU keys' final state; var = E[x²] − E[x]² of a
+# BN whose inputs share a large mean); ZOO_TIMED timed train steps
+# (dropout on, AdamW) and eval forwards; the
+# CLI for the paper's two ablation runs, the key that reads ntype and the
+# GRU key with final dropout; every bilinear operator at 512 × 512 → 512,
+# batch 256 (RelationalNetwork over sets of 16 × 512)
+ZOO_BATCH = 32
+ZOO_TOL = 1e-4
+ZOO_GRAD_TOL = 1e-3
+ZOO_NOISE = 3.0
+ZOO_TIMED = 5
+ZOO_CLI_KEYS = ("multi_defect_nofunc", "multi_defect_nograph",
+                "multi_defect_allnode", "multi_defect_grudot")
+ZOO_PROFILED = "multi_defect_grudot"   # the slowest step: a profile of one
+BILINEAR_BATCH = 256
+BILINEAR_DIMS = (512, 512, 512)        # input_dims, output_dim
+BILINEAR_SET = (16, 512)               # RelationalNetwork's N, D
 
 # the published 448 image config
 # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
@@ -1581,16 +1612,50 @@ def ops_phase(dev, counters):
     return total
 
 
-def staged_phase(dev):
-    """The staged path at full width from seeded arrays. (a) The text
-    stage: ``build_text_training`` with UniXcoder-base takes a warm-up and
-    TRAIN_STEPS AdamW steps at batch 16 × 512 tokens. (b) The trained
-    encoder and SwinV2-Base-448 (plain layers, as the pipeline builds them)
-    as frozen featurizers fill the cache columns of sum(STAGED_SPLITS)
-    seeded functions through ``encode_cache_columns``. (c)
+def fusion_cli(dev, cache_dir: str, out: str, fopts, arch: str):
+    """``train_fusion.main --arch arch`` on the caches under ``cache_dir``
+    at FUSION_BATCH: its result, the logged losses and rates, its seconds
+    and its config. Fails on a loss count other than FUSION_EPOCHS epochs
+    of steps, a non-finite loss or a non-finite F1."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.train.train_fusion import main as fusion_main
+
+    t0 = time.time()
+    res = fusion_main(["--cache-dir", cache_dir, "--batch-size",
+                       str(FUSION_BATCH), "--output", out, "--arch", arch,
+                       "--device", dev.type, "--opts", *_opts_args(fopts)])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    fcfg = get_config(SimpleNamespace(
+        cfg=None, opts=fopts + ["DATA.BATCH_SIZE", FUSION_BATCH],
+        output=out))
+    with open(os.path.join(fcfg.OUTPUT, "log_rank0.txt")) as f:
+        lines = [line for line in f if ": loss " in line]
+    losses = [float(x.split(": loss ")[1].split()[0]) for x in lines]
+    rates = [float(x.split("(")[-1].split()[0]) for x in lines]
+    steps = FUSION_EPOCHS * (STAGED_SPLITS[0] // FUSION_BATCH)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"fusion {arch} losses: {losses}")
+    if not all(np.isfinite(h["f1"]) for h in res["history"]):
+        raise AssertionError(f"fusion {arch} metrics: {res['history']}")
+    return res, losses, rates, secs, fcfg
+
+
+def staged_phase(dev, work: str):
+    """The staged path at full width from seeded arrays, in ``work``. (a)
+    The text stage: ``build_text_training`` with UniXcoder-base takes a
+    warm-up and TRAIN_STEPS AdamW steps at batch 16 × 512 tokens. (b) The
+    trained encoder and SwinV2-Base-448 (plain layers, as the pipeline
+    builds them) as frozen featurizers fill the cache columns of
+    sum(STAGED_SPLITS) seeded functions through ``encode_cache_columns``
+    (node types seeded on the valid lines), written to ``work``/cache. (c)
     ``train_fusion.main`` trains ``multi_defect_new_gcn`` from those caches
     with TRAIN.DEVICE_DATA and TRAIN.DEVICE_EVAL on; then one fusion step is
-    profiled. A non-finite loss or an out-of-memory error fails the run."""
+    profiled. A non-finite loss or an out-of-memory error fails the run.
+    Returns the fusion stage's config opts."""
     import numpy as np
     import torch
 
@@ -1606,10 +1671,8 @@ def staged_phase(dev):
     from mvuld_tpu_torch.train.harness import to_device
     from mvuld_tpu_torch.train.train_fusion import (edge_bits, fusion_inputs,
                                                     load_cached_datasets)
-    from mvuld_tpu_torch.train.train_fusion import main as fusion_main
     from mvuld_tpu_torch.train.train_text import build_text_training
 
-    work = tempfile.mkdtemp(prefix="mvuld_staged_")
     opts = MODEL_OPTS + ["DATA.BATCH_SIZE", BATCH, "SEED", 0]
     cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output=work))
     n = sum(STAGED_SPLITS)
@@ -1657,6 +1720,8 @@ def staged_phase(dev):
     cols = precompute.empty_cache_columns(n, cfg)
     for key in ("pos", "adj", "node_mask"):
         cols[key][...] = arrs[key]
+    cols["ntype"][...] = (np.random.RandomState(6).randint(
+        0, 32, cols["ntype"].shape) * (arrs["node_mask"] > 0))
     rows_, nodes = np.nonzero(arrs["node_mask"] > 0)
     line_ids = arrs["node_ids"][rows_, nodes]
     torch.cuda.synchronize()
@@ -1697,25 +1762,11 @@ def staged_phase(dev):
     fopts = opts + ["TRAIN.DEVICE_DATA", True, "TRAIN.DEVICE_EVAL", True,
                     "TRAIN.EPOCHS", FUSION_EPOCHS, "PRINT_FREQ", 1,
                     "SAVE_FREQ", 0, "TRAIN.BEST_SAVE", "params"]
-    out = os.path.join(work, "fusion")
-    try:
-        t0 = time.time()
-        res = fusion_main(["--cache-dir", cache_dir, "--batch-size",
-                           str(FUSION_BATCH), "--output", out, "--device",
-                           dev.type, "--opts", *_opts_args(fopts)])
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        fcfg = get_config(SimpleNamespace(
-            cfg=None, opts=fopts + ["DATA.BATCH_SIZE", FUSION_BATCH],
-            output=out))
-        with open(os.path.join(fcfg.OUTPUT, "log_rank0.txt")) as f:
-            lines = [line for line in f if ": loss " in line]
-        losses = [float(x.split(": loss ")[1].split()[0]) for x in lines]
-        rates = [float(x.split("(")[-1].split()[0]) for x in lines]
-        train = load_cached_datasets(
-            {"train": os.path.join(cache_dir, "train.npz")})["train"]
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    res, losses, rates, secs, fcfg = fusion_cli(
+        dev, cache_dir, os.path.join(work, "fusion"), fopts,
+        "multi_defect_new_gcn")
+    train = load_cached_datasets(
+        {"train": os.path.join(cache_dir, "train.npz")})["train"]
     steps = FUSION_EPOCHS * (STAGED_SPLITS[0] // FUSION_BATCH)
     rate = statistics.median(rates[1:])
     print(f"staged fusion: train_fusion.main, {FUSION_EPOCHS} epochs of "
@@ -1726,10 +1777,6 @@ def staged_phase(dev):
           f"{[{k: round(v, 4) for k, v in h.items() if k in ('acc', 'f1', 'roc_auc')} for h in res['history']]}"
           f"; test { {k: round(v, 4) for k, v in res['test_metrics'].items() if k in ('acc', 'f1')} } "
           f"[{card_line()}]", flush=True)
-    if len(losses) != steps or not np.isfinite(losses).all():
-        raise AssertionError(f"staged fusion losses: {losses}")
-    if not all(np.isfinite(h["f1"]) for h in res["history"]):
-        raise AssertionError(f"staged fusion metrics: {res['history']}")
 
     # one fusion step under the profiler
     model = build_fusion_model(fcfg)
@@ -1743,6 +1790,228 @@ def staged_phase(dev):
                               fcfg.MODEL.LABEL_SMOOTHING, inputs)
     step()
     profile_run(f"staged fusion train step (batch {FUSION_BATCH})", step)
+    return fopts
+
+
+def _grads_and_stats(model, batch, inputs, label_smoothing):
+    """One train-mode step's logits, loss, parameter gradients and the
+    BatchNorm statistics it leaves, all on the host."""
+    import torch
+
+    from mvuld_tpu_torch.core.train_state import cross_entropy
+
+    logits = model(**inputs(batch), train=True)
+    loss = cross_entropy(logits, batch["label"], label_smoothing)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return (logits.detach().cpu(), loss.detach().cpu(),
+            {n: g.cpu() for n, g in zip(names, grads)}, stats)
+
+
+def _rel_l2(got, want) -> float:
+    """rel_l2 taken in fp64 (fp64 results keep their digits), or the
+    absolute L2 error where ``want`` is all zeros (the Rs-GCN blocks'
+    gradients behind their zero-initialised BN scale)."""
+    diff = float((got.double() - want.double()).norm())
+    norm = float(want.double().norm())
+    return diff / norm if norm > 0 else diff
+
+
+def _held(got, want, exact, tol):
+    """(relative L2 of the card's ``got`` against the CPU's ``want``, the
+    ratio of their errors from the CPU's fp64 ``exact`` where that exceeds
+    ``tol`` else None, whether it passes)."""
+    e = _rel_l2(got, want)
+    if e <= tol:
+        return e, None, True
+    own = float((want.double() - exact).norm())
+    ratio = float((got.double() - exact).norm()) / max(own, 1e-300)
+    return e, ratio, ratio <= ZOO_NOISE
+
+
+def _held_all(got, want, exact, tol):
+    """``_held`` over dicts of tensors: the worst relative error and its
+    name, the worst ratio, whether all pass."""
+    rows = {k: _held(got[k], want[k], exact[k], tol) for k in want}
+    worst = max(rows, key=lambda k: rows[k][0], default=None)
+    ratios = [r for _, r, _ in rows.values() if r is not None]
+    return (rows[worst][0] if rows else 0.0, worst,
+            max(ratios, default=None), all(ok for *_, ok in rows.values()))
+
+
+def _ratio(r) -> str:
+    return "" if r is None else f" (×{r:.2f} the CPU fp32's error)"
+
+
+def zoo_phase(dev, work: str, fopts):
+    """The fusion zoo at production width on the staged caches in
+    ``work``/cache. (a) Each key of ``FUSION_MODELS``, built from the
+    staged config with ``init_jax_like`` weights on the card and on the
+    CPU: one train-mode step with dropout 0 (logits, loss, gradients,
+    BatchNorm statistics) at ZOO_BATCH, card against CPU, in fp64 and in
+    fp32; then ZOO_TIMED train steps with the key's dropout (forward,
+    backward, AdamW) and eval forwards, timed, and ZOO_PROFILED's step
+    profiled. (b) ``train_fusion.main --arch`` for ZOO_CLI_KEYS with
+    device-resident splits: finite losses and F1. (c) Each bilinear
+    operator's forward and backward on the card against the CPU. Any
+    error beyond its tolerance fails the run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.schedule import build_schedule
+    from mvuld_tpu_torch.core.train_state import eval_step, train_step
+    from mvuld_tpu_torch.models.bilinear_fusion import (
+        BILINEAR_FUSIONS, build_bilinear_fusion)
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.fusion_zoo import (FUSION_MODELS,
+                                                   build_fusion_model)
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_fusion import (edge_bits, fusion_inputs,
+                                                    load_cached_datasets)
+
+    cfg = get_config(SimpleNamespace(
+        cfg=None, opts=fopts + ["DATA.BATCH_SIZE", ZOO_BATCH], output=work))
+    cache_dir = os.path.join(work, "cache")
+    train = load_cached_datasets(
+        {"train": os.path.join(cache_dir, "train.npz")})["train"]
+    cols = {k: np.asarray(v)[:ZOO_BATCH] for k, v in train.columns.items()}
+    host = to_device(cols, torch.device("cpu"))
+    card = to_device(cols, dev)
+    inputs = fusion_inputs(edge_bits(cfg.DATA.GTYPE))
+    ls = cfg.MODEL.LABEL_SMOOTHING
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bad = []
+
+    # (a) every key, card against CPU, then timed
+    for key in FUSION_MODELS.keys():
+        ref = build_fusion_model(cfg, key, dropout=0.0, final_dropout=0.0)
+        init_jax_like(ref, torch.Generator().manual_seed(0))
+        runs = [copy.deepcopy(ref).double(), copy.deepcopy(ref).double().to(dev),
+                ref, copy.deepcopy(ref).to(dev)]
+        t0 = time.perf_counter()
+        exact, got64, want, got = (
+            _grads_and_stats(m, host if i % 2 == 0 else card, inputs, ls)
+            for i, m in enumerate(runs))
+        cpu_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in ref.parameters())
+        del ref, runs
+        # fp64: the same function on both devices
+        fwd64 = max(_rel_l2(got64[0], exact[0]), _rel_l2(got64[1], exact[1]),
+                    *(_rel_l2(got64[3][k], exact[3][k]) for k in exact[3]))
+        grad64 = max(_rel_l2(got64[2][k], exact[2][k]) for k in exact[2])
+        # fp32, with the CPU fp32 result's own error as the fallback bound
+        held = [_held(got[i], want[i], exact[i], ZOO_TOL) for i in (0, 1)]
+        e_stats, _, r_stats, ok_stats = _held_all(got[3], want[3], exact[3],
+                                                  ZOO_TOL)
+        e_grad, worst, r_grad, ok_grad = _held_all(got[2], want[2], exact[2],
+                                                   ZOO_GRAD_TOL)
+        ok = (fwd64 <= ZOO_TOL and grad64 <= ZOO_GRAD_TOL and held[0][2]
+              and held[1][2] and ok_stats and ok_grad)
+
+        model = build_fusion_model(cfg, key)
+        init_jax_like(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = build_optimizer(cfg, build_schedule(cfg, 4, ZOO_BATCH), model)
+        step_ms = time_ms(lambda: train_step(model, opt, card, gen, ls,
+                                             inputs), ZOO_TIMED)
+        eval_ms = time_ms(lambda: eval_step(model, card, inputs), ZOO_TIMED)
+        if key == ZOO_PROFILED:
+            profile_run(f"zoo {key} train step (batch {ZOO_BATCH})",
+                        lambda: train_step(model, opt, card, gen, ls, inputs))
+        print(f"zoo {key}: {n_params / 1e6:.2f}M params; one train-mode "
+              f"step at batch {ZOO_BATCH} (dropout 0), card vs CPU (the four "
+              f"steps {cpu_s:.2f}s), rel L2 in fp64: forward {fwd64:.2e}, "
+              f"gradients {grad64:.2e}; in fp32: logits {held[0][0]:.2e}"
+              f"{_ratio(held[0][1])}, loss {held[1][0]:.2e}"
+              f"{_ratio(held[1][1])}, BN stats {e_stats:.2e}"
+              f"{_ratio(r_stats)}, gradients {e_grad:.2e} ({worst})"
+              f"{_ratio(r_grad)} (tol {ZOO_TOL:.0e} / {ZOO_GRAD_TOL:.0e}, "
+              f"else ≤ ×{ZOO_NOISE:g}){'' if ok else ' FAILED'}; train step "
+              f"(dropout on, AdamW) {step_ms:.2f} ms, eval forward "
+              f"{eval_ms:.2f} ms [{card_line()}]", flush=True)
+        if not ok:
+            bad.append(key)
+        del model, opt
+    if bad:
+        raise AssertionError(f"zoo keys disagree card vs CPU: {bad}")
+
+    # (b) the CLI for four keys, the splits on the card
+    for key in ZOO_CLI_KEYS:
+        res, losses, rates, secs, _ = fusion_cli(
+            dev, cache_dir, os.path.join(work, f"zoo_{key}"), fopts, key)
+        rate = statistics.median(rates[1:])
+        print(f"zoo cli --arch {key}: {FUSION_EPOCHS} epochs of "
+              f"{len(losses) // FUSION_EPOCHS} steps at batch {FUSION_BATCH} "
+              f"+ eval in {secs:.1f}s, device-resident splits; logged median "
+              f"{FUSION_BATCH / rate * 1e3:.2f} ms/step; losses "
+              f"{[round(x, 4) for x in losses]}; val f1 "
+              f"{[round(h['f1'], 4) for h in res['history']]}; test "
+              f"{ {k: round(v, 4) for k, v in res['test_metrics'].items() if k in ('acc', 'f1')} } "
+              f"[{card_line()}]", flush=True)
+
+    # (c) every bilinear operator, card against CPU
+    rng = np.random.RandomState(7)
+    d0, d1, out_dim = BILINEAR_DIMS
+    for name in BILINEAR_FUSIONS.keys():
+        if name == "relational_network":
+            n, d = BILINEAR_SET
+            ref = build_bilinear_fusion(name, input_dim=d, output_dim=out_dim)
+            xs = [rng.randn(BILINEAR_BATCH, n, d)]
+            shape = f"[{BILINEAR_BATCH}, {n}, {d}]"
+        else:
+            ref = build_bilinear_fusion(name, input_dims=(d0, d1),
+                                        output_dim=out_dim)
+            xs = [rng.randn(BILINEAR_BATCH, d0), rng.randn(BILINEAR_BATCH, d1)]
+            shape = f"[{BILINEAR_BATCH}, {d0}] × [{BILINEAR_BATCH}, {d1}]"
+        init_jax_like(ref, torch.Generator().manual_seed(0))
+        model = copy.deepcopy(ref).to(dev)
+        x_host = [torch.as_tensor(x).float() for x in xs]
+        x_card = [x.to(dev) for x in x_host]
+        cot = torch.as_tensor(rng.randn(BILINEAR_BATCH, out_dim)).float()
+        cot_card = cot.to(dev)
+
+        def fwd_bwd(op, x_in, cot):
+            leaves = [x.detach().requires_grad_() for x in x_in]
+            y = op(leaves[0] if len(leaves) == 1 else leaves)
+            return y, torch.autograd.grad((y * cot).sum(),
+                                          [*leaves, *op.parameters()])
+
+        y_ref, g_ref = fwd_bwd(ref, x_host, cot)
+        y, g = fwd_bwd(model, x_card, cot_card)
+        e_out = _rel_l2(y.detach().cpu(), y_ref.detach())
+        e_grad32 = max(_rel_l2(a.cpu(), b) for a, b in zip(g, g_ref))
+        # the signed square root's gradient 1/(2√|z|) magnifies rounding
+        # where |z| is small: the gradients are held in fp64 on both sides,
+        # and fp32's own spread (CPU fp32 against CPU fp64) is printed
+        _, g64_ref = fwd_bwd(copy.deepcopy(ref).double(),
+                             [x.double() for x in x_host], cot.double())
+        _, g64 = fwd_bwd(copy.deepcopy(model).double(),
+                         [x.double() for x in x_card], cot_card.double())
+        e_grad = max(_rel_l2(a.cpu(), b) for a, b in zip(g64, g64_ref))
+        spread = max(_rel_l2(a.double(), b) for a, b in zip(g_ref, g64_ref))
+        ms = time_ms(lambda: fwd_bwd(model, x_card, cot_card),
+                     ZOO_TIMED)
+        ok = e_out <= ZOO_TOL and e_grad <= ZOO_GRAD_TOL
+        print(f"zoo bilinear {name} {shape} → {out_dim}: card vs CPU, rel "
+              f"L2 of the fp32 output {e_out:.2e} (tol {ZOO_TOL:.0e}), of "
+              f"the gradients of inputs and parameters in fp64 max "
+              f"{e_grad:.2e} (tol {ZOO_GRAD_TOL:.0e}){'' if ok else ' FAILED'}"
+              f", in fp32 {e_grad32:.2e} (CPU fp32 against fp64 "
+              f"{spread:.2e}); fp32 forward + backward {ms:.3f} ms "
+              f"[{card_line()}]", flush=True)
+        if not ok:
+            bad.append(name)
+        del ref, model
+    if bad:
+        raise AssertionError(f"bilinear operators disagree card vs CPU: "
+                             f"{bad}")
+    torch.cuda.empty_cache()
 
 
 def _category(name: str) -> str:
@@ -2028,7 +2297,12 @@ def main() -> int:
                   lambda: ops_phase(dev, layouts)):
         for name, n in phase().items():
             launches[name] += n
-    staged_phase(dev)
+    work = tempfile.mkdtemp(prefix="mvuld_staged_")
+    try:
+        fopts = staged_phase(dev, work)
+        zoo_phase(dev, work, fopts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -50,17 +50,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   label_smoothing: float = 0.0,
                   soft_targets: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    """Mean CE over fp32 log-softmax; ``soft_targets`` (mixup's) take the
-    place of the integer labels, and smoothing mixes in the uniform
-    distribution."""
+    """Mean CE over fp32 log-softmax (fp64 logits stay fp64);
+    ``soft_targets`` (mixup's) take the place of the integer labels, and
+    smoothing mixes in the uniform distribution."""
     num_classes = logits.shape[-1]
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     if soft_targets is not None:
-        targets = soft_targets.float()
+        targets = soft_targets.to(logp.dtype)
     else:
-        targets = F.one_hot(labels.long(), num_classes).float()
+        targets = F.one_hot(labels.long(), num_classes).to(logp.dtype)
     if label_smoothing > 0:
         targets = targets * (1 - label_smoothing) + label_smoothing / num_classes
-    logp = torch.log_softmax(logits.float(), dim=-1)
     return -(targets * logp).sum(-1).mean()
 
 

@@ -7,9 +7,10 @@ that dict from any nested mapping of arrays, so exporting takes
 ``np.savez(path, **flatten_variables(variables))`` in the JAX environment.
 ``jax_variables_to_torch`` loads it into an ``EndToEndMVulD`` or into one of
 its towers (``SwinTransformerV2``, ``RobertaEncoder``,
-``MultiDefectAblation``), or into a ``UniXcoderClassifier`` /
-``UniXcoderEmbedder`` (``encoder/…`` and ``classifier``), with the layout
-rules:
+``MultiDefectAblation`` under any key of the fusion zoo), into a
+``UniXcoderClassifier`` / ``UniXcoderEmbedder`` (``encoder/…`` and
+``classifier``), or into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
+and the raw Tucker cores), with the layout rules:
 
   Dense ``kernel`` [in, out]       → ``weight`` [out, in]
   Conv ``kernel`` HWIO             → ``weight`` OIHW
@@ -21,6 +22,8 @@ rules:
 and the module names of the reference torch models where the JAX
 converters name them (``attn.cpb_mlp.0``, ``encoder.layer.{i}.attention.
 self.query``, dgl GATConv's ``attn_l`` [1, H, D], Rs_GCN's ``W.0``/``W.1``).
+flax ``GRUCell``'s six dense leaves (``gru/ir`` … ``gru/hn``) keep their
+names, one ``Linear`` each.
 It raises on a key it leaves unused and on a port tensor it leaves unset.
 ``torch_to_jax_names`` is the inverse name map: each port parameter and
 BatchNorm statistic to its JAX variable path, as the decay mask and the
@@ -169,6 +172,12 @@ def _fusion(path: List[str], arr: np.ndarray) -> Mapped:
 
 # ------------------------------------------------------------------ dispatch
 
+def _is_bilinear(model: nn.Module) -> bool:
+    from mvuld_tpu_torch.models.bilinear_fusion import BILINEAR_FUSIONS
+    return isinstance(model, tuple(BILINEAR_FUSIONS.get(k)
+                                   for k in BILINEAR_FUSIONS.keys()))
+
+
 def _rules(model: nn.Module):
     from mvuld_tpu_torch.models.e2e import EndToEndMVulD
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
@@ -184,6 +193,8 @@ def _rules(model: nn.Module):
         return _roberta
     if isinstance(model, MultiDefectAblation):
         return _fusion
+    if _is_bilinear(model):
+        return _leaf
     if isinstance(model, EndToEndMVulD):
         towers = {"swin": _swin, "text_encoder": _roberta, "fusion": _fusion}
 
@@ -238,7 +249,10 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
     standard deviations), biases 0, LayerNorm and BatchNorm scale 1 and
     shift 0 (Rs-GCN's BN scale 0), running statistics 0 and 1, embeddings
     normal with std 1/√features, GAT attention vectors xavier-normal,
-    ``logit_scale`` log 10."""
+    ``logit_scale`` log 10, the GRU's recurrent kernels orthogonal and the
+    Tucker cores normal with std 0.02."""
+    from mvuld_tpu_torch.models.bilinear_fusion import BlockTucker, Tucker
+    from mvuld_tpu_torch.models.fusion_zoo import GRUCell
     from mvuld_tpu_torch.models.graph_nets import DenseGATConv, RsGCN
     from mvuld_tpu_torch.models.swin_v2 import WindowAttentionV2
 
@@ -277,6 +291,18 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
             mod.bias.zero_()
         elif isinstance(mod, RsGCN):
             mod.W[1].weight.zero_()
+        elif isinstance(mod, GRUCell):
+            for gate in ("hr", "hz", "hn"):
+                w = mod._modules[gate].weight
+                # flax orthogonal(): q of a normal matrix's QR, signs fixed
+                q, r = torch.linalg.qr(torch.empty(w.shape).normal_(
+                    generator=generator))
+                w.copy_(q * torch.sign(torch.diagonal(r))[None])
+        elif isinstance(mod, (Tucker, BlockTucker)):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.startswith("core"):
+                    p.copy_(torch.empty(p.shape).normal_(
+                        0.0, 0.02, generator=generator))
 
 
 # ------------------------------------------------------------------ inverse
@@ -328,8 +354,9 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     ``params/head/kernel``), of a ``MultiDefectAblation`` alone
     (``params/graph/rs_gcn_0/W/kernel``), or of a ``UniXcoderClassifier`` /
     ``UniXcoderEmbedder`` (``params/encoder/layer_0/…``,
-    ``params/classifier/kernel``). SwinV2 blocks take the unscanned
-    ``layers_{i}_blocks_{j}`` names."""
+    ``params/classifier/kernel``), or of a bilinear fusion operator
+    (``params/linear0/kernel``, ``params/core_0``). SwinV2 blocks take the
+    unscanned ``layers_{i}_blocks_{j}`` names."""
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
     from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
@@ -338,6 +365,8 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
         towers = [("", model, "swin")]
     elif isinstance(model, MultiDefectAblation):
         towers = [("", model, "fusion")]
+    elif _is_bilinear(model):
+        towers = [("", model, "leaf")]
     elif isinstance(model, UniXcoderEmbedder):
         towers = [("encoder", model.encoder, "text_encoder")]
         if hasattr(model, "classifier"):

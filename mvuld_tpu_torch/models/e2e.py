@@ -90,4 +90,4 @@ class EndToEndMVulD(nn.Module):
 
         img_emb = self.swin(image, train, gen)
         return self.fusion(img_emb, text_emb, node_emb, pos, adj, node_mask,
-                           train, gen)
+                           train=train, gen=gen)

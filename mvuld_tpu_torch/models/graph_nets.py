@@ -1,5 +1,5 @@
-"""Dense masked graph layers in PyTorch: GAT, Rs-GCN and the readouts the
-production fusion head uses.
+"""Dense masked graph layers in PyTorch: GAT, Rs-GCN and the readouts of
+the fusion zoo.
 
 Counterpart of ``mvuld_tpu/models/graph_nets.py`` over the same dense
 [B, N, ·] layout:
@@ -11,8 +11,8 @@ Counterpart of ``mvuld_tpu/models/graph_nets.py`` over the same dense
   * ``RsGCN`` ≡ mvuld/models/Rs_GCN.py:7-73 with the reference's module
     names (1×1 ``Conv1d`` g/theta/phi, ``W`` = Conv1d + BatchNorm1d), run
     channels-last;
-  * ``l2norm_nodes`` / ``mean_over_max_nodes`` with the reference's axis
-    conventions.
+  * ``l2norm_nodes`` / ``mean_nodes`` / ``mean_over_max_nodes`` with the
+    reference's axis conventions.
 """
 
 from __future__ import annotations
@@ -77,7 +77,8 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d,
 
     Eval: normalise with ``bn``'s running statistics. Train: normalise with
     the batch's statistics over every other dim, taken as flax takes them
-    (fp32, var = max(E[x²] − E[x]², 0), the biased variance), and update the
+    (fp32, or fp64 for fp64 x; var = max(E[x²] − E[x]², 0), the biased
+    variance), and update the
     running statistics in place with flax's momentum 0.99:
     running = 0.99·running + 0.01·batch. Torch's own train path differs in
     both (momentum 0.1, unbiased running variance)."""
@@ -87,7 +88,7 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d,
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1] * x.dim()
     shape[1] = -1
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dims)
     var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
     with torch.no_grad():
@@ -139,6 +140,13 @@ def l2norm_nodes(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize over the NODE axis (dim=1) — the reference's l2norm
     (GraphModel.py:76-80) normalizes dim 1 of [B, N, D]."""
     return x / torch.sqrt((x * x).sum(dim=1, keepdim=True) + eps)
+
+
+def mean_nodes(h: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """dgl.mean_nodes: mean over VALID nodes only (used by the ablation
+    models via dgl's readout, GraphModel.py:296-299)."""
+    m = node_mask[..., None]
+    return (h * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
 
 
 def mean_over_max_nodes(h: torch.Tensor) -> torch.Tensor:

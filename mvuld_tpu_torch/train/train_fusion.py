@@ -17,8 +17,11 @@ the metric suite.
 
 Usage:
   python -m mvuld_tpu_torch.train.train_fusion --cfg cfg.yaml \\
-      --cache-dir caches/ [--synthetic N] [--arch multi_defect_new_gcn] \\
+      --cache-dir caches/ [--synthetic N] [--arch KEY] \\
       [--test] [--device cuda|cpu] [--opts ...]
+
+``--arch`` (or MODEL.MULTI.ARCH) takes any key of the fusion zoo's
+``FUSION_MODELS`` (default ``multi_defect_new_gcn``).
 """
 
 from __future__ import annotations
@@ -59,12 +62,14 @@ def edge_bits(gtype: str) -> int:
 
 def fusion_inputs(bits: int):
     """Device batch → the fusion model's inputs, the uint8 adjacency
-    bitmask filtered to ``bits`` on the device."""
+    bitmask filtered to ``bits`` on the device; ``ntype`` (read by
+    ``multi_defect_allnode``) is None when the batch has none."""
     def inputs(batch: Dict) -> Dict:
         return {"img_emb": batch["img_emb"], "text_emb": batch["text_emb"],
                 "node_emb": batch["node_emb"], "pos": batch["pos"],
                 "adj": (batch["adj"] & bits) != 0,
-                "node_mask": batch["node_mask"]}
+                "node_mask": batch["node_mask"],
+                "ntype": batch.get("ntype")}
     return inputs
 
 

@@ -477,19 +477,42 @@ def test_adjacency_bit_filter_follows_the_graph_type():
                                "node_mask")}
     out = fusion_inputs(2)({**batch, "adj": adj})
     assert out["adj"].tolist() == [[[False, False], [True, True]]]
-    assert "ntype" not in out
+    assert out["ntype"] is None
+    ntype = torch.tensor([[3, 40]], dtype=torch.int32)
+    assert fusion_inputs(2)({**batch, "adj": adj, "ntype": ntype})[
+        "ntype"] is ntype
 
 
-def test_build_fusion_model_only_builds_the_ported_key():
-    from mvuld_tpu_torch.models.fusion_zoo import (MultiDefectAblation,
+def test_build_fusion_model_sizes_every_key_from_the_config():
+    """Every key of the zoo from a config with DATA.NODE_NUMERIC 1: the
+    bbox projections read 4 + 2 = 6 features, the node-axis BNs hold
+    DATA.MAX_NODES statistics, a key's own num_hidden=0 beats the
+    config's; an unknown key raises the registry's KeyError."""
+    from mvuld_tpu_torch.models.fusion_zoo import (FUSION_MODELS,
+                                                   GraphBranch,
+                                                   MultiDefectAblation,
                                                    build_fusion_model)
     _, pcfg = _cfgs(FUSION + ["DATA.NODE_NUMERIC", "1"])
-    model = build_fusion_model(pcfg)
-    assert isinstance(model, MultiDefectAblation)
-    assert model.graph.fc_bbox.in_features == 6
-    assert model.graph.bn_gat.num_features == 16
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        build_fusion_model(pcfg, arch="multi_defect_nograph")
+    assert isinstance(build_fusion_model(pcfg), MultiDefectAblation)
+    seen = set()
+    for key in FUSION_MODELS.keys():
+        model = build_fusion_model(pcfg, arch=key)
+        assert isinstance(model, MultiDefectAblation)
+        for name, mod in model.named_modules():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("fc_bbox", "fc_bbox_pre"):
+                assert mod.in_features == 6, (key, name)
+                seen.add(leaf)
+            if leaf in ("bn_gat", "bn_bbox"):
+                assert mod.num_features == 16, (key, name)
+                seen.add(leaf)
+        if isinstance(getattr(model, "graph", None), GraphBranch):
+            assert hasattr(model.graph, "hidden") == (
+                key not in ("multi_defect_000", "multi_defect_001",
+                            "multi_defect_100", "multi_defect_nogat")), key
+    assert seen == {"fc_bbox", "fc_bbox_pre", "bn_gat", "bn_bbox"}
+    with pytest.raises(KeyError, match="multi_defect_new_gcn"):
+        build_fusion_model(pcfg, arch="multi_defect_nonesuch")
 
 
 # --------------------------------------------------------------- pipeline
