@@ -24,7 +24,7 @@ The decay decision is taken on the JAX name of each parameter
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,7 +61,8 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
 
 class Optimizer:
     """optax.chain(clip_by_global_norm, adamw | sgd) [inside MultiSteps]
-    over ``params`` (a list of (name, parameter)). ``update(grads)``
+    over ``params`` (a list of (name, parameter)); ``clip=None`` leaves the
+    clip out (``train_east``'s optax.adam). ``update(grads)``
     changes the parameters in place; ``count`` is optax's step count of the
     inner optimizer (the schedule's argument)."""
 
@@ -69,7 +70,7 @@ class Optimizer:
                  decay: Dict[str, bool], schedule: Callable[[int], float],
                  name: str = "adamw", betas=(0.9, 0.999), eps: float = 1e-8,
                  momentum: float = 0.9, weight_decay: float = 0.0,
-                 clip: float = 5.0, accumulation_steps: int = 1):
+                 clip: Optional[float] = 5.0, accumulation_steps: int = 1):
         if name not in ("adamw", "sgd"):
             raise ValueError(f"Unknown optimizer {name!r}")
         self.names = [n for n, _ in params]
@@ -100,7 +101,8 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
-        grads = clip_by_global_norm(grads, self.clip, global_norm(grads))
+        if self.clip is not None:
+            grads = clip_by_global_norm(grads, self.clip, global_norm(grads))
         lr = self.schedule(self.count)
         self.count += 1
         wd = self.weight_decay

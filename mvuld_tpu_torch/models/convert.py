@@ -9,8 +9,10 @@ that dict from any nested mapping of arrays, so exporting takes
 its towers (``SwinTransformerV2``, ``RobertaEncoder``,
 ``MultiDefectAblation`` under any key of the fusion zoo), into a
 ``UniXcoderClassifier`` / ``UniXcoderEmbedder`` (``encoder/…`` and
-``classifier``), or into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
-and the raw Tucker cores), with the layout rules:
+``classifier``), into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
+and the raw Tucker cores), or into the EAST detector (``ocr/east.py``,
+Flax module names: ``extractor/conv_{i}``, ``merge/bn_{i}``,
+``score_head`` …), with the layout rules:
 
   Dense ``kernel`` [in, out]       → ``weight`` [out, in]
   Conv ``kernel`` HWIO             → ``weight`` OIHW
@@ -39,6 +41,7 @@ from typing import Dict, Iterator, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 Mapped = Iterator[Tuple[str, np.ndarray]]
 
@@ -184,9 +187,12 @@ def _rules(model: nn.Module):
     from mvuld_tpu_torch.models.roberta import RobertaEncoder
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
     from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
+    from mvuld_tpu_torch.ocr.east import EAST
 
     if isinstance(model, SwinTransformerV2):
         return _swin
+    if isinstance(model, EAST):
+        return _leaf
     if isinstance(model, UniXcoderEmbedder):
         return _unixcoder
     if isinstance(model, RobertaEncoder):
@@ -267,10 +273,10 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
             lecun(mod.weight, mod.weight[0].numel())
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+        elif isinstance(mod, (nn.LayerNorm, _BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, nn.BatchNorm1d):
+            if isinstance(mod, _BatchNorm):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
         elif isinstance(mod, nn.Embedding):
@@ -327,7 +333,7 @@ _INV_SWIN = [(r"^layers\.(\d+)\.blocks\.(\d+)\.", r"layers_\1_blocks_\2/"),
 
 def _jax_leaf(mod: nn.Module, leaf: str) -> str:
     if leaf == "weight":
-        if isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+        if isinstance(mod, (nn.LayerNorm, _BatchNorm)):
             return "scale"
         if isinstance(mod, nn.Embedding):
             return "embedding"
@@ -360,12 +366,13 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
     from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
+    from mvuld_tpu_torch.ocr.east import EAST
 
     if isinstance(model, SwinTransformerV2):
         towers = [("", model, "swin")]
     elif isinstance(model, MultiDefectAblation):
         towers = [("", model, "fusion")]
-    elif _is_bilinear(model):
+    elif _is_bilinear(model) or isinstance(model, EAST):
         towers = [("", model, "leaf")]
     elif isinstance(model, UniXcoderEmbedder):
         towers = [("encoder", model.encoder, "text_encoder")]

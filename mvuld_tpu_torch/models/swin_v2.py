@@ -24,7 +24,16 @@ divided by max(‖·‖, 1e-12)) and autograd differentiates it.
 Training (``forward(x, train=True, gen=...)``) adds per-image DropPath with
 the per-block rates ``linspace(0, drop_path_rate, Σdepths)``, its masks
 drawn from ``gen`` for a whole stage before the stage runs, and
-``torch.utils.checkpoint`` over the stages in ``remat_stages``. Under
+``torch.utils.checkpoint`` over the stages in ``remat_stages``. With
+``drop_rate`` (MODEL.DROP_RATE) > 0 it also drops out, where the JAX model
+does, the patch embedding, the MLP after GELU and after fc2, and the
+attention's projection; with ``attn_drop_rate`` > 0 (no config key, as in
+JAX) the attention probabilities. Those masks come from ``gen`` too; a
+checkpointed stage draws them from a generator restored to the stage's
+starting state, so its recomputation drops the same elements. The kernel
+paths follow JAX's conditions: ``drop_rate`` > 0 runs the plain MLP (not
+K3/K3b), ``attn_drop_rate`` > 0 the plain attention (not K1/K2/K5), and
+dropout on the projection alone keeps the attention kernel. Under
 checkpointing the recomputed forward reuses the first forward's K1 output
 (and, under v2, its row sums: the JAX remat policy's saved ``attn_out`` /
 ``attn_rowsum``), so K1 never runs twice under either backward generation,
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from mvuld_tpu_torch.models.dropout import keep_mask
+from mvuld_tpu_torch.models.dropout import dropout, keep_mask
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
 from mvuld_tpu_torch.ops.window_attention import (flat_attention,
                                                   window_attention_flat)
@@ -71,6 +80,7 @@ class SwinV2Config:
     patch_norm: bool = True
     pretrained_window_sizes: Tuple[int, ...] = (0, 0, 0, 0)
     drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0     # no config key, as in the JAX model
     drop_path_rate: float = 0.2
     dtype: torch.dtype = torch.float32
 
@@ -179,15 +189,19 @@ def layer_norm(x, ln: nn.LayerNorm, dtype):
 # --------------------------------------------------------------------------- #
 
 class MlpBlock(nn.Module):
-    """fc1 → exact GELU → fc2 (reference Mlp; JAX MlpBlock)."""
+    """fc1 → exact GELU → dropout → fc2 → dropout (reference Mlp; JAX
+    MlpBlock); the dropouts only with ``gen`` and ``drop`` > 0."""
 
-    def __init__(self, in_features: int, hidden: int, out: int):
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden)
         self.fc2 = nn.Linear(hidden, out)
+        self.drop = drop
 
-    def forward(self, x, dtype):
-        return linear(gelu(linear(x, self.fc1, dtype)), self.fc2, dtype)
+    def forward(self, x, dtype, gen: Optional[torch.Generator] = None):
+        x = dropout(gelu(linear(x, self.fc1, dtype)), self.drop, gen)
+        return dropout(linear(x, self.fc2, dtype), self.drop, gen)
 
 
 class WindowAttentionV2(nn.Module):
@@ -196,11 +210,15 @@ class WindowAttentionV2(nn.Module):
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  qkv_bias: bool = True, pretrained_window_size: int = 0,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
         self.pretrained_window_size = pretrained_window_size
-        self.dtype, self.use_pallas = dtype, use_pallas
+        # attention dropout leaves the kernel (JAX: use_pallas and
+        # attn_drop == 0); dropout on the projection does not
+        self.dtype, self.use_pallas = dtype, use_pallas and attn_drop == 0.0
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.logit_scale = nn.Parameter(
             torch.full((num_heads, 1, 1), math.log(10.0)))
         self.cpb_mlp = nn.Sequential(nn.Linear(2, 512, bias=True),
@@ -234,12 +252,14 @@ class WindowAttentionV2(nn.Module):
         return 16.0 * torch.sigmoid(bias.float())
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                shift: int = 0, store: Optional[dict] = None) -> torch.Tensor:
+                shift: int = 0, store: Optional[dict] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, Hp, Wp, C] feature map (already shifted when applicable);
         returns the same layout. The kernel path derives the shift mask
         from ``shift``; the plain path adds ``mask``. ``store`` (kernel
         path, checkpointed stages) keeps K1's (out, r) — r None under the
-        v1 backward — between the first forward and its recomputation."""
+        v1 backward — between the first forward and its recomputation.
+        ``gen``: the dropout masks' generator (training), or None."""
         B, Hp, Wp, C = x.shape
         ws, H, dt = self.window_size, self.num_heads, self.dtype
         hd = C // H
@@ -280,11 +300,11 @@ class WindowAttentionV2(nn.Module):
                 nW = mask.shape[0]
                 attn = attn.reshape(Bn // nW, nW, H, N, N) + mask[None, :, None]
                 attn = attn.reshape(Bn, H, N, N)
-            attn = torch.softmax(attn, dim=-1)
+            attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, gen)
             out = attn.to(dt) @ v
             out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
             out = window_reverse(out, ws, Hp, Wp)
-        return linear(out, self.proj, dt)
+        return dropout(linear(out, self.proj, dt), self.proj_drop, gen)
 
 
 class SwinBlockV2(nn.Module):
@@ -300,7 +320,8 @@ class SwinBlockV2(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  pretrained_window_size: int = 0,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 use_pallas_mlp: bool = False):
+                 use_pallas_mlp: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         Hr, Wr = input_resolution
         # clamp the window to the resolution (reference: :216-219)
@@ -308,21 +329,24 @@ class SwinBlockV2(nn.Module):
             window_size, shift_size = min(Hr, Wr), 0
         self.input_resolution = input_resolution
         self.window_size, self.shift_size = window_size, shift_size
-        self.dtype, self.use_pallas_mlp = dtype, use_pallas_mlp
+        # MLP dropout leaves the fused kernel (JAX: use_pallas_mlp and
+        # drop == 0)
+        self.dtype = dtype
+        self.use_pallas_mlp = use_pallas_mlp and drop == 0.0
         self.attn = WindowAttentionV2(dim, window_size, num_heads, qkv_bias,
                                       pretrained_window_size, dtype,
-                                      use_pallas)
+                                      use_pallas, attn_drop, drop)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, drop)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         # the plain path's explicit mask; the kernel derives it in-kernel
-        mask = (None if use_pallas
+        mask = (None if self.attn.use_pallas
                 else shifted_window_mask(Hr, Wr, window_size, shift_size))
         self.register_buffer(
             "attn_mask", None if mask is None else torch.as_tensor(mask),
             persistent=False)
 
-    def _mlp_half(self, x):
+    def _mlp_half(self, x, gen=None):
         """LN(MLP(x)) — the post-norm second half of the block before its
         residual (reference swin_transformer_v2.py:310-315)."""
         C = x.shape[-1]
@@ -330,12 +354,14 @@ class SwinBlockV2(nn.Module):
             return mlp_ln(x, self.mlp.fc1.weight.t(), self.mlp.fc1.bias,
                           self.mlp.fc2.weight.t(), self.mlp.fc2.bias,
                           self.norm2.weight, self.norm2.bias)
-        return layer_norm(self.mlp(x, self.dtype), self.norm2, self.dtype)
+        return layer_norm(self.mlp(x, self.dtype, gen), self.norm2, self.dtype)
 
     def forward(self, x: torch.Tensor, drop=None,
-                store: Optional[dict] = None) -> torch.Tensor:
+                store: Optional[dict] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """``drop``: (keep-mask of the attention half [B], of the MLP half
-        [B], rate) for DropPath, or None."""
+        [B], rate) for DropPath, or None. ``gen``: the generator of the
+        element-wise dropout masks, or None (no dropout)."""
         Hr, Wr = self.input_resolution
         shift = self.shift_size
         B, L, C = x.shape
@@ -343,12 +369,12 @@ class SwinBlockV2(nn.Module):
         x = x.reshape(B, Hr, Wr, C)
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        x = self.attn(x, self.attn_mask, shift=shift, store=store)
+        x = self.attn(x, self.attn_mask, shift=shift, store=store, gen=gen)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = layer_norm(x.reshape(B, L, C), self.norm1, self.dtype)
         x = shortcut + drop_path(x, drop, 0)
-        return x + drop_path(self._mlp_half(x), drop, 1)
+        return x + drop_path(self._mlp_half(x, gen), drop, 1)
 
 
 def drop_path(x: torch.Tensor, drop, which: int) -> torch.Tensor:
@@ -415,10 +441,24 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
 
-    def forward(self, x, drops=None, store: Optional[dict] = None):
+    def forward(self, x, drops=None, store: Optional[dict] = None,
+                gen: Optional[torch.Generator] = None):
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if drops is None else drops[i], store)
+            x = blk(x, None if drops is None else drops[i], store, gen)
         return x if self.downsample is None else self.downsample(x)
+
+
+def _replay_stage(layer: BasicLayer, x, drops, store: dict,
+                  gen: torch.Generator, state: torch.Tensor):
+    """A checkpointed stage with element-wise dropout: its masks come from
+    a generator set to ``state`` (``gen``'s state when the stage began), so
+    the recomputation draws them again; ``store["rng_after"]`` keeps the
+    state after the first run, for ``gen`` to continue from."""
+    g = torch.Generator(device=gen.device)
+    g.set_state(state)
+    y = layer(x, drops, store, g)
+    store.setdefault("rng_after", g.get_state())
+    return y
 
 
 class SwinTransformerV2(nn.Module):
@@ -450,7 +490,8 @@ class SwinTransformerV2(nn.Module):
                 dim, (r, r), c.num_heads[i], c.window_size,
                 0 if j % 2 == 0 else c.window_size // 2, c.mlp_ratio,
                 c.qkv_bias, c.pretrained_window_sizes[i], c.dtype,
-                use_pallas, use_pallas_mlp) for j in range(depth)]
+                use_pallas, use_pallas_mlp, c.drop_rate, c.attn_drop_rate)
+                for j in range(depth)]
             down = (PatchMerging((r, r), dim, c.dtype)
                     if i < len(c.depths) - 1 else None)
             layers.append(BasicLayer(blocks, down))
@@ -467,13 +508,13 @@ class SwinTransformerV2(nn.Module):
         when the model has a head (the frozen featurizer of a fine-tuned
         classifier)."""
         c = self.config
-        if train and c.drop_rate > 0:
-            raise ValueError("the port trains with MODEL.DROP_RATE 0 (the "
-                             "configs' value); SwinV2 feature dropout is "
-                             "not ported")
+        # the element-wise dropouts' generator: None leaves them out
+        egen = (gen if train and (c.drop_rate > 0 or c.attn_drop_rate > 0)
+                else None)
         x = self.patch_embed(x.to(c.dtype))
         if self.absolute_pos_embed is not None:
             x = x + self.absolute_pos_embed.to(c.dtype)
+        x = dropout(x, c.drop_rate, egen)
         rates = np.linspace(0, c.drop_path_rate, sum(c.depths)).tolist()
         first = 0
         for i, layer in enumerate(self.layers):
@@ -488,9 +529,15 @@ class SwinTransformerV2(nn.Module):
             first += n
             if train and i in self.remat_stages:
                 store: dict = {}
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, drops, store, use_reentrant=False)
+                if egen is None:
+                    x = torch.utils.checkpoint.checkpoint(
+                        layer, x, drops, store, use_reentrant=False)
+                else:
+                    x = torch.utils.checkpoint.checkpoint(
+                        _replay_stage, layer, x, drops, store, egen,
+                        egen.get_state(), use_reentrant=False)
+                    egen.set_state(store["rng_after"])
             else:
-                x = layer(x, drops)
+                x = layer(x, drops, None, egen)
         x = layer_norm(x, self.norm, c.dtype).mean(dim=1).float()
         return x if self.head is None or return_features else self.head(x)

@@ -14,13 +14,14 @@ stages:
                  fine-tune as --pretrained); the frozen
                  trained encoder then produces img_emb. Without either flag
                  a random projection stands in (tests without checkpoints),
-  4. render    — CPGs → PNGs + oracle node positions,
+  4. render    — CPGs → PNGs + oracle node positions, or with --east-ckpt
+                 EAST detection + line-number recognition (``ocr/``),
   5. cache     — npz feature caches from the trained text + image encoders,
   6. fuse      — train the fusion architecture; report test metrics.
 
 The frozen featurizers are the port's modules in eval mode under
-``torch.no_grad()`` on the device. ``--east-ckpt`` (node positions from
-EAST detection) waits for the OCR port.
+``torch.no_grad()`` on the device; so is the EAST detector of
+``--east-ckpt``, whose line-number reader needs PIL.
 
 Usage:
   python -m mvuld_tpu_torch.train.pipeline --synthetic 400 --out runs/pipeline \\
@@ -51,6 +52,40 @@ def _swin_checkpoint(path: str) -> str:
     return found
 
 
+def _ocr_positions(east_ckpt: str, df, cache_dir: str, out_dir: str, cfg,
+                   logger, device) -> dict:
+    """Node positions the reference's production way: EAST detection (on
+    ``device``) + line-number recognition (PIL) over the rendered PNGs
+    (OCR/detect.py detect_dataset_map:285-353), written as norm-pos pickles
+    to ``out_dir``. Returns recovery stats against the renderer's oracle
+    boxes."""
+    from mvuld_tpu_torch.ocr.detect import (detect_dataset_map,
+                                            load_east_detector)
+    from mvuld_tpu_torch.tools.render import load_norm_pos
+    from mvuld_tpu_torch.train.precompute import render_corpus
+
+    img_dir = os.path.join(cache_dir, "imgs")
+    oracle_dir = os.path.join(cache_dir, "pos")
+    paths = render_corpus(df, img_dir, oracle_dir, cfg.DATA.GTYPE, logger)
+
+    apply_fn, east_params = load_east_detector(east_ckpt, device)
+    detect_dataset_map(apply_fn, east_params,
+                       [paths[_id] for _id in sorted(paths)], out_dir,
+                       pad_to=256, logger=None)
+
+    total = recovered = 0
+    for _id in paths:
+        oracle = load_norm_pos(os.path.join(oracle_dir, f"{_id}.pkl"))
+        ocr = load_norm_pos(os.path.join(out_dir, f"{_id}.pkl"))
+        total += len(oracle)
+        recovered += sum(1 for lineno in oracle if lineno in ocr)
+    stats = {"ocr_node_recovery": recovered / max(total, 1),
+             "ocr_images": len(paths), "ocr_oracle_nodes": total}
+    if logger:
+        logger.info(f"OCR positions: {stats}")
+    return stats
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--synthetic", type=int, default=0)
@@ -72,15 +107,16 @@ def main(argv=None) -> dict:
                              "fine-tuning)")
     parser.add_argument("--fusion-epochs", type=int, default=8)
     parser.add_argument("--east-ckpt", default=None,
-                        help="trained EAST checkpoint for OCR node positions "
-                             "(not ported)")
+                        help="trained EAST detector (train_east --out-dir "
+                             "root, a checkpoint of it, or a JAX run's "
+                             "variables as .npz): node positions then come "
+                             "from EAST detection + line-number "
+                             "recognition over the rendered PNGs — the "
+                             "reference's production OCR path — instead of "
+                             "the renderer's oracle boxes")
     parser.add_argument("--opts", nargs="+", default=None)
     parser.add_argument("--device", default="cuda", help="cuda or cpu")
     args = parser.parse_args(argv)
-    if args.east_ckpt:
-        raise NotImplementedError(
-            "--east-ckpt: EAST detection and line-number recognition are not "
-            "ported (ROADMAP Queue 1 item 5, ocr/east.py and ocr/detect.py)")
 
     import gc
 
@@ -191,16 +227,33 @@ def main(argv=None) -> dict:
     if swin_encoder is None:
         _, swin_encoder = make_random_encoders(cfg)
 
-    build_fusion_cache(df, cache_dir, cfg,
+    # ---- optional OCR stage: EAST-detected node positions instead of the
+    # renderer oracle. The npz caches go to a separate dir (imgs/pos
+    # symlinked, not re-rendered) so oracle- and OCR-positioned caches never
+    # shadow each other.
+    ocr_stats = None
+    npz_dir, ocr_pos_dir = cache_dir, None
+    if args.east_ckpt:
+        ocr_pos_dir = os.path.join(cache_dir, "pos_ocr")
+        ocr_stats = _ocr_positions(args.east_ckpt, df, cache_dir, ocr_pos_dir,
+                                   cfg, logger, device)
+        npz_dir = os.path.join(args.out, "cache_ocr")
+        os.makedirs(npz_dir, exist_ok=True)
+        for sub in ("imgs", "pos"):
+            link = os.path.join(npz_dir, sub)
+            if not os.path.exists(link):
+                os.symlink(os.path.abspath(os.path.join(cache_dir, sub)),
+                           link)
+    build_fusion_cache(df, npz_dir, cfg,
                        text_encoder=frozen_text_encoder(embedder, device),
                        swin_encoder=swin_encoder, tokenizer=tok,
-                       logger=logger)
+                       logger=logger, pos_dir=ocr_pos_dir)
     del embedder, swin_encoder
     gc.collect()
 
     # ---- stage 5: fusion
     fusion_res = fusion_main([
-        "--cache-dir", cache_dir,
+        "--cache-dir", npz_dir,
         "--batch-size", str(args.batch_size),
         "--output", os.path.join(args.out, "fusion"),
         "--arch", args.arch, "--device", args.device,
@@ -217,10 +270,12 @@ def main(argv=None) -> dict:
         "arch": args.arch,
         "image_encoder": ("trained" if (args.swin_epochs > 0 or args.swin_ckpt)
                           else "random_projection"),
-        "positions": "oracle",
+        "positions": "ocr" if args.east_ckpt else "oracle",
         "swin_best_f1": swin_best_f1,
         "swin_test": swin_test,
     }
+    if ocr_stats:
+        summary.update(ocr_stats)
     with open(os.path.join(args.out, "pipeline_summary.json"), "w") as f:
         json.dump(summary, f, indent=1, default=float)
     logger.info(f"pipeline summary: {summary}")

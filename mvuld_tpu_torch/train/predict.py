@@ -2,7 +2,8 @@
 
 Counterpart of ``mvuld_tpu/train/predict.py``: CPG extraction
 (tools/cpg.py), rendering (tools/render.py) with renderer-oracle node
-positions, tokenization with the TRAINING vocabulary, and one eval forward
+positions or, with ``--east-ckpt``, EAST detection + line-number
+recognition (``ocr/``, the reference's production OCR path), tokenization with the TRAINING vocabulary, and one eval forward
 per power-of-two shape bucket. Split in two so each half can run alone:
 
   * ``build_request`` — host featurisation into the model's dense arrays
@@ -69,16 +70,14 @@ def resolve_device(name: str):
 
 
 def build_request(sources: List[Tuple[str, str]], cfg, tok, workdir: str,
-                  east_ckpt: Optional[str] = None, logger=None
-                  ) -> Tuple[Dict, List[Dict]]:
+                  east_ckpt: Optional[str] = None, logger=None,
+                  device="cuda") -> Tuple[Dict, List[Dict]]:
     """Host-side featurization of raw (id, code) pairs into the model's
     dense arrays. Returns (arrays, per-item info rows); unparseable or
-    degenerate functions get an ``error`` row and no array slot."""
-    if east_ckpt:
-        raise NotImplementedError(
-            "--east-ckpt: OCR node positions (EAST detection + line-number "
-            "OCR) wait for the port of mvuld_tpu/ocr; serve with the "
-            "renderer-oracle positions until then")
+    degenerate functions get an ``error`` row and no array slot. With
+    ``east_ckpt`` the node positions come from EAST detection and
+    line-number recognition over the rendered PNGs (the detector on
+    ``device``; the reader needs PIL), written to ``workdir/pos_ocr``."""
     from mvuld_tpu_torch.data.graph_batch import pack_graph
     from mvuld_tpu_torch.data.tokenizer import normalize_line
     from mvuld_tpu_torch.data.transforms import load_image, resize_normalize
@@ -111,6 +110,16 @@ def build_request(sources: List[Tuple[str, str]], cfg, tok, workdir: str,
             _img, pos = render_cpg(g, out_path=img_path)
             save_norm_pos(pos, os.path.join(pos_dir, f"{sid}.pkl"))
         ok.append((sid, code, cpg, img_path, row))
+
+    # node positions: renderer oracle, or the production OCR chain
+    if east_ckpt and ok:
+        from mvuld_tpu_torch.ocr.detect import (detect_dataset_map,
+                                                load_east_detector)
+        apply_fn, east_params = load_east_detector(east_ckpt, device)
+        pos_dir = os.path.join(workdir, "pos_ocr")
+        detect_dataset_map(apply_fn, east_params,
+                           [img_path for (_, _, _, img_path, _) in ok],
+                           pos_dir, pad_to=256, logger=logger)
 
     n = len(ok)
     M, T, Tn = cfg.DATA.MAX_NODES, cfg.DATA.FUNC_TOKENS, cfg.DATA.NODE_TOKENS
@@ -198,8 +207,11 @@ def main(argv=None) -> List[Dict]:
                              "best-F1, then newest epoch checkpoint, then "
                              "RUN_DIR/variables.npz)")
     parser.add_argument("--east-ckpt", default=None,
-                        help="EAST checkpoint for OCR node positions (not "
-                             "ported yet: raises NotImplementedError)")
+                        help="trained EAST detector (train_east --out-dir "
+                             "root, a checkpoint of it, or a JAX run's "
+                             "variables as .npz): node positions then come "
+                             "from EAST detection + line-number recognition "
+                             "instead of the renderer's oracle boxes")
     parser.add_argument("--data", default=None,
                         help="corpus pickle (func_before/_id columns) to "
                              "predict over instead of .c files")
@@ -265,7 +277,7 @@ def main(argv=None) -> List[Dict]:
 
     workdir = args.workdir or os.path.join(run_dir, "predict_cache")
     arrs, rows = build_request(sources, cfg, tok, workdir,
-                               east_ckpt=args.east_ckpt)
+                               east_ckpt=args.east_ckpt, device=device)
     t_host = time.time() - t_start
 
     # ---- model: the kernels run on CUDA, the plain layers on the CPU
@@ -302,7 +314,8 @@ def main(argv=None) -> List[Dict]:
     lines = [json.dumps(r) for r in results]
     summary = {
         "summary": True, "functions": n, "errors": len(rows) - n,
-        "checkpoint": ckpt, "positions": "oracle", "device": str(device),
+        "checkpoint": ckpt, "positions": "ocr" if args.east_ckpt else "oracle",
+        "device": str(device),
         "host_prep_s": round(t_host, 2),
         "device_infer_s": round(t_infer, 2),
         "functions_per_sec_device": round(n / t_infer, 2) if t_infer else None,

@@ -60,6 +60,10 @@ import mvuld_tpu_torch.train.precompute
 import mvuld_tpu_torch.train.train_text
 import mvuld_tpu_torch.train.train_fusion
 import mvuld_tpu_torch.train.pipeline
+import mvuld_tpu_torch.train.train_east
+for name in ("gt", "detect", "lanms_native", "icdar_eval", "recognize",
+             "east"):
+    __import__("mvuld_tpu_torch.ocr." + name)
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]

@@ -6,6 +6,9 @@ checkpoint of a tiny model, as tests/test_predict.py builds it) also gets
 what the port reads. Both CLIs run on the same .c sources at fp32 with the
 plain layers (the JAX CLI's CPU path; the port's ``--device cpu``).
 
+``--east-ckpt`` (EAST detection + line-number recognition) runs both CLIs
+with one stand-in detector and compares the OCR positions and P(vul).
+
 A run trained by the port's own ``train_e2e`` CLI holds port checkpoints
 and no ``variables.npz``: ``predict --run-dir`` serves its best-F1
 checkpoint, with the P(vul) of that checkpoint restored by hand.
@@ -219,12 +222,44 @@ def test_predict_data_pickle_reads_id_by_column(run_dir, tmp_path):
     assert all(0.0 <= r["p_vul"] <= 1.0 for r in got)
 
 
-def test_east_ckpt_not_ported_yet(run_dir, tmp_path):
-    from mvuld_tpu_torch.train.predict import main
-    paths = _write_sources(tmp_path, [("h1", C1)])
-    with pytest.raises(NotImplementedError, match="EAST"):
-        main(["--run-dir", run_dir, *paths, "--device", "cpu",
-              "--east-ckpt", "ckpt", "--workdir", str(tmp_path / "w")])
+def test_predict_east_ckpt_matches_jax(run_dir, tmp_path, monkeypatch):
+    """--east-ckpt: both CLIs with the same detector (the oracle of
+    tests/test_torch_ocr.py patched into both packages'
+    ``load_east_detector``) write the same ``pos_ocr`` pickles and give
+    P(vul) within 1e-5."""
+    from mvuld_tpu.ocr import detect as jdetect
+    from mvuld_tpu.train.predict import main as jmain
+    from mvuld_tpu_torch.ocr import detect as pdetect
+    from mvuld_tpu_torch.train.predict import main as pmain
+    from test_torch_ocr import oracle_detector, read_pickles
+
+    paths = _write_sources(tmp_path, [("h1", C1), ("h2", C2), ("h3", C3)])
+    jw, pw = tmp_path / "wj", tmp_path / "wp"
+    loads = []
+
+    def stand_in(work):
+        def load(ckpt, device="cuda"):
+            loads.append((ckpt, str(device)))
+            return oracle_detector(work / "imgs", work / "pos"), None
+        return load
+    monkeypatch.setattr(jdetect, "load_east_detector", stand_in(jw))
+    monkeypatch.setattr(pdetect, "load_east_detector", stand_in(pw))
+    want = jmain(["--run-dir", run_dir, *paths, "--batch-size", "4",
+                  "--east-ckpt", "east", "--workdir", str(jw)])
+    out_path = str(tmp_path / "preds.jsonl")
+    got = pmain(["--run-dir", run_dir, *paths, "--batch-size", "4",
+                 "--device", "cpu", "--east-ckpt", "east", "--workdir",
+                 str(pw), "--out", out_path])
+    assert loads == [("east", "cuda"), ("east", "cpu")]
+    ocr = read_pickles(pw / "pos_ocr")
+    assert ocr == read_pickles(jw / "pos_ocr")
+    assert sorted(ocr) == ["h1.pkl", "h2.pkl", "h3.pkl"]
+    assert all(len(v) >= 3 for v in ocr.values())
+    assert [r["id"] for r in got] == [r["id"] for r in want]
+    for g, w in zip(got, want):
+        assert abs(g["p_vul"] - w["p_vul"]) <= 1e-5, (g, w)
+    lines = [json.loads(ln) for ln in open(out_path)]
+    assert lines[-1]["positions"] == "ocr"
 
 
 def test_predict_serves_a_port_training_run(tmp_path):

@@ -21,7 +21,10 @@ JAX package, on the CPU, at narrow widths and two layers.
   JAX's from JAX's initial variables within 5e-4; TRAIN.DEVICE_DATA and
   TRAIN.DEVICE_EVAL on give exactly the losses and metrics of off.
 - ``pipeline.main --synthetic`` end to end with a one-epoch SwinV2
-  fine-tune: JAX's summary keys, finite metrics; ``--east-ckpt`` raises.
+  fine-tune: JAX's summary keys, finite metrics; ``--arch
+  multi_defect_nograph`` trains that key; ``--east-ckpt`` against JAX's
+  with one stand-in detector: the OCR stats, ``pos_ocr`` pickles and the
+  OCR-positioned caches' positions equal.
 """
 
 import json
@@ -556,9 +559,68 @@ def test_pipeline_synthetic_end_to_end(tmp_path):
     assert "head.weight" in load_checkpoint(ckpt)["params"]
 
 
-def test_pipeline_east_ckpt_raises(tmp_path):
+def test_pipeline_east_ckpt_matches_jax(tmp_path, monkeypatch):
+    """--east-ckpt with one stand-in detector (the oracle of
+    tests/test_torch_ocr.py) patched into both packages'
+    ``load_east_detector``: JAX's summary keys, OCR stats, ``pos_ocr``
+    pickles and the positions of the OCR-positioned caches."""
+    from mvuld_tpu.ocr import detect as jdetect
+    from mvuld_tpu.train.pipeline import main as jmain
+    from mvuld_tpu_torch.ocr import detect as pdetect
+    from mvuld_tpu_torch.train.pipeline import main as pmain
+    from test_torch_ocr import oracle_detector, read_pickles
+
+    jout, pout = tmp_path / "jax", tmp_path / "port"
+
+    def stand_in(out):
+        def load(ckpt, device="cuda"):
+            assert ckpt == "east"
+            return oracle_detector(out / "cache" / "imgs",
+                                   out / "cache" / "pos"), None
+        return load
+    monkeypatch.setattr(jdetect, "load_east_detector", stand_in(jout))
+    monkeypatch.setattr(pdetect, "load_east_detector", stand_in(pout))
+    common = ["--synthetic", "24", "--batch-size", "8", "--text-epochs", "1",
+              "--fusion-epochs", "1", "--east-ckpt", "east"]
+    want = jmain([*common, "--out", str(jout), "--opts", *PIPE])
+    got = pmain([*common, "--out", str(pout), "--device", "cpu",
+                 "--opts", *PIPE])
+    ocr_keys = {"ocr_node_recovery", "ocr_images", "ocr_oracle_nodes"}
+    with open(os.path.join(pout, "pipeline_summary.json")) as f:
+        summary = json.load(f)
+    assert set(summary) == set(want) - {"fusion_result"} == \
+        SUMMARY_KEYS | ocr_keys
+    assert summary["positions"] == want["positions"] == "ocr"
+    for k in ocr_keys:
+        assert got[k] == want[k], k
+    assert got["ocr_images"] >= 20 and got["ocr_node_recovery"] > 0.9
+    pos = read_pickles(pout / "cache" / "pos_ocr")
+    assert pos == read_pickles(jout / "cache" / "pos_ocr")
+    assert len(pos) == got["ocr_images"]
+    for part in ("train", "val", "test"):
+        a = np.load(os.path.join(pout, "cache_ocr", f"{part}.npz"))
+        b = np.load(os.path.join(jout, "cache_ocr", f"{part}.npz"))
+        np.testing.assert_array_equal(a["pos"], b["pos"])
+        np.testing.assert_array_equal(a["adj"], b["adj"])
+    assert np.isfinite(summary["fusion_best_f1"])
+
+
+def test_pipeline_arch_runs_the_key(tmp_path):
+    """``pipeline --arch multi_defect_nograph``: JAX's summary keys, the
+    key in the summary, and the fusion stage trained that key."""
     from mvuld_tpu_torch.train.pipeline import main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        main(["--synthetic", "8", "--out", str(tmp_path), "--east-ckpt",
-              "east", "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+    out = str(tmp_path / "run")
+    res = main(["--synthetic", "24", "--out", out, "--batch-size", "8",
+                "--text-epochs", "1", "--fusion-epochs", "1",
+                "--arch", "multi_defect_nograph", "--device", "cpu",
+                "--opts", *PIPE])
+    with open(os.path.join(out, "pipeline_summary.json")) as f:
+        summary = json.load(f)
+    assert set(summary) == SUMMARY_KEYS
+    assert summary["arch"] == res["arch"] == "multi_defect_nograph"
+    assert summary["positions"] == "oracle"
+    assert np.isfinite(summary["fusion_best_f1"])
+    import glob
+    logs = glob.glob(os.path.join(out, "fusion", "**", "log_rank0.txt"),
+                     recursive=True)
+    assert logs and "fusion arch: multi_defect_nograph" in open(logs[0]).read()
