@@ -76,7 +76,15 @@ Phases, in order; any failure exits non-zero:
      oracle score/geo maps decoded through the native NMS (every box back
      within 1 px), the eval forward at the four ``pad_to`` 256 input
      shapes, the host decode and one ``detect_array`` call timed;
-  11. print the kernels JSON line, the card line, and the result line last.
+  11. the baseline detectors: GloVe and SGNS at V 20000, dim 100 from
+     seeded arrays (ms per epoch, card vs CPU in fp64 and fp32); Devign,
+     ReVeal (GGNNSum, SMOTE, metric learner) and IVDetect at the JAX
+     modules' widths, 100 nodes, batch 16, on features the port's
+     ``build_*_features`` make from seeded synthetic functions: one step
+     card vs CPU in fp64, the three trainers' epochs, timed and profiled
+     steps, the TreeLSTM's share; the trained checkpoints served through
+     ``eval_patches``;
+  12. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -198,6 +206,35 @@ OCR_CORPUS = 32
 OCR_EPOCHS = 3
 OCR_TIMED = 5
 OCR_SHAPES = ((512, 512), (512, 768), (768, 512), (768, 768))   # (H, W)
+
+# the baselines phase, at the JAX modules' default (the reference's) widths:
+# Devign 132 → 200 (6 steps), GGNNSum 200 (8 steps), metric learner 256,
+# IVDetect hidden 64 over 100-d GloVe tokens (SEQ_LEN 12); 100 nodes (the
+# corpus funnel's line cap) and the CLI's batch of 16. The embedding
+# trainers at the vocabulary cap (20000) and dim 100 from seeded arrays:
+# GloVe over EMB_PAIRS Zipf-distributed nonzeros (the gathered [P, 100]
+# fp32 operands are 1.6 GB each) for 40 epochs, as the IVDetect path runs
+# it; SGNS on 8192-pair batches with 5 negatives for 60 epochs.
+BASE_BATCH = 16
+BASE_NODES = 100
+BASE_CORPUS = (128, 16, 16)        # seeded synthetic functions per split
+BASE_EPOCHS = 3                    # timed trainer epochs after one warm-up
+BASE_TIMED = 5
+EMB_VOCAB = 20000
+EMB_DIM = 100
+EMB_PAIRS = 4_000_000
+EMB_CHECK_PAIRS = 200_000          # card vs CPU, 5 epochs each
+# the checks' learning rates: GloVe's default; SGNS at 50, since at its
+# default 0.05 five steps move its vectors by under 3e-6, so no check at
+# 1e-4 could tell a right update from a missing one
+EMB_CHECK_LR = {"glove": 0.05, "sgns": 50.0}
+GLOVE_EPOCHS = 40
+SGNS_EPOCHS = 60
+# card vs CPU in fp64: the rel L2 of the vectors' difference to the
+# update (the vectors minus their shared start), the rel loss, the rel L2
+# of each gradient tensor (all measured ≤ 1e-14)
+BASE_TOL64 = 1e-9
+BASE_TOL32 = 1e-4      # fp32 vectors: max |card − CPU|, as the CPU tests
 
 # the published 448 image config
 # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
@@ -2282,6 +2319,311 @@ def ocr_phase(dev, work: str) -> None:
           f"the native NMS ({detect.nms_backend()})", flush=True)
 
 
+def _zipf_ids(rng, n: int):
+    """``n`` token ids in [0, EMB_VOCAB) with a code corpus's Zipf skew
+    (a few ids take most rows: the gathers' and the atomics' hot rows)."""
+    import numpy as np
+    return ((rng.zipf(1.2, n) - 1) % EMB_VOCAB).astype(np.int64)
+
+
+def _baseline_step(model, loss_fn, batch):
+    """One step's loss and parameter gradients on the host."""
+    import torch
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+
+def baselines_phase(dev, work: str) -> None:
+    """The baseline detectors and their embedding trainers
+    (``tools/embeddings.py``, ``models/baselines.py``,
+    ``train/train_baseline.py``, ``tools/eval_patches.py``) on the card at
+    the JAX modules' default widths. (a) GloVe (``glove_fit``) over
+    EMB_PAIRS seeded Zipf nonzeros at V = EMB_VOCAB, dim EMB_DIM for
+    GLOVE_EPOCHS epochs and SGNS (``sgns_fit``) for SGNS_EPOCHS 8192-pair
+    steps: ms per epoch, peak memory; both card against CPU on
+    EMB_CHECK_PAIRS for 5 epochs at EMB_CHECK_LR in fp64 (rel L2 to the
+    update ≤ BASE_TOL64) and fp32 (max |Δ| ≤ BASE_TOL32, the update ≥
+    1000 × that). (b) SGNS and GloVe tables trained on the
+    train split of BASE_CORPUS seeded synthetic functions, features built
+    by ``build_graph_features`` / ``build_ivdetect_features`` over
+    ``CodeRows`` (no pandas); one step's loss and gradients of Devign,
+    GGNNSum, IVDetect and the metric learner card against CPU in fp64 on
+    the same weights (loss and gradients ≤ BASE_TOL64); a
+    warm-up epoch, then BASE_EPOCHS
+    timed epochs of ``_bce_train`` (Devign), ``train_reveal`` (GGNNSum,
+    SMOTE, metric learner) and ``train_ivdetect``, finite losses; each
+    step timed on CUDA events and profiled (idle share), the TreeLSTM's
+    forward + backward timed alone, peak memory. (c) The three trained
+    detectors written by ``save_baseline_ckpt`` and served by
+    ``eval_patches.make_baseline_fns`` on 24 ``make_patch_pairs`` twins:
+    finite probabilities in [0, 1]."""
+    import copy
+    import random
+
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.models import baselines as bl
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.tools import embeddings as E
+    from mvuld_tpu_torch.tools.eval_patches import (_valid_code,
+                                                    make_baseline_fns)
+    from mvuld_tpu_torch.tools.patch_eval import make_patch_pairs
+    from mvuld_tpu_torch.tools.synthetic import generate_function
+    from mvuld_tpu_torch.train import train_baseline as tb
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+
+    # (a) the embedding trainers at the vocabulary cap
+    rng = np.random.RandomState(0)
+    rows, cols = _zipf_ids(rng, EMB_PAIRS), _zipf_ids(rng, EMB_PAIRS)
+    vals = rng.uniform(0.1, 100.0, EMB_PAIRS).astype(np.float32)
+    pairs = np.stack([_zipf_ids(rng, EMB_PAIRS), _zipf_ids(rng, EMB_PAIRS)],
+                     1)
+    C = EMB_CHECK_PAIRS
+    fits = {
+        "glove": (lambda n, e, d, dt, lr=0.05: E.glove_fit(
+            rows[:n], cols[:n], vals[:n], EMB_VOCAB, EMB_DIM, e, lr, seed=0,
+            device=d, dtype=dt), GLOVE_EPOCHS, EMB_PAIRS),
+        "sgns": (lambda n, e, d, dt, lr=0.05: E.sgns_fit(
+            pairs[:n], EMB_VOCAB, EMB_DIM, e, lr, negatives=5, seed=0,
+            device=d, dtype=dt), SGNS_EPOCHS, min(8192, EMB_PAIRS)),
+    }
+    # the vectors both fits start from, as they draw them (float32 draws)
+    r0 = np.random.RandomState(0)
+    starts = {"glove": sum((r0.uniform(-0.5, 0.5, (EMB_VOCAB, EMB_DIM))
+                            / EMB_DIM).astype(np.float32).astype(np.float64)
+                           for _ in range(2)),
+              "sgns": (np.random.RandomState(0).randn(EMB_VOCAB, EMB_DIM)
+                       * 0.1).astype(np.float32).astype(np.float64)}
+    for name, (fit, epochs, per_step) in fits.items():
+        fit(EMB_PAIRS, 2, dev, None)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vec, losses = fit(EMB_PAIRS, epochs, dev, None)    # host copy: synced
+        ms = (time.perf_counter() - t0) * 1e3 / epochs
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (np.isfinite(vec).all() and np.isfinite(losses).all()):
+            raise AssertionError(f"{name}: non-finite vectors or losses")
+        lr = EMB_CHECK_LR[name]
+        exact, _ = fit(C, 5, cpu, f64, lr)
+        want, _ = fit(C, 5, cpu, None, lr)
+        got64, _ = fit(C, 5, dev, f64, lr)
+        got, _ = fit(C, 5, dev, None, lr)
+        update = exact - starts[name]
+        moved = float(np.abs(update).max())
+        e64 = float(np.linalg.norm(got64 - exact) / np.linalg.norm(update))
+        e32 = float(np.abs(got - want).max())
+        own = float(np.abs(want - exact).max())
+        print(f"baselines {name}: V {EMB_VOCAB}, dim {EMB_DIM}, P "
+              f"{EMB_PAIRS} ({per_step} rows per step), {epochs} epochs "
+              f"{ms:.3f} ms/epoch (upload included), loss {losses[0]:.4g} "
+              f"→ {losses[-1]:.4g}, peak {peak:.2f} GiB; card vs CPU on "
+              f"{C} pairs × 5 epochs at lr {lr:g} (update max |Δ| "
+              f"{moved:.3g}): fp64 rel L2 to the update {e64:.2e} (tol "
+              f"{BASE_TOL64:.0e}), fp32 max |Δ| {e32:.2e} (tol "
+              f"{BASE_TOL32:.0e}; the CPU fp32's own from fp64 {own:.2e}) "
+              f"[{card}]", flush=True)
+        if not (e64 <= BASE_TOL64 and e32 <= BASE_TOL32
+                and moved >= 1000 * BASE_TOL32):
+            raise AssertionError(f"{name}: card disagrees with the CPU, or "
+                                 f"the check's update is too small")
+    del rows, cols, vals, pairs
+
+    # (b) the three trainers on features of the port's build_*_features
+    n_train, n_val, n_test = BASE_CORPUS
+    gen_rng = random.Random(0)
+    funcs = [generate_function(gen_rng, hard=i % 2 == 1)
+             for i in range(sum(BASE_CORPUS))]
+    parts = ["train"] * n_train + ["val"] * n_val + ["test"] * n_test
+    source = tb.CodeRows([f for f, _ in funcs], [v for _, v in funcs], parts)
+    corpus = [f for (f, _), p in zip(funcs, parts) if p == "train"]
+    t0 = time.perf_counter()
+    w2v = E.train_sgns(corpus, dim=EMB_DIM, epochs=60, device=dev)
+    glove = E.train_glove(corpus, dim=EMB_DIM, epochs=40, device=dev)
+    emb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = tb.build_graph_features(source, w2v, BASE_NODES)
+    ivd = tb.build_ivdetect_features(source, glove, BASE_NODES)
+    host_s = time.perf_counter() - t0
+    sizes = {p: len(d["label"]) for p, d in graph.items()}
+    print(f"baselines corpus: {sum(BASE_CORPUS)} seeded functions "
+          f"{sizes}, vocabulary {len(w2v.vocab)}; SGNS + GloVe on the "
+          f"train split {emb_s:.2f} s; features (CPG, {BASE_NODES} nodes, "
+          f"IVDetect's 4 × {tb.SEQ_LEN} tokens) {host_s:.2f} s on the host",
+          flush=True)
+
+    def fresh(model):
+        init_jax_like(model, torch.Generator().manual_seed(0))
+        return model
+
+    models = {"devign": fresh(bl.DevignModel()),
+              "ggnn_sum": fresh(bl.GGNNSum()),
+              "metric": fresh(bl.MetricLearningModel(200)),
+              "ivdetect": fresh(bl.IVDetect())}
+    B = BASE_BATCH
+
+    def batch_of(split, keys, device, dtype=torch.float32):
+        out = {}
+        for k in list(keys) + ["label"]:
+            t = torch.as_tensor(split[k][:B])
+            out[k] = (t.to(device, dtype) if t.is_floating_point()
+                      else t.to(device))
+        return out
+
+    x_rep = torch.randn(2 * B, 200, generator=torch.Generator().manual_seed(1))
+    keep = models["metric"].keep_masks(B, torch.Generator().manual_seed(2),
+                                       cpu)
+
+    def metric_loss(ml, batch):
+        idx = torch.arange(B, device=batch["x"].device)
+        return tb.metric_step(ml, batch["x"], batch["label"], idx,
+                              (idx + 3) % (2 * B), (idx + 7) % (2 * B),
+                              [m.to(batch["x"].device) for m in batch["keep"]])
+
+    steps = {
+        "devign": (tb.bce_loss, lambda d, t: batch_of(graph["train"],
+                                                      tb.GRAPH_KEYS, d, t)),
+        "ggnn_sum": (tb.bce_loss, lambda d, t: batch_of(graph["train"],
+                                                        tb.GRAPH_KEYS, d, t)),
+        "metric": (metric_loss, lambda d, t: {
+            "x": x_rep.to(d, t), "keep": keep,
+            "label": torch.arange(2 * B, device=d) % 2}),
+        "ivdetect": (tb.ce_loss, lambda d, t: batch_of(ivd["train"],
+                                                       tb.IVDETECT_KEYS, d,
+                                                       t)),
+    }
+    for name, (loss_fn, make) in steps.items():
+        l_cpu, g_cpu = _baseline_step(copy.deepcopy(models[name]).double(),
+                                      loss_fn, make(cpu, f64))
+        l_dev, g_dev = _baseline_step(
+            copy.deepcopy(models[name]).double().to(dev), loss_fn,
+            make(dev, f64))
+        e_loss = abs(l_dev - l_cpu) / max(abs(l_cpu), 1e-30)
+        worst = max(g_cpu, key=lambda k: _rel_l2(g_dev[k], g_cpu[k]))
+        e_grad = _rel_l2(g_dev[worst], g_cpu[worst])
+        print(f"baselines {name}: one step at batch {B} card vs CPU in fp64 "
+              f"on the same weights: loss {l_dev:.6f} (rel {e_loss:.2e}, "
+              f"tol {BASE_TOL64:.0e}), gradients worst rel L2 {e_grad:.2e} "
+              f"({worst}; tol {BASE_TOL64:.0e})", flush=True)
+        if not (e_loss <= BASE_TOL64 and e_grad <= BASE_TOL64):
+            raise AssertionError(f"baselines {name}: card vs CPU in fp64")
+
+    quiet = SimpleNamespace(info=lambda msg: None)
+    common = dict(lr=1e-3, seed=0, batch_size=B, logger=quiet, device=dev)
+
+    def train(name, epochs):
+        """The trainer of ``name`` on copies of the seeded models; the
+        trained modules."""
+        if name == "devign":
+            m = copy.deepcopy(models["devign"]).to(dev)
+            tb._bce_train(m, graph, epochs, **common)
+            return [m]
+        if name == "reveal":
+            g = copy.deepcopy(models["ggnn_sum"]).to(dev)
+            ml = copy.deepcopy(models["metric"]).to(dev)
+            tb.train_reveal(g, ml, graph, epochs, **common)
+            return [g, ml]
+        m = copy.deepcopy(models["ivdetect"]).to(dev)
+        tb.train_ivdetect(m, ivd, epochs, **common)
+        return [m]
+
+    trained = {}
+    per_epoch = max(sizes["train"] // B, 1)
+    for name in ("devign", "reveal", "ivdetect"):
+        train(name, 1)                                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train(name, BASE_EPOCHS)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [x for m in out for x in m.losses]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"baselines {name}: losses {losses}")
+        trained[name] = out
+        print(f"baselines train {name}: {BASE_EPOCHS} epochs of {per_epoch} "
+              f"steps at batch {B} in {secs:.2f} s (eval, "
+              f"{'SMOTE, metric learner, ' if name == 'reveal' else ''}"
+              f"uploads included), losses "
+              f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GiB "
+              f"[{card}]", flush=True)
+
+    def timed_step(name, model):
+        loss_fn, make = steps[name]
+        model = copy.deepcopy(model).to(dev)
+        opt = tb.adam(model, 1e-3)
+        batch = make(dev, torch.float32)
+
+        def step():
+            opt.update(torch.autograd.grad(loss_fn(model, batch),
+                                           opt.params))
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, BASE_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"baselines step {name}: {ms:.2f} ms per train step at batch "
+              f"{B} (forward, backward, Adam; CUDA events), peak "
+              f"{peak:.2f} GiB [{card}]", flush=True)
+        profile_run(f"baselines {name} train step", step)
+        return ms, model
+
+    for name in ("devign", "ggnn_sum", "metric"):
+        timed_step(name, models[name])
+    iv_ms, iv = timed_step("ivdetect", models["ivdetect"])
+    b = batch_of(ivd["train"], tb.IVDETECT_KEYS, dev)
+    x = torch.randn(B, BASE_NODES, iv.hidden, device=dev, requires_grad=True)
+    tree = list(iv.treelstm.parameters())
+    tl_ms = time_ms(lambda: torch.autograd.grad(
+        iv.treelstm(x, b["ast"], b["node_mask"]).sum(), [x] + tree),
+        BASE_TIMED)
+    print(f"baselines step ivdetect: the TreeLSTM's forward + backward "
+          f"alone ({BASE_NODES}-step loop each way) {tl_ms:.2f} ms = "
+          f"{tl_ms / iv_ms:.1%} of the step [{card}]", flush=True)
+
+    # (c) serve the trained detectors through eval_patches
+    vul, fix = make_patch_pairs(24, seed=7)
+    codes = vul + fix
+    n_valid = sum(_valid_code(c) for c in codes)
+    ckpts = {
+        "devign": {"model": "devign", "params": trained["devign"][0],
+                   "emb_vocab": w2v.vocab, "emb_vectors": w2v.vectors},
+        "reveal": {"model": "reveal", "params": trained["reveal"][0],
+                   "ml_params": trained["reveal"][1], "emb_vocab": w2v.vocab,
+                   "emb_vectors": w2v.vectors},
+        "ivdetect": {"model": "ivdetect", "params": trained["ivdetect"][0],
+                     "emb_vocab": glove.vocab, "emb_vectors": glove.vectors,
+                     "hidden": trained["ivdetect"][0].hidden},
+    }
+    for name, payload in ckpts.items():
+        out = os.path.join(work, f"baseline_{name}")
+        tb.save_baseline_ckpt(out, {**payload, "max_nodes": BASE_NODES,
+                                    "emb_dim": EMB_DIM})
+        run, _ = make_baseline_fns(out, B, dev)
+        run(codes[:B])                                     # warm-up
+        t0 = time.perf_counter()
+        probs, reprs = run(codes)
+        ms = (time.perf_counter() - t0) * 1e3
+        ok = (len(probs) == n_valid and np.isfinite(probs).all()
+              and ((probs >= 0) & (probs <= 1)).all()
+              and (reprs is None or np.isfinite(reprs).all()))
+        print(f"baselines serve {name}: {len(probs)} of {len(codes)} twins "
+              f"(vulnerable + patched) through eval_patches in {ms:.1f} ms "
+              f"(host features included), P(vul) "
+              f"{probs.min():.4f}-{probs.max():.4f}"
+              f"{'' if reprs is None else f', reprs {reprs.shape}'}"
+              f"{'' if ok else ' FAILED'} [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"baselines serve {name}")
+    print(f"baselines: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def _category(name: str) -> str:
     if "attn_fwd_flat" in name:
         return "K1 window attention forward: the one pass"
@@ -2570,6 +2912,7 @@ def main() -> int:
         fopts = staged_phase(dev, work)
         zoo_phase(dev, work, fopts)
         ocr_phase(dev, work)
+        baselines_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     idle = [k for k, n in launches.items() if n == 0]

@@ -12,20 +12,28 @@ its towers (``SwinTransformerV2``, ``RobertaEncoder``,
 ``classifier``), into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
 and the raw Tucker cores), or into the EAST detector (``ocr/east.py``,
 Flax module names: ``extractor/conv_{i}``, ``merge/bn_{i}``,
-``score_head`` …), with the layout rules:
+``score_head`` …), or into a baseline detector (``models/baselines.py``:
+Devign, GGNNSum, the metric learner, IVDetect and their GGNN, masked GRU
+and TreeLSTM parts), with the layout rules:
 
   Dense ``kernel`` [in, out]       → ``weight`` [out, in]
   Conv ``kernel`` HWIO             → ``weight`` OIHW
   LayerNorm / BatchNorm ``scale``  → ``weight``
   BatchNorm ``mean`` / ``var``     → ``running_mean`` / ``running_var``
   Embed ``embedding``              → ``weight``
+  Conv ``kernel`` [k, Cin, Cout]   → ``Conv1d.weight`` [Cout, Cin, k]
   SwinV2 ``layers_{i}_scan/block{b}`` leaves [pairs, …] → blocks 2p + b
 
 and the module names of the reference torch models where the JAX
 converters name them (``attn.cpb_mlp.0``, ``encoder.layer.{i}.attention.
 self.query``, dgl GATConv's ``attn_l`` [1, H, D], Rs_GCN's ``W.0``/``W.1``).
 flax ``GRUCell``'s six dense leaves (``gru/ir`` … ``gru/hn``) keep their
-names, one ``Linear`` each.
+names, one ``Linear`` each; the cell of a flax ``nn.RNN`` (``GRUCell_0``)
+is the baselines' ``MaskedGRU.cell``; raw parameters (``etype_w``, the
+TreeLSTM's ``W_iou`` …) keep name and layout.
+``baseline_params_tree`` writes a baseline's parameters back as the flax
+``params`` tree, each kernel through the inverse of the same layout rule
+(``_KERNEL_AXES``).
 It raises on a key it leaves unused and on a port tensor it leaves unset.
 ``torch_to_jax_names`` is the inverse name map: each port parameter and
 BatchNorm statistic to its JAX variable path, as the decay mask and the
@@ -60,13 +68,16 @@ def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 _LEAF = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
          "var": "running_var"}
+# a flax kernel's axes in the torch weight's order, by rank: Dense [in, out]
+# → [out, in], Conv [k, Cin, Cout] → [Cout, Cin, k], Conv HWIO → OIHW
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
 def _leaf(path: List[str], arr: np.ndarray) -> Mapped:
     """Generic rule: join the path with '.', torch leaf name and layout."""
     *mods, name = path
     if name == "kernel":
-        arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        arr = arr.transpose(_KERNEL_AXES[arr.ndim])
         name = "weight"
     yield ".".join(mods + [_LEAF.get(name, name)]), arr
 
@@ -173,6 +184,23 @@ def _fusion(path: List[str], arr: np.ndarray) -> Mapped:
     yield from _leaf(path, arr)
 
 
+# ------------------------------------------------------------------ baselines
+
+def _baseline(path: List[str], arr: np.ndarray) -> Mapped:
+    """Devign / ReVeal / IVDetect: the generic rule, with the cell that
+    ``nn.RNN`` creates (``GRUCell_0``) as ``cell``; ``etype_w`` and the
+    TreeLSTM's raw parameters keep name and layout."""
+    yield from _leaf(["cell" if p == "GRUCell_0" else p for p in path], arr)
+
+
+def _is_baseline(model: nn.Module) -> bool:
+    from mvuld_tpu_torch.models import baselines as bl
+    from mvuld_tpu_torch.models.graph_nets import DenseGGNN
+    return isinstance(model, (bl.DevignModel, bl.GGNNSum,
+                              bl.MetricLearningModel, bl.IVDetect,
+                              bl.MaskedGRU, bl.ChildSumTreeLSTM, DenseGGNN))
+
+
 # ------------------------------------------------------------------ dispatch
 
 def _is_bilinear(model: nn.Module) -> bool:
@@ -201,6 +229,8 @@ def _rules(model: nn.Module):
         return _fusion
     if _is_bilinear(model):
         return _leaf
+    if _is_baseline(model):
+        return _baseline
     if isinstance(model, EndToEndMVulD):
         towers = {"swin": _swin, "text_encoder": _roberta, "fusion": _fusion}
 
@@ -255,12 +285,21 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
     standard deviations), biases 0, LayerNorm and BatchNorm scale 1 and
     shift 0 (Rs-GCN's BN scale 0), running statistics 0 and 1, embeddings
     normal with std 1/√features, GAT attention vectors xavier-normal,
-    ``logit_scale`` log 10, the GRU's recurrent kernels orthogonal and the
-    Tucker cores normal with std 0.02."""
+    ``logit_scale`` log 10, the GRU's recurrent kernels orthogonal, the
+    Tucker cores normal with std 0.02, and the GGNN's ``etype_w`` and the
+    TreeLSTM's raw kernels xavier-uniform."""
+    from mvuld_tpu_torch.models.baselines import ChildSumTreeLSTM
     from mvuld_tpu_torch.models.bilinear_fusion import BlockTucker, Tucker
-    from mvuld_tpu_torch.models.fusion_zoo import GRUCell
-    from mvuld_tpu_torch.models.graph_nets import DenseGATConv, RsGCN
+    from mvuld_tpu_torch.models.graph_nets import (DenseGATConv, DenseGGNN,
+                                                   GRUCell, RsGCN)
     from mvuld_tpu_torch.models.swin_v2 import WindowAttentionV2
+
+    def xavier(w: torch.Tensor):
+        # flax xavier_uniform: leading axes are receptive field
+        field = math.prod(w.shape[:-2])
+        limit = math.sqrt(6.0 / ((w.shape[-2] + w.shape[-1]) * field))
+        w.copy_(torch.empty(w.shape).uniform_(-limit, limit,
+                                              generator=generator))
 
     def lecun(w: torch.Tensor, fan_in: int):
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -304,6 +343,13 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
                 q, r = torch.linalg.qr(torch.empty(w.shape).normal_(
                     generator=generator))
                 w.copy_(q * torch.sign(torch.diagonal(r))[None])
+        elif isinstance(mod, DenseGGNN):
+            xavier(mod.etype_w)
+        elif isinstance(mod, ChildSumTreeLSTM):
+            for p in (mod.W_iou, mod.U_iou, mod.W_f, mod.U_f):
+                xavier(p)
+            mod.b_iou.zero_()
+            mod.b_f.zero_()
         elif isinstance(mod, (Tucker, BlockTucker)):
             for name, p in mod.named_parameters(recurse=False):
                 if name.startswith("core"):
@@ -327,6 +373,7 @@ _INV_ROBERTA = [(r"^embeddings\.LayerNorm\.", "embeddings_norm/"),
                 (r"^encoder\.layer\.(\d+)", r"layer_\1")]
 _INV_FUSION = [(r"(rs_gcn_\d+)\.W\.0\.", r"\1/W/"),
                (r"(rs_gcn_\d+)\.W\.1\.", r"\1/bn/")]
+_INV_BASELINE = [(r"(^|\.)cell\.", r"\1GRUCell_0.")]
 _INV_SWIN = [(r"^layers\.(\d+)\.blocks\.(\d+)\.", r"layers_\1_blocks_\2/"),
              (r"^layers\.(\d+)\.downsample\.", r"layers_\1_downsample/")]
 
@@ -343,7 +390,8 @@ def _jax_leaf(mod: nn.Module, leaf: str) -> str:
 
 def _inverse_tower(tower: str, name: str) -> str:
     rules = {"swin": _INV_SWIN_BLOCK + _INV_SWIN, "text_encoder": _INV_ROBERTA,
-             "fusion": _INV_FUSION, "leaf": []}[tower]
+             "fusion": _INV_FUSION, "baseline": _INV_BASELINE,
+             "leaf": []}[tower]
     for pat, rep in rules:
         name = re.sub(pat, rep, name)
     return name.replace(".", "/")
@@ -374,6 +422,8 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
         towers = [("", model, "fusion")]
     elif _is_bilinear(model) or isinstance(model, EAST):
         towers = [("", model, "leaf")]
+    elif _is_baseline(model):
+        towers = [("", model, "baseline")]
     elif isinstance(model, UniXcoderEmbedder):
         towers = [("encoder", model.encoder, "text_encoder")]
         if hasattr(model, "classifier"):
@@ -396,3 +446,24 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
             out[f"{prefix}.{key}" if prefix else key] = (
                 f"{coll}/{prefix}/{path}" if prefix else f"{coll}/{path}")
     return out
+
+
+def baseline_params_tree(model: nn.Module) -> Dict:
+    """A baseline detector's parameters as the flax ``params`` tree: nested
+    dicts of numpy arrays under the JAX names and layouts, as the JAX
+    package's ``save_baseline_ckpt`` writes them. ``jax_variables_to_torch(
+    flatten_variables({"params": tree}), model)`` loads it back."""
+    if not _is_baseline(model):
+        raise TypeError(f"{type(model).__name__} is not a baseline detector")
+    names = torch_to_jax_names(model)
+    tree: Dict = {}
+    for key, t in model.state_dict().items():
+        a = t.detach().cpu().numpy()
+        *path, leaf = names[key].split("/")[1:]
+        if leaf == "kernel":                 # the inverse of _leaf's layout
+            a = a.transpose(np.argsort(_KERNEL_AXES[a.ndim]))
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree

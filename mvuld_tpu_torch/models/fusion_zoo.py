@@ -37,7 +37,7 @@ from torch import nn
 
 from mvuld_tpu_torch.core.registry import FUSION_MODELS
 from mvuld_tpu_torch.models.dropout import dropout
-from mvuld_tpu_torch.models.graph_nets import (DenseGATConv, RsGCN,
+from mvuld_tpu_torch.models.graph_nets import (DenseGATConv, GRUCell, RsGCN,
                                                batch_norm, l2norm_nodes,
                                                mean_nodes,
                                                mean_over_max_nodes)
@@ -98,28 +98,6 @@ class HiddenStack(nn.Module):
         for i in range(self.depth):
             h = dropout(F.elu(getattr(self, f"fc_{i}")(h)), self.drop, gen)
         return h
-
-
-class GRUCell(nn.Module):
-    """flax ``nn.GRUCell``'s parameter set and update: ``ir``, ``iz``,
-    ``in`` dense with bias on the input, ``hr``, ``hz`` without bias and
-    ``hn`` with bias on the state;
-    r, z = σ(·), n = tanh(x_n + r·h_n), h' = (1 − z)·n + z·h.
-    (``torch.nn.GRU`` would add hidden biases to r and z.)"""
-
-    def __init__(self, d_in: int, features: int):
-        super().__init__()
-        for gate in ("r", "z", "n"):
-            self.add_module(f"i{gate}", nn.Linear(d_in, features))
-            self.add_module(f"h{gate}", nn.Linear(features, features,
-                                                  bias=gate == "n"))
-
-    def forward(self, h, x):
-        m = self._modules
-        r = torch.sigmoid(m["ir"](x) + m["hr"](h))
-        z = torch.sigmoid(m["iz"](x) + m["hz"](h))
-        n = torch.tanh(m["in"](x) + r * m["hn"](h))
-        return (1.0 - z) * n + z * h
 
 
 class GraphBranch(nn.Module):

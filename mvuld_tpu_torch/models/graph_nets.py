@@ -1,5 +1,5 @@
-"""Dense masked graph layers in PyTorch: GAT, Rs-GCN and the readouts of
-the fusion zoo.
+"""Dense masked graph layers in PyTorch: GAT, Rs-GCN, GGNN and the
+readouts.
 
 Counterpart of ``mvuld_tpu/models/graph_nets.py`` over the same dense
 [B, N, ·] layout:
@@ -11,13 +11,17 @@ Counterpart of ``mvuld_tpu/models/graph_nets.py`` over the same dense
   * ``RsGCN`` ≡ mvuld/models/Rs_GCN.py:7-73 with the reference's module
     names (1×1 ``Conv1d`` g/theta/phi, ``W`` = Conv1d + BatchNorm1d), run
     channels-last;
+  * ``GRUCell`` ≡ flax ``nn.GRUCell`` (six dense leaves ``ir`` … ``hn``),
+    shared by the fusion zoo's GRU readout and the baselines;
+  * ``DenseGGNN`` ≡ dgl GatedGraphConv (per-etype linear messages + GRU),
+    the Devign / ReVeal encoder;
   * ``l2norm_nodes`` / ``mean_nodes`` / ``mean_over_max_nodes`` with the
     reference's axis conventions.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,6 +138,65 @@ class RsGCN(nn.Module):
         w_y = batch_norm(w_y.reshape(B * N, C), self.W[1], train
                          ).reshape(B, N, C)
         return w_y + v, R
+
+
+class GRUCell(nn.Module):
+    """flax ``nn.GRUCell``'s parameter set and update: ``ir``, ``iz``,
+    ``in`` dense with bias on the input, ``hr``, ``hz`` without bias and
+    ``hn`` with bias on the state;
+    r, z = σ(·), n = tanh(x_n + r·h_n), h' = (1 − z)·n + z·h.
+    (``torch.nn.GRU`` would add hidden biases to r and z.)"""
+
+    def __init__(self, d_in: int, features: int):
+        super().__init__()
+        for gate in ("r", "z", "n"):
+            self.add_module(f"i{gate}", nn.Linear(d_in, features))
+            self.add_module(f"h{gate}", nn.Linear(features, features,
+                                                  bias=gate == "n"))
+
+    def forward(self, h, x):
+        m = self._modules
+        r = torch.sigmoid(m["ir"](x) + m["hr"](h))
+        z = torch.sigmoid(m["iz"](x) + m["hz"](h))
+        n = torch.tanh(m["in"](x) + r * m["hn"](h))
+        return (1.0 - z) * n + z * h
+
+
+class DenseGGNN(nn.Module):
+    """Gated graph conv over per-etype dense adjacency (the Devign
+    baseline's GGNN, dgl GatedGraphConv semantics): per-etype linear
+    messages ``etype_w`` [R, D, D], summed over in-edges src i → dst j,
+    a flax-layout ``GRUCell`` state update, ``n_steps`` iterations. Inputs
+    narrower than ``out_feats`` are zero-padded up to it."""
+
+    def __init__(self, out_feats: int, n_steps: int = 6, n_etypes: int = 6):
+        super().__init__()
+        self.out_feats, self.n_steps = out_feats, n_steps
+        self.etype_w = nn.Parameter(torch.empty(n_etypes, out_feats,
+                                                out_feats))
+        nn.init.xavier_uniform_(self.etype_w)
+        self.gru = GRUCell(out_feats, out_feats)
+
+    def forward(self, h: torch.Tensor, adj_etype: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """h [B, N, F_in], adj_etype [B, R, N, N] (src i → dst j) →
+        [B, N, out_feats]."""
+        B, N, F_in = h.shape
+        D = self.out_feats
+        if F_in > D:
+            raise ValueError(
+                f"GGNN requires in_feats ({F_in}) <= out_feats ({D}) — same "
+                "constraint as dgl.nn.GatedGraphConv")
+        if F_in < D:
+            h = F.pad(h, (0, D - F_in))
+        for _ in range(self.n_steps):
+            m = torch.einsum("bnd,rde->brne", h, self.etype_w)
+            agg = torch.einsum("brij,brid->bjd", adj_etype, m)
+            h = self.gru(h.reshape(B * N, D), agg.reshape(B * N, D)
+                         ).reshape(B, N, D)
+        if node_mask is not None:
+            h = h * node_mask[..., None]
+        return h
 
 
 def l2norm_nodes(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

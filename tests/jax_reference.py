@@ -10,6 +10,12 @@ JAX at 1e-5 must compare with a program compiled here, so the fixture
 turns the cache off around each test and resets JAX's cache state on both
 sides; JAX mains called from port tests get ``MVULD_CACHE_DIR=""`` as
 well, so they never turn it on.
+
+``one_torch_thread``: the port's CPU runs of many small ops (the
+baselines' trainers, GRU and TreeLSTM loops) slow down many times over
+when torch's intra-op threads compete with the other test workers' for
+the cores; a module that names the fixture runs torch on one thread, and
+the thread count is restored after each test.
 """
 
 import jax
@@ -26,3 +32,12 @@ def no_persistent_compile_cache(monkeypatch):
     yield
     jax.config.update("jax_enable_compilation_cache", before)
     compilation_cache.reset_cache()
+
+
+@pytest.fixture
+def one_torch_thread():
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

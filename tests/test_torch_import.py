@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX and nothing of ``mvuld_tpu``,
-and needs none of the host extras (PIL, yaml, pandas, cv2, tokenizers) to
-import. ``chip_smoke.py`` refuses to run without a CUDA device."""
+and needs none of the host extras (PIL, yaml, pandas, cv2, tokenizers,
+matplotlib, sklearn) to import. ``chip_smoke.py`` refuses to run without a
+CUDA device, and its ``main`` drives every phase."""
 
 import ast
 import os
@@ -47,7 +48,7 @@ def test_package_imports_with_jax_and_host_extras_blocked():
     code = """
 import pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "pandas",
-             "tokenizers", "matplotlib", "cv2"):
+             "tokenizers", "matplotlib", "cv2", "sklearn"):
     sys.modules[name] = None
 import mvuld_tpu_torch
 import mvuld_tpu_torch.train.predict
@@ -64,6 +65,11 @@ import mvuld_tpu_torch.train.train_east
 for name in ("gt", "detect", "lanms_native", "icdar_eval", "recognize",
              "east"):
     __import__("mvuld_tpu_torch.ocr." + name)
+import mvuld_tpu_torch.models.baselines
+import mvuld_tpu_torch.train.train_baseline
+for name in ("embeddings", "patch_eval", "eval_patches", "process_dataset",
+             "gitdiff", "mutate"):
+    __import__("mvuld_tpu_torch.tools." + name)
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
@@ -92,6 +98,22 @@ def test_chip_smoke_fails_alone(tmp_path):
                        capture_output=True, text=True, timeout=240, env=env)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+PHASES = ("serve_phase", "train_phase", "swin_phase", "blockbench_phase",
+          "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
+          "baselines_phase")
+
+
+@pytest.mark.parametrize("phase", PHASES)
+def test_chip_smoke_main_drives_the_phase(phase):
+    """Each phase is a function of the script that ``main`` calls."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert phase in funcs
+    called = {c.func.id for c in ast.walk(funcs["main"])
+              if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
+    assert phase in called
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
