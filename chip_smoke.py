@@ -84,7 +84,19 @@ Phases, in order; any failure exits non-zero:
      card vs CPU in fp64, the three trainers' epochs, timed and profiled
      steps, the TreeLSTM's share; the trained checkpoints served through
      ``eval_patches``;
-  12. print the kernels JSON line, the card line, and the result line last.
+  12. the Swin family through ``build_model``: SwinV1-B, Swin-MLP-B (224²),
+     Swin-MoE-S (192², 8 experts on the card) and SwinV2-B 448 (through
+     K1, K2, K3, K3b, counted) at the published widths, a warm-up and five
+     AdamW steps at batch 64 each (ms/step, images/s, peak memory, the
+     MoE's dropped share, a profiled step); each type card against CPU on
+     one train-mode step at depths 2-2-2-2, fp64 and fp32 (the MoE's
+     routings compared first);
+  13. the tools: ``convert_checkpoint swinv2`` 384/24 → 448/28 loaded as
+     ``pipeline --swin-ckpt`` loads it (logits equal to the bit to
+     ``load_pretrained_swinv2``'s on the card), ``traceparse`` over step
+     4's exported trace against ``key_averages()``, ``joern_json`` on a
+     node/edge pair, ``results_table`` over the staged and baselines runs;
+  14. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -235,6 +247,64 @@ SGNS_EPOCHS = 60
 # of each gradient tensor (all measured ≤ 1e-14)
 BASE_TOL64 = 1e-9
 BASE_TOL32 = 1e-4      # fp32 vectors: max |card − CPU|, as the CPU tests
+
+# the Swin family phase: build_model's four types at the published widths
+# of the Swin Transformer repository (microsoft/Swin-Transformer), batch
+# 64, bf16, one warm-up and FAMILY_TIMED AdamW steps each; card vs CPU on
+# one train-mode step (dropout, DropPath and gate noise off) at the same
+# widths with depths 2-2-2-2 and FAMILY_CHECK images, fp64 within
+# FAMILY_TOL64 and fp32 by the zoo's rule (ZOO_TOL / ZOO_GRAD_TOL, else
+# within ZOO_NOISE × the CPU fp32's own error from fp64)
+FAMILY_BATCH = 64
+FAMILY_TIMED = 5
+FAMILY_CHECK = 2
+FAMILY_TOL64 = 1e-9
+# SwinV1-B: configs/swin/swin_base_patch4_window7_224.yaml (88 M
+# parameters, 15.4 GFLOPs per 224² image forward, Swin paper Table 1)
+SWIN_B = ["MODEL.TYPE", "swin", "DATA.IMG_SIZE", 224,
+          "MODEL.SWIN.EMBED_DIM", 128, "MODEL.SWIN.DEPTHS", [2, 2, 18, 2],
+          "MODEL.SWIN.NUM_HEADS", [4, 8, 16, 32], "MODEL.SWIN.WINDOW_SIZE", 7]
+# Swin-MLP-B: configs/swinmlp/swin_mlp_base_patch4_window7_224.yaml
+SWIN_MLP_B = ["MODEL.TYPE", "swin_mlp", "DATA.IMG_SIZE", 224,
+              "MODEL.SWIN_MLP.EMBED_DIM", 128,
+              "MODEL.SWIN_MLP.DEPTHS", [2, 2, 18, 2],
+              "MODEL.SWIN_MLP.NUM_HEADS", [4, 8, 16, 32],
+              "MODEL.SWIN_MLP.WINDOW_SIZE", 7]
+# Swin-MoE-S: configs/swinmoe/swin_moe_small_patch4_window12_192_8expert_
+# 32gpu_22k.yaml (MoE in the odd blocks of stage 3 and block 1 of stage 4,
+# top-1, capacity factor 1.25). One deviation: the file spreads 8 experts
+# over 32 GPUs (a negative NUM_LOCAL_EXPERTS, which build_model reads
+# as one expert); here all 8 experts sit on the one card
+SWIN_MOE_S = ["MODEL.TYPE", "swin_moe", "DATA.IMG_SIZE", 192,
+              "MODEL.SWIN_MOE.EMBED_DIM", 96,
+              "MODEL.SWIN_MOE.DEPTHS", [2, 2, 18, 2],
+              "MODEL.SWIN_MOE.NUM_HEADS", [3, 6, 12, 24],
+              "MODEL.SWIN_MOE.WINDOW_SIZE", 12,
+              "MODEL.SWIN_MOE.MOE_BLOCKS",
+              [[-1], [-1], [1, 3, 5, 7, 9, 11, 13, 15, 17], [1]],
+              "MODEL.SWIN_MOE.NUM_LOCAL_EXPERTS", 8,
+              "MODEL.SWIN_MOE.TOP_VALUE", 1,
+              "MODEL.SWIN_MOE.CAPACITY_FACTOR", 1.25]
+# the tools phase: one Joern node/edge JSON pair (the shape of
+# tests/test_joern_json.py's fixture)
+JOERN_NODES = [
+    {"id": 1, "_label": "METHOD", "name": "f", "code": "int f(int a)",
+     "lineNumber": 1},
+    {"id": 3, "_label": "CALL", "name": "<operator>.assignment",
+     "code": "x = a + 1", "lineNumber": 3},
+    {"id": 4, "_label": "CALL", "name": "<operator>.addition",
+     "code": "a + 1", "lineNumber": 3},
+    {"id": 5, "_label": "CALL", "name": "memcpy", "code": "memcpy(b, a, 4)",
+     "lineNumber": 4},
+    {"id": 6, "_label": "RETURN", "name": "", "code": "return x;",
+     "lineNumber": 5},
+    {"id": 7, "_label": "COMMENT", "name": "", "code": "// hi",
+     "lineNumber": 2}]
+JOERN_EDGES = [[3, 1, "AST", ""], [5, 1, "AST", ""], [6, 1, "AST", ""],
+               [5, 3, "CFG", ""], [6, 5, "CFG", ""],
+               [6, 3, "REACHING_DEF", "x"], [3, 1, "CONTAINS", ""]]
+TRACE_TOL = 0.01        # traceparse's device total against key_averages'
+PROFILES = {}           # profile_run's results by label, with a trace path
 
 # the published 448 image config
 # (configs/swinv2_base_patch4_window24to28_384to448_1ktoMYDATA_ft.yaml)
@@ -916,6 +986,7 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e", fp32=False):
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.tools import traceparse
 
     wrapper = getattr(fd, name)
     residual = name == "mlp_ln_res_bwd"
@@ -964,7 +1035,7 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e", fp32=False):
                          / BF16_TC_FLOP_S * 1e3))
         if residual and label == "lines" and not fp32:
             profile_run(f"K4b {label} launch", lambda: wrapper(
-                x, dy, *params, *extra), category=_mlp_pass)
+                x, dy, *params, *extra), category=traceparse.mlp_pass)
 
 
 def check_dense(dev, gen, rows, fp32=False):
@@ -978,6 +1049,7 @@ def check_dense(dev, gen, rows, fp32=False):
     import torch
 
     from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.tools import traceparse
 
     dtype = torch.float32 if fp32 else torch.bfloat16
     tol_of = ((lambda ref: 1e-4 * float(ref.abs().max())) if fp32  # noqa: E731
@@ -1033,9 +1105,9 @@ def check_dense(dev, gen, rows, fp32=False):
                          t_ops=t_ops))
         if path == "blockbench":
             profile_run(f"K6 {label} launch", lambda: fd.dense_fwd(*fargs),
-                        category=_dense_pass)
+                        category=traceparse.dense_pass)
             profile_run(f"K6b {label} launch", lambda: fd.dense_bwd(*bargs),
-                        category=_dense_pass)
+                        category=traceparse.dense_pass)
         del x, dy, got, want, dz, dz_p
 
 
@@ -1183,10 +1255,11 @@ def write_cache(out_dir: str, cfg, n_train: int, n_val: int) -> None:
                    "added_tokens": []}, f)
 
 
-def train_phase(dev, counters):
+def train_phase(dev, counters, trace_dir=None):
     """(a) The main path: one epoch through ``train_e2e.main`` with the
     kernels, launches counted. (b) Kernels against plain layers: first-step
-    loss and per-tensor gradients, then timed steps and peak memory."""
+    loss and per-tensor gradients, then timed steps and peak memory; the
+    kernel path's profiled step's Chrome trace goes to ``trace_dir``."""
     import numpy as np
     import torch
 
@@ -1347,7 +1420,9 @@ def train_phase(dev, counters):
     opt, b, gen = timed_steps("kernels", fast, BATCH)
     profile_run(f"kernels train step (batch {BATCH})",
                 lambda: train_step(fast, opt, b, gen,
-                                   cfg.MODEL.LABEL_SMOOTHING))
+                                   cfg.MODEL.LABEL_SMOOTHING),
+                trace_path=(os.path.join(trace_dir, "e2e_train_step.json")
+                            if trace_dir else None))
     del opt, b, fast
     torch.cuda.empty_cache()
     timed_steps("plain", plain, B_plain)
@@ -2515,12 +2590,22 @@ def baselines_phase(dev, work: str) -> None:
         if not (e_loss <= BASE_TOL64 and e_grad <= BASE_TOL64):
             raise AssertionError(f"baselines {name}: card vs CPU in fp64")
 
-    quiet = SimpleNamespace(info=lambda msg: None)
-    common = dict(lr=1e-3, seed=0, batch_size=B, logger=quiet, device=dev)
+    def run_log(name):
+        """A logger of the trainer's lines into ``work``/baseline_run_NAME/
+        log_rank0.txt (``results_table`` reads its test line)."""
+        path = os.path.join(work, f"baseline_run_{name}", "log_rank0.txt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+
+        def info(msg):
+            with open(path, "a") as f:
+                f.write(f"{msg}\n")
+        return SimpleNamespace(info=info)
 
     def train(name, epochs):
         """The trainer of ``name`` on copies of the seeded models; the
         trained modules."""
+        common = dict(lr=1e-3, seed=0, batch_size=B, logger=run_log(name),
+                      device=dev)
         if name == "devign":
             m = copy.deepcopy(models["devign"]).to(dev)
             tb._bce_train(m, graph, epochs, **common)
@@ -2624,123 +2709,359 @@ def baselines_phase(dev, work: str) -> None:
           flush=True)
 
 
-def _category(name: str) -> str:
-    if "attn_fwd_flat" in name:
-        return "K1 window attention forward: the one pass"
-    if "attn_fwd_stats" in name:
-        return "K7/K8 window attention forward: row pass"
-    if "attn_fwd_out" in name:
-        return "K7/K8 window attention forward: output pass"
-    if "prep_forward" in name:
-        return "K1/K7/K8 window attention forward: operand prep"
-    if "attn_bwd" in name or "prep_operands" in name:
-        return "K2/K5/K7b/K8b window attention backward passes"
-    if "dense_ln_rows" in name or (
-            "DenseEpi" in name and not _backward_tag(name, "DenseEpi")):
-        return "K6 dense_fwd"
-    if any(k in name for k, _ in DENSE_PASSES):
-        return "K6b dense_bwd"
-    if "ln_rows_fwd" in name or any(
-            k in name and not _backward_tag(name, k) for k in _TAGGED):
-        return "K3/K4 mlp_ln"
-    if any(k in name for k, _ in MLP_PASSES):
-        return "K3b/K4b mlp_ln_bwd"
-    low = name.lower()
-    if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "cublas",
-                              "nvjet", "sm90")):
-        return "library GEMM"
-    if any(t in low for t in ("softmax", "reduce", "norm")):
-        return "softmax/norm/reduce"
-    if "elementwise" in low or "vectorized" in low:
-        return "elementwise"
-    return "other"
+# -------------------------------------------------------------- Swin family
+
+def _family_config(opts, extra=()):
+    from mvuld_tpu_torch.config import get_config
+    return get_config(SimpleNamespace(
+        cfg=None, opts=list(opts) + ["MODEL.NUM_CLASSES", 2,
+                                     "PARALLEL.DTYPE", "bfloat16",
+                                     "SEED", 0] + list(extra),
+        output=tempfile.gettempdir()))
 
 
-# csrc/mlp_ln.cu's passes by a piece of their kernel's name (the GEMM
-# passes by their epilogue); HiddenEpi and ZEpi serve both directions, and
-# their last template argument tells the backward's instantiation
-MLP_PASSES = (("HiddenEpi", "h = GELU(x·W1 + b1)"),
-              ("ZEpi", "z = h·W2 + b2 (mask, residual)"),
-              ("ln_rows_fwd", "LayerNorm rows"),
-              ("ln_rows_bwd", "LayerNorm backward rows (dz, column partials)"),
-              ("PartEpi", "dW2, dW1 (row groups)"),
-              ("DhEpi", "dh = dzb·W2ᵀ · GELU′ (db1 partials)"),
-              ("DxEpi", "dx = dhb·W1ᵀ + dz"),
-              ("split_terms", "fp32 operands into bf16 terms"),
-              ("sum_partials", "fixed-order partial sums"),
-              ("sum_groups", "fixed-order partial sums"))
-_TAGGED = ("HiddenEpi", "ZEpi")
+def _family_models():
+    """(label, opts, kind) of the four types; swinv2 at the published 448
+    fine-tune config, every stage checkpointed (build_model's rule)."""
+    v2 = (["MODEL.TYPE", "swinv2"] + MODEL_OPTS[:16]
+          + ["TRAIN.FUSED_MLP", True, "TRAIN.USE_CHECKPOINT", True])
+    return [("SwinV1-B 224", SWIN_B, "swin"),
+            ("Swin-MLP-B 224", SWIN_MLP_B, "swin_mlp"),
+            ("Swin-MoE-S 192 (8 experts on one card)", SWIN_MOE_S,
+             "swin_moe"),
+            ("SwinV2-B 448 (window 28)", v2, "swinv2")]
 
 
-def _backward_tag(name: str, key: str) -> bool:
-    """Whether the epilogue ``key`` in a kernel name is the backward's: its
-    last template argument is true (demangled ``…, true>``, mangled
-    ``…Lb1EE``)."""
-    tail = name[name.index(key) + len(key):]
-    args = (tail[:tail.find(">") + 1] if tail.startswith("<")
-            else tail[:tail.find("EE") + 2])
-    return args.endswith("true>") or args.endswith("Lb1EE")
-
-
-# csrc/fused_dense.cu's passes by a piece of their kernel's name; DenseEpi
-# serves both directions (its last template argument tells the backward's)
-DENSE_PASSES = (("DenseDzEpi", "dz = dy·GELU′(x·W + b) (db partials)"),
-                ("DenseEpi", "x·W + b, act (y, or a or z fp32)"),
-                ("dense_ln_rows", "LayerNorm rows"),
-                ("dense_ln_stats", "LayerNorm backward row statistics"),
-                ("dense_dz_cols", "dz, column partials"))
-
-
-def _dense_pass(name: str) -> str:
-    for key, label in DENSE_PASSES + MLP_PASSES[-3:]:
-        if key in name:
-            return label
-    return _category(name)
-
-
-def _mlp_pass(name: str) -> str:
-    for key, label in MLP_PASSES:
-        if key in name:
-            return label
-    return _category(name)
-
-
-def profile_run(label: str, fn, category=None) -> None:
-    """Device time by kernel for one call of ``fn`` under torch.profiler,
-    and the device's idle share of its wall time (kernels on one stream do
-    not overlap, so busy time is their sum), summed by ``category`` of the
-    kernel name (``_category`` unless given)."""
-    category = category or _category
+def _family_step(model, x, labels, moe: bool):
+    """One train-mode step's (logits, aux, loss, {name: gradient}) on the
+    host; no dropout (the config's rates are 0), no gate noise."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(4):      # a trace now and then comes back without device
-        with profile(activities=[ProfilerActivity.CPU,     # events: again
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms = e.time_range.elapsed_us() / 1e3
-                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
-        if by_kernel:
-            break
-    busy = max(sum(by_kernel.values()), 1e-9)
-    cats = {}
-    for name, ms in by_kernel.items():
-        cats[category(name)] = cats.get(category(name), 0.0) + ms
-    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}",
-          flush=True)
-    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print(f"profile {label}:   {cat}: {ms:.2f} ms ({ms / busy:.1%})",
-              flush=True)
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"profile {label}:     {ms:8.2f} ms  {name[:90]}", flush=True)
+    from mvuld_tpu_torch.core.train_state import cross_entropy
+
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    out = model(x, train=True, gen=gen)
+    logits, aux = out if moe else (out, None)
+    loss = cross_entropy(logits, labels, 0.0)
+    if moe:
+        loss = loss + aux
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    return (logits.detach().cpu(),
+            None if aux is None else aux.detach().cpu().reshape(1),
+            loss.detach().cpu().reshape(1),
+            {n: g.cpu() for n, g in zip(names, grads)})
+
+
+def _routes(model):
+    """Every MoE layer's (experts [k, T], keep [k, T]) of the last
+    forward, on the host."""
+    return [(m.routing[0].cpu(), m.routing[1].cpu())
+            for m in model.moe_layers()]
+
+
+def _rerouted(card, cpu, batch: int):
+    """(token slots whose expert or keep differ between two runs' routings,
+    their total, the set of images that hold one)."""
+    moved, total, images = 0, 0, set()
+    for (e_a, k_a), (e_b, k_b) in zip(card, cpu):
+        diff = ((e_a != e_b) | (k_a != k_b)).any(0)           # [T]
+        moved += int(diff.sum())
+        total += diff.numel()
+        per_image = diff.numel() // batch
+        images |= {int(t) // per_image for t in diff.nonzero().flatten()}
+    return moved, total, images
+
+
+def _family_check(dev, label, opts, kind):
+    """Card against CPU at depths 2-2-2-2, one train-mode step: fp64
+    within FAMILY_TOL64; fp32 by the zoo's rule, the MoE's routings
+    compared first."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.swin_variants import build_model
+
+    sec = {"swin": "SWIN", "swin_mlp": "SWIN_MLP", "swin_moe": "SWIN_MOE",
+           "swinv2": "SWINV2"}[kind]
+    extra = [f"MODEL.{sec}.DEPTHS", [2, 2, 2, 2], "MODEL.DROP_PATH_RATE",
+             0.0, "MODEL.DROP_RATE", 0.0, "TRAIN.USE_CHECKPOINT", False]
+    if kind == "swin_moe":
+        extra += ["MODEL.SWIN_MOE.MOE_BLOCKS", [[-1], [-1], [1], [1]],
+                  "MODEL.SWIN_MOE.GATE_NOISE", 0.0]
+    moe = kind == "swin_moe"
+    c64 = _family_config(opts, extra + ["PARALLEL.DTYPE", "float64"])
+    c32 = _family_config(opts, extra + ["PARALLEL.DTYPE", "float32"])
+    ref = build_model(c32)
+    init_jax_like(ref, torch.Generator().manual_seed(0))
+    m64 = build_model(c64)
+    m64.load_state_dict(ref.state_dict())
+    m64.double()
+    S = c32.DATA.IMG_SIZE
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.randn(FAMILY_CHECK, S, S, 3))
+    y = torch.as_tensor(np.arange(FAMILY_CHECK) % 2)
+    t0 = time.perf_counter()
+    exact = _family_step(m64, x, y, moe)
+    got64 = _family_step(copy.deepcopy(m64).to(dev), x.to(dev), y.to(dev),
+                         moe)
+    want = _family_step(ref, x.float(), y, moe)
+    if moe:
+        want_routes = _routes(ref)
+    card = copy.deepcopy(ref).to(dev)
+    got = _family_step(card, x.float().to(dev), y.to(dev), moe)
+    cpu_s = time.perf_counter() - t0
+    outs = [i for i in (0, 1, 2) if exact[i] is not None]
+    e64 = max([_rel_l2(got64[i], exact[i]) for i in outs]
+              + [_rel_l2(got64[3][k], exact[3][k]) for k in exact[3]])
+    moved, images = 0, set()
+    if moe:
+        moved, total, images = _rerouted(_routes(card), want_routes,
+                                         FAMILY_CHECK)
+    # a token re-routed near a tie is no fault: hold the logits of the
+    # other images, and print the rest
+    keep = [i for i in range(FAMILY_CHECK) if i not in images]
+    held = [_held(got[0][keep], want[0][keep], exact[0][keep], ZOO_TOL)]
+    held += [_held(got[i], want[i], exact[i], ZOO_TOL) for i in outs[1:]]
+    e_grad, worst, r_grad, ok_grad = _held_all(
+        got[3], want[3], {k: v.double() for k, v in exact[3].items()},
+        ZOO_GRAD_TOL)
+    ok = e64 <= FAMILY_TOL64 and held[0][2] and (
+        moved > 0 or (all(h[2] for h in held) and ok_grad))
+    names = ["logits", "aux", "loss"]
+    fp32 = ", ".join(f"{names[i]} {h[0]:.2e}{_ratio(h[1])}"
+                     for i, h in zip(outs, held))
+    route = (f"; routing: {moved} of {total} token slots change expert or "
+             f"keep between card and CPU in fp32"
+             + (f" (images {sorted(images)}: the logits held on the others, "
+                f"aux, loss and gradients printed, not held)" if moved
+                else "") if moe else "")
+    print(f"family {label} card vs CPU (depths 2-2-2-2, batch "
+          f"{FAMILY_CHECK}, one train-mode step, {cpu_s:.1f} s): fp64 worst "
+          f"rel L2 {e64:.2e} (tol {FAMILY_TOL64:.0e}); fp32 {fp32}, "
+          f"gradients {e_grad:.2e} ({worst}){_ratio(r_grad)} (tol "
+          f"{ZOO_TOL:.0e} / {ZOO_GRAD_TOL:.0e}, else ≤ ×{ZOO_NOISE:g})"
+          f"{route}{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"family {label}: card vs CPU")
+
+
+def swin_family_phase(dev, counters):
+    """``build_model``'s four types at full width on the card: a warm-up
+    and FAMILY_TIMED AdamW steps at FAMILY_BATCH (CE, plus the MoE's aux
+    loss), CUDA events per step, images/s, peak memory, the MoE's dropped
+    share; swinv2 runs the kernels (K1, K2, K3, K3b counted). Then each
+    type card against CPU (``_family_check``). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.schedule import build_schedule
+    from mvuld_tpu_torch.core.train_state import image_inputs, train_step
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.swin_variants import build_model
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_counts(counters), 0)
+    B = FAMILY_BATCH
+    for label, opts, kind in _family_models():
+        cfg = _family_config(opts, ["DATA.BATCH_SIZE", B])
+        model = build_model(cfg, **({"kernels": True} if kind == "swinv2"
+                                    else {}))
+        init_jax_like(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = build_optimizer(cfg, build_schedule(cfg, 10, B), model)
+        S = cfg.DATA.IMG_SIZE
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"image": torch.randn(B, S, S, 3, device=dev, generator=gen),
+                 "label": torch.arange(B, device=dev) % 2}
+        moe = kind == "swin_moe"
+
+        def step():
+            return train_step(model, opt, batch, gen, 0.1, image_inputs,
+                              aux_loss=moe)
+
+        step()                                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(FAMILY_TIMED + 1)]
+        metrics, dropped = [], []
+        events[0].record()
+        for i in range(FAMILY_TIMED):
+            metrics.append(step())
+            events[i + 1].record()
+            if moe:
+                _, keep = zip(*(m.routing for m in model.moe_layers()))
+                dropped.append(sum((~k).sum() for k in keep)
+                               / sum(k.numel() for k in keep))
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        for k, v in counts.items():
+            total[k] += v
+        times = [events[i].elapsed_time(events[i + 1])
+                 for i in range(FAMILY_TIMED)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+        ms = statistics.median(times)
+        drop = (f", dropped share of token slots at capacity factor "
+                f"{cfg.MODEL.SWIN_MOE.CAPACITY_FACTOR} "
+                f"{float(sum(dropped)) / len(dropped):.4f} (per step "
+                f"{[round(float(d), 4) for d in dropped]})" if moe else "")
+        print(f"family {label}: {n_params / 1e6:.2f}M params, batch {B} "
+              f"bf16, {FAMILY_TIMED} AdamW steps after a warm-up, median "
+              f"{ms:.1f} ms/step = {B / ms * 1e3:.1f} images/s (steps "
+              f"{', '.join(f'{t:.1f}' for t in times)} ms), peak memory "
+              f"{peak:.2f} GiB, loss/grad_norm "
+              f"{[(round(a, 4), round(g, 3)) for a, g in vals]}{drop}"
+              f"{'' if kind != 'swinv2' else f', launches { {k: v for k, v in counts.items() if v} }'}"
+              f" [{card_line()}]", flush=True)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"family {label}: non-finite {vals}")
+        if kind == "swinv2" and not all(
+                counts[k] for k in ("window_attention_flat",
+                                    "window_attention_flat_bwd", "mlp_ln",
+                                    "mlp_ln_bwd")):
+            raise AssertionError(f"family {label}: launches {counts}")
+        profile_run(f"family {label} train step (batch {B})", step)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        _family_check(dev, label, opts, kind)
+        torch.cuda.empty_cache()
+    print(f"family: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+# -------------------------------------------------------------------- tools
+
+def tools_phase(dev, work: str) -> None:
+    """The host tools on what earlier phases left in ``work``: (a)
+    ``convert_checkpoint swinv2`` of a reference-layout SwinV2-B (384²,
+    window 24, pretrained windows 12-12-12-6, a 1000-class head) to the
+    448/28 fine-tune, loaded as ``pipeline --swin-ckpt`` loads it into the
+    production model on the card: its logits equal, to the bit, those of
+    ``load_pretrained_swinv2`` on the same file; (b) ``traceparse`` over
+    the e2e train step's Chrome trace: its device total within TRACE_TOL
+    of ``key_averages()``'; (c) ``joern_json`` on a node/edge pair; (d)
+    ``results_table`` over the staged and baselines run directories."""
+    import glob
+
+    import torch
+
+    from mvuld_tpu_torch.core.checkpoint import load_checkpoint
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.swin_convert import load_pretrained_swinv2
+    from mvuld_tpu_torch.models.swin_v2 import (SwinTransformerV2,
+                                                SwinV2Config)
+    from mvuld_tpu_torch.models.swin_variants import build_model
+    from mvuld_tpu_torch.tools import (convert_checkpoint, joern_json,
+                                       results_table, traceparse)
+    from mvuld_tpu_torch.train.pipeline import _swin_checkpoint
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    # (a) the conversion, then both loaders on the card
+    src = SwinTransformerV2(SwinV2Config(
+        img_size=384, window_size=24, pretrained_window_sizes=(12, 12, 12, 6)),
+        num_classes=1000)
+    init_jax_like(src, torch.Generator().manual_seed(0))
+    sd = dict(src.state_dict())
+    for name, buf in src.named_buffers():     # the reference's buffers too
+        sd[name] = buf
+    pth = os.path.join(work, "swinv2_base_384.pth")
+    torch.save({"model": sd}, pth)
+    out_dir = os.path.join(work, "converted")
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["swinv2", pth, out_dir, "--img-size", "448",
+                             "--window", "28", "--pretrained-windows",
+                             "12,12,12,6", "--num-classes", "2"])
+    conv_s = time.perf_counter() - t0
+    cfg = _family_config(["MODEL.TYPE", "swinv2"] + MODEL_OPTS[:16])
+    a = build_model(cfg, kernels=True)
+    a.load_state_dict(load_checkpoint(_swin_checkpoint(out_dir))["params"])
+    b = build_model(cfg, kernels=True)
+    load_pretrained_swinv2(b, pth)
+    x = torch.randn(4, 448, 448, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        la = a.to(dev)(x)
+        lb = b.to(dev)(x)
+    same = bool(torch.equal(la, lb)) and bool(torch.isfinite(la).all())
+    print(f"tools convert_checkpoint swinv2: SwinV2-B 384²/window 24 → "
+          f"448²/28 in {conv_s:.1f} s on the host; pipeline --swin-ckpt's "
+          f"load and load_pretrained_swinv2 give logits equal to the bit on "
+          f"the card: {same} (batch 4, bf16, kernels) [{card}]", flush=True)
+    del a, b, src, sd
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("convert_checkpoint: logits differ")
+
+    # (b) traceparse against key_averages on the e2e step's trace
+    (label, prof), = [(k, v) for k, v in PROFILES.items()
+                      if k.startswith("kernels train step")]
+    s = traceparse.main([prof["trace"], "--top", "5"])
+    rel = abs(s["device_ms"] - prof["self_device_ms"]) / max(
+        prof["self_device_ms"], 1e-9)
+    print(f"tools traceparse {label}: device total {s['device_ms']:.3f} ms "
+          f"over {s['events']} events against key_averages()' device self "
+          f"time {prof['self_device_ms']:.3f} ms (rel {rel:.2e}, tol "
+          f"{TRACE_TOL}); idle share of the traced window "
+          f"{s['idle_share']:.3f}", flush=True)
+    if not rel <= TRACE_TOL:
+        raise AssertionError("traceparse disagrees with key_averages")
+
+    # (c) one Joern node/edge JSON pair
+    base = os.path.join(work, "joern", "42.c")
+    os.makedirs(os.path.dirname(base))
+    for suffix, rows in ((".nodes.json", JOERN_NODES),
+                         (".edges.json", JOERN_EDGES)):
+        with open(base + suffix, "w") as f:
+            json.dump(rows, f)
+    cpg = joern_json.get_node_edges(base)
+    lines = {n[0]: n[2] for n in cpg.nodes}
+    ok = (lines == {1: "METHOD", 3: "Assignment Operator",
+                    4: "Builtin Function Call", 5: "RETURN"}
+          and (3, 5, "REACHING_DEF") in cpg.edges
+          and not any(t == "CONTAINS" for *_, t in cpg.edges))
+    print(f"tools joern_json: {len(cpg.nodes)} line nodes {lines}, "
+          f"{len(cpg.edges)} edges{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("joern_json parse")
+
+    # (d) the run directories the staged and baselines phases wrote
+    runs = sorted(
+        {os.path.dirname(p) for pat in ("**/history.json", "**/log_rank*")
+         for p in glob.glob(os.path.join(work, pat), recursive=True)})
+    specs = [f"{os.path.relpath(r, work)}={r}" for r in runs]
+    table = results_table.main(specs)
+    filled = [k for k, m in table.items() if m]
+    print(f"tools results_table: {len(table)} run directories, "
+          f"{len(filled)} with metrics {filled}", flush=True)
+    if not any("fusion" in k for k in filled) or not any(
+            "baseline" in k for k in filled):
+        raise AssertionError(f"results_table: no metrics in {table}")
+    print("tools make_images, hardprobe, fontbench: host tools (pandas, "
+          "PIL, sklearn, matplotlib), which this machine lacks; they run "
+          "only in the CPU tests (tests/test_torch_tools.py)", flush=True)
+    print(f"tools: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def profile_run(label: str, fn, category=None, trace_path=None):
+    """``tools/traceparse.profile_run``: one call of ``fn`` profiled, its
+    device time by kernel category printed (``category``: a function of
+    the kernel name, ``traceparse.category`` unless given); with
+    ``trace_path`` its Chrome trace exported and its result kept in
+    PROFILES."""
+    from mvuld_tpu_torch.tools import traceparse
+    res = traceparse.profile_run(label, fn, category, trace_path)
+    if trace_path:
+        PROFILES[label] = {**res, "trace": trace_path}
+    return res
 
 
 KERNELS = {
@@ -2901,18 +3222,21 @@ def main() -> int:
                                             fd.dense_fwd, fd.dense_bwd)]
     layouts = [wa.window_attention_fwd, wa.window_attention_bwd,
                wa.window_attention_map_fwd, wa.window_attention_map_bwd]
-    for phase in (lambda: serve_phase(dev), lambda: train_phase(dev, e2e),
-                  lambda: swin_phase(dev, counters),
-                  lambda: blockbench_phase(dev, counters),
-                  lambda: ops_phase(dev, layouts)):
-        for name, n in phase().items():
-            launches[name] += n
     work = tempfile.mkdtemp(prefix="mvuld_staged_")
     try:
+        for phase in (lambda: serve_phase(dev),
+                      lambda: train_phase(dev, e2e, work),
+                      lambda: swin_phase(dev, counters),
+                      lambda: blockbench_phase(dev, counters),
+                      lambda: ops_phase(dev, layouts),
+                      lambda: swin_family_phase(dev, e2e)):
+            for name, n in phase().items():
+                launches[name] += n
         fopts = staged_phase(dev, work)
         zoo_phase(dev, work, fopts)
         ocr_phase(dev, work)
         baselines_phase(dev, work)
+        tools_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     idle = [k for k, n in launches.items() if n == 0]

@@ -67,14 +67,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
                gen: Optional[torch.Generator], label_smoothing: float = 0.1,
-               inputs: Inputs = model_inputs) -> Dict[str, torch.Tensor]:
+               inputs: Inputs = model_inputs, aux_loss: bool = False
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (device tensors: what ``inputs``
     turns into the model's inputs, "label", and mixup's "soft_label" when
-    present). Returns the metrics loss, grad_norm (before clipping) and acc
-    as device scalars, so the caller decides when to synchronise."""
-    logits = _logits(model(**inputs(batch), train=True, gen=gen))
+    present). ``aux_loss``: the model returns (logits, aux) and aux joins
+    the loss (Swin-MoE's load-balancing loss). Returns the metrics loss,
+    grad_norm (before clipping) and acc as device scalars, so the caller
+    decides when to synchronise."""
+    out = model(**inputs(batch), train=True, gen=gen)
+    logits = _logits(out)
     loss = cross_entropy(logits, batch["label"], label_smoothing,
                          batch.get("soft_label"))
+    if aux_loss:
+        loss = loss + out[1]
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.params, grads)]

@@ -14,7 +14,12 @@ and the raw Tucker cores), or into the EAST detector (``ocr/east.py``,
 Flax module names: ``extractor/conv_{i}``, ``merge/bn_{i}``,
 ``score_head`` …), or into a baseline detector (``models/baselines.py``:
 Devign, GGNNSum, the metric learner, IVDetect and their GGNN, masked GRU
-and TreeLSTM parts), with the layout rules:
+and TreeLSTM parts), or into a model of the Swin family
+(``SwinTransformerV1``, ``SwinTransformerMoE``, ``SwinMLP``: the V1 bias
+``relative_position_bias_table``, the Swin-MLP ``spatial_mlp`` and the
+MoE's ``gate``, ``w1``, ``b1``, ``w2``, ``b2`` keep name and layout, the
+bias-free ``downsample.reduction`` is a Dense kernel), with the layout
+rules:
 
   Dense ``kernel`` [in, out]       → ``weight`` [out, in]
   Conv ``kernel`` HWIO             → ``weight`` OIHW
@@ -209,15 +214,20 @@ def _is_bilinear(model: nn.Module) -> bool:
                                    for k in BILINEAR_FUSIONS.keys()))
 
 
+def _is_swin(model: nn.Module) -> bool:
+    from mvuld_tpu_torch.models.swin_v1 import SwinBackboneV1
+    from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
+    return isinstance(model, (SwinTransformerV2, SwinBackboneV1))
+
+
 def _rules(model: nn.Module):
     from mvuld_tpu_torch.models.e2e import EndToEndMVulD
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.roberta import RobertaEncoder
-    from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
     from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
     from mvuld_tpu_torch.ocr.east import EAST
 
-    if isinstance(model, SwinTransformerV2):
+    if _is_swin(model):
         return _swin
     if isinstance(model, EAST):
         return _leaf
@@ -292,7 +302,11 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
     from mvuld_tpu_torch.models.bilinear_fusion import BlockTucker, Tucker
     from mvuld_tpu_torch.models.graph_nets import (DenseGATConv, DenseGGNN,
                                                    GRUCell, RsGCN)
+    from mvuld_tpu_torch.models.moe import MoEFFN
+    from mvuld_tpu_torch.models.swin_v1 import (SwinBackboneV1,
+                                                WindowAttentionV1)
     from mvuld_tpu_torch.models.swin_v2 import WindowAttentionV2
+    from mvuld_tpu_torch.models.swin_variants import SwinMLPBlock
 
     def xavier(w: torch.Tensor):
         # flax xavier_uniform: leading axes are receptive field
@@ -306,6 +320,12 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
         t = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, 1.0, -2.0, 2.0,
                                   generator=generator)
         w.copy_(t * std)
+
+    def trunc_normal(w: torch.Tensor, std: float):
+        # flax truncated_normal(std): ±2 standard deviations, then scaled
+        t = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+        w.copy_(t * std / 0.87962566103423978)
 
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -350,6 +370,21 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
                 xavier(p)
             mod.b_iou.zero_()
             mod.b_f.zero_()
+        elif isinstance(mod, WindowAttentionV1):
+            trunc_normal(mod.relative_position_bias_table, 0.02)
+        elif isinstance(mod, SwinMLPBlock):
+            # flax lecun_normal on [H, n, n]: fan_in n · H
+            lecun(mod.spatial_mlp, mod.spatial_mlp[0].numel())
+        elif isinstance(mod, MoEFFN):
+            # fan_in D (gate [D, E]), D · E (w1), Hd · E (w2); biases 0
+            lecun(mod.gate, mod.gate.shape[0])
+            lecun(mod.w1, mod.w1.shape[0] * mod.w1.shape[1])
+            lecun(mod.w2, mod.w2.shape[0] * mod.w2.shape[1])
+            mod.b1.zero_()
+            mod.b2.zero_()
+        elif (isinstance(mod, SwinBackboneV1)
+              and mod.absolute_pos_embed is not None):
+            trunc_normal(mod.absolute_pos_embed, 0.02)
         elif isinstance(mod, (Tucker, BlockTucker)):
             for name, p in mod.named_parameters(recurse=False):
                 if name.startswith("core"):
@@ -389,7 +424,8 @@ def _jax_leaf(mod: nn.Module, leaf: str) -> str:
 
 
 def _inverse_tower(tower: str, name: str) -> str:
-    rules = {"swin": _INV_SWIN_BLOCK + _INV_SWIN, "text_encoder": _INV_ROBERTA,
+    rules = {"swin": _INV_SWIN_BLOCK + _INV_SWIN, "swin_v1": _INV_SWIN,
+             "text_encoder": _INV_ROBERTA,
              "fusion": _INV_FUSION, "baseline": _INV_BASELINE,
              "leaf": []}[tower]
     for pat, rep in rules:
@@ -416,8 +452,9 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
     from mvuld_tpu_torch.ocr.east import EAST
 
-    if isinstance(model, SwinTransformerV2):
-        towers = [("", model, "swin")]
+    if _is_swin(model):
+        towers = [("", model, "swin" if isinstance(model, SwinTransformerV2)
+                   else "swin_v1")]
     elif isinstance(model, MultiDefectAblation):
         towers = [("", model, "fusion")]
     elif _is_bilinear(model) or isinstance(model, EAST):

@@ -1,4 +1,5 @@
-"""A reference-layout SwinV2 torch checkpoint → the port's SwinTransformerV2.
+"""Reference-layout Swin torch checkpoints → the port's SwinTransformerV2
+and SwinTransformerV1.
 
 Counterpart of ``mvuld_tpu/models/swin_convert.py`` ``swinv2_torch_to_flax``
 for the released SwinV2 ImageNet checkpoints the reference fine-tunes from
@@ -19,8 +20,15 @@ remains is the reference's surgery:
     the card); the two agree within 1e-4 on a unit-normal embedding (same
     cubic kernel and half-pixel centres; cv2 tabulates its weights).
 
-SwinV1 checkpoints (``swinv1_torch_to_flax``, relative-position bias
-tables) belong to the SwinV1 model, which the port does not have.
+SwinV1 checkpoints (``convert_swinv1_state_dict``, JAX
+``swinv1_torch_to_flax``) load into ``models/swin_v1.SwinTransformerV1`` by
+key as well, with each block's ``relative_position_bias_table``
+[(2S-1)², H] resampled bicubically to the model's window when the
+checkpoint's differs (reference utils.py:72-90, ``F.interpolate``
+bicubic, ``align_corners=False``; the JAX converter's cv2 INTER_CUBIC
+branch agrees within 2e-5, its scipy fallback is another function), the
+same head surgery, and the absolute position embedding of an ``ape``
+model resampled as above.
 """
 
 from __future__ import annotations
@@ -74,16 +82,93 @@ def interpolate_ape(ape: torch.Tensor, dst_patches: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).reshape(1, D * D, C)
 
 
+def interpolate_bias_table(table: torch.Tensor, src_window: int,
+                           dst_window: int) -> torch.Tensor:
+    """[(2S-1)², H] → [(2D-1)², H], bicubic on the (2S-1)×(2S-1) grid."""
+    S1, S2 = 2 * src_window - 1, 2 * dst_window - 1
+    H = table.shape[1]
+    grid = table.float().t().reshape(1, H, S1, S1)
+    out = F.interpolate(grid, size=(S2, S2), mode="bicubic",
+                        align_corners=False)
+    return out.reshape(H, S2 * S2).t()
+
+
+def _tensors(state_dict: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """The checkpoint's tensors on the CPU, without the buffers the port
+    rebuilds from the geometry."""
+    return {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v)))
+            for k, v in state_dict.items()
+            if not any(s in k for s in DROPPED)}
+
+
+def _with_head(out: Dict[str, torch.Tensor], sd, target, head) -> None:
+    """The head after the surgery, or the model's own when the checkpoint
+    has none."""
+    if head is None:
+        return
+    if "head.weight" in sd:
+        w, b = convert_head(sd["head.weight"].float().numpy(),
+                            sd["head.bias"].float().numpy(),
+                            head.out_features)
+        out["head.weight"] = torch.as_tensor(np.ascontiguousarray(w))
+        out["head.bias"] = torch.as_tensor(np.ascontiguousarray(b))
+    else:
+        out["head.weight"] = target["head.weight"]
+        out["head.bias"] = target["head.bias"]
+
+
+def _checked(out: Dict[str, torch.Tensor], target) -> Dict[str, torch.Tensor]:
+    for key, t in out.items():
+        if tuple(t.shape) != tuple(target[key].shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
+                             f"model {tuple(target[key].shape)}")
+    return {k: v.to(target[k].dtype) for k, v in out.items()}
+
+
+def convert_swinv1_state_dict(state_dict: Mapping[str, object], model
+                              ) -> Dict[str, torch.Tensor]:
+    """The state dict ``model`` (a ``SwinTransformerV1``) loads: every
+    model tensor from ``state_dict`` under its own key, each bias table
+    resampled to the model's window, the head and the absolute position
+    embedding as for SwinV2. Raises on a model tensor the checkpoint
+    lacks."""
+    sd = _tensors(state_dict)
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, t in target.items():
+        if key.startswith("head."):
+            continue
+        if key not in sd:
+            raise KeyError(f"checkpoint has no {key!r}")
+        v = sd[key]
+        if (key.endswith("relative_position_bias_table")
+                and v.shape[0] != t.shape[0]):
+            src = (int(round(v.shape[0] ** 0.5)) + 1) // 2
+            dst = (int(round(t.shape[0] ** 0.5)) + 1) // 2
+            v = interpolate_bias_table(v, src, dst)
+        elif key == "absolute_pos_embed" and v.shape[1] != t.shape[1]:
+            v = interpolate_ape(v, t.shape[1])
+        out[key] = v
+    _with_head(out, sd, target, model.head)
+    return _checked(out, target)
+
+
+def load_pretrained_swinv1(model, path: str) -> None:
+    """Load a SwinV1 .pth (``{"model": state_dict}`` or a bare state dict)
+    into ``model`` in place."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    model.load_state_dict(convert_swinv1_state_dict(sd, model), strict=True)
+
+
 def convert_swinv2_state_dict(state_dict: Mapping[str, object], model
                               ) -> Dict[str, torch.Tensor]:
     """The state dict ``model`` (a ``SwinTransformerV2``) loads: every
     model tensor from ``state_dict`` under its own key, with the surgery
     above. Raises on a model tensor the checkpoint lacks; keys the model
     has no use for are ignored, as the JAX converter ignores them."""
-    sd = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
-              else torch.as_tensor(np.asarray(v)))
-          for k, v in state_dict.items()
-          if not any(s in k for s in DROPPED)}
+    sd = _tensors(state_dict)
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for key, t in target.items():
@@ -98,21 +183,8 @@ def convert_swinv2_state_dict(state_dict: Mapping[str, object], model
         if key not in sd:
             raise KeyError(f"checkpoint has no {key!r}")
         out[key] = sd[key]
-    if model.head is not None:
-        if "head.weight" in sd:
-            w, b = convert_head(sd["head.weight"].float().numpy(),
-                                sd["head.bias"].float().numpy(),
-                                model.head.out_features)
-            out["head.weight"] = torch.as_tensor(np.ascontiguousarray(w))
-            out["head.bias"] = torch.as_tensor(np.ascontiguousarray(b))
-        else:
-            out["head.weight"] = target["head.weight"]
-            out["head.bias"] = target["head.bias"]
-    for key, t in out.items():
-        if tuple(t.shape) != tuple(target[key].shape):
-            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
-                             f"model {tuple(target[key].shape)}")
-    return {k: v.to(target[k].dtype) for k, v in out.items()}
+    _with_head(out, sd, target, model.head)
+    return _checked(out, target)
 
 
 def load_pretrained_swinv2(model, path: str) -> None:

@@ -95,8 +95,7 @@ class SwinV2Config:
             pretrained_window_sizes=tuple(s.PRETRAINED_WINDOW_SIZES),
             drop_rate=cfg.MODEL.DROP_RATE,
             drop_path_rate=cfg.MODEL.DROP_PATH_RATE,
-            dtype=(torch.bfloat16 if cfg.PARALLEL.DTYPE == "bfloat16"
-                   else torch.float32),
+            dtype=compute_dtype(cfg.PARALLEL.DTYPE),
         )
 
     @property
@@ -172,6 +171,19 @@ def window_reverse(x: torch.Tensor, window: int, H: int, W: int) -> torch.Tensor
     return x.reshape(B, H, W, C)
 
 
+def compute_dtype(name: str) -> torch.dtype:
+    """PARALLEL.DTYPE → the activations' dtype: bf16, fp32, or (the
+    port's card-vs-CPU checks) fp64."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(name, torch.float32)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of statistics, logits and softmax: fp32, or fp64 for an
+    fp64 model."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def linear(x, layer: nn.Linear, dtype):
     """flax ``nn.Dense(dtype=...)``: input, weight and bias in ``dtype``."""
     b = None if layer.bias is None else layer.bias.to(dtype)
@@ -180,8 +192,9 @@ def linear(x, layer: nn.Linear, dtype):
 
 def layer_norm(x, ln: nn.LayerNorm, dtype):
     """flax ``nn.LayerNorm(dtype=...)``: fp32 statistics, ``dtype`` out."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps).to(dtype)
+    acc = acc_dtype(dtype)
+    return F.layer_norm(x.to(acc), ln.normalized_shape, ln.weight.to(acc),
+                        ln.bias.to(acc), ln.eps).to(dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -249,7 +262,7 @@ class WindowAttentionV2(nn.Module):
         cpb = self.cpb_mlp(self.relative_coords_table)        # [(2W-1)², H]
         bias = cpb.to(self.dtype)[self.relative_position_index]
         bias = bias.reshape(N, N, -1).permute(2, 0, 1)
-        return 16.0 * torch.sigmoid(bias.float())
+        return 16.0 * torch.sigmoid(bias.to(acc_dtype(self.dtype)))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 shift: int = 0, store: Optional[dict] = None,
@@ -290,11 +303,12 @@ class WindowAttentionV2(nn.Module):
             Bn = qkvw.shape[0]
             qkvw = qkvw.reshape(Bn, N, 3, H, hd).permute(2, 0, 3, 1, 4)
             q, k, v = qkvw[0], qkvw[1], qkvw[2]             # [Bn, H, N, hd]
+            acc = acc_dtype(dt)
             q = q / torch.clamp(torch.linalg.vector_norm(
-                q.float(), dim=-1, keepdim=True), min=1e-12).to(dt)
+                q.to(acc), dim=-1, keepdim=True), min=1e-12).to(dt)
             k = k / torch.clamp(torch.linalg.vector_norm(
-                k.float(), dim=-1, keepdim=True), min=1e-12).to(dt)
-            attn = (q @ k.transpose(-1, -2)).float()
+                k.to(acc), dim=-1, keepdim=True), min=1e-12).to(dt)
+            attn = (q @ k.transpose(-1, -2)).to(acc)
             attn = attn * scale + bias[None]
             if mask is not None:
                 nW = mask.shape[0]
@@ -539,5 +553,6 @@ class SwinTransformerV2(nn.Module):
                     egen.set_state(store["rng_after"])
             else:
                 x = layer(x, drops, None, egen)
-        x = layer_norm(x, self.norm, c.dtype).mean(dim=1).float()
+        x = layer_norm(x, self.norm, c.dtype).mean(dim=1)
+        x = x.to(acc_dtype(c.dtype))
         return x if self.head is None or return_features else self.head(x)

@@ -12,12 +12,14 @@ baselines/scripts/getImages.py:53-99):
   * dedup by function text,
   * stratified 80/10/10 split with a fixed seed (default 42),
   * drop functions with ≥ ``max_lines`` lines (default 100),
-  * undersample train negatives to 1:1 (val/test stay imbalanced).
+  * undersample train negatives to 1:1 (val/test stay imbalanced),
+  * "img_path label" manifests per partition (``write_manifests``).
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+import os
+from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
 
@@ -103,3 +105,24 @@ def prepare_corpus(df: pd.DataFrame, seed: int = 42, max_lines: int = 100
     df = train_val_test_split(df, seed=seed)
     df = rebalance_train(df, seed=seed)
     return df
+
+
+def write_manifests(df: pd.DataFrame, img_dir: str, out_dir: str,
+                    label_col: str = "vul") -> Tuple[str, str, str]:
+    """Write "img_path label" manifests like the reference's
+    datasets/total/{train_balanced,valid,test}.txt (config.py:234-237).
+    Image path convention: {img_dir}/{partition}/{buggy|clean}/{_id}.png
+    (getImages.py:195-202)."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for part, fname in (("train", "train_balanced.txt"), ("val", "valid.txt"),
+                        ("test", "test.txt")):
+        rows = df[df.label == part]
+        p = os.path.join(out_dir, fname)
+        with open(p, "w") as f:
+            for _, r in rows.iterrows():
+                sub = "buggy" if r[label_col] == 1 else "clean"
+                img = os.path.join(img_dir, part, sub, f"{r._id}.png")
+                f.write(f"{img} {int(r[label_col])}\n")
+        paths[part] = p
+    return paths["train"], paths["val"], paths["test"]

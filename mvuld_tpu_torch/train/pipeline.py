@@ -37,18 +37,23 @@ import os
 
 
 def _swin_checkpoint(path: str) -> str:
-    """A checkpoint file from ``path``: the file itself, or the newest
-    best-F1 checkpoint under a ``train_swin`` output root."""
-    from mvuld_tpu_torch.core.checkpoint import resume_bestf1_helper
+    """A checkpoint file from ``path``: the file itself, the newest
+    best-F1 checkpoint under a ``train_swin`` output root, or else the
+    newest epoch checkpoint of ``path`` (``tools/convert_checkpoint``'s
+    output directory)."""
+    from mvuld_tpu_torch.core.checkpoint import (auto_resume_helper,
+                                                 resume_bestf1_helper)
 
     if not os.path.isdir(path):
         return path
     import glob
     cands = sorted(glob.glob(os.path.join(path, "**", "checkpoint-best-f1"),
                              recursive=True))
-    found = resume_bestf1_helper(os.path.dirname(cands[-1])) if cands else None
+    found = (resume_bestf1_helper(os.path.dirname(cands[-1])) if cands
+             else auto_resume_helper(path))
     if not found:
-        raise FileNotFoundError(f"no checkpoint-best-f1 under {path}")
+        raise FileNotFoundError(f"no checkpoint-best-f1 or epoch checkpoint "
+                                f"under {path}")
     return found
 
 

@@ -70,6 +70,12 @@ import mvuld_tpu_torch.train.train_baseline
 for name in ("embeddings", "patch_eval", "eval_patches", "process_dataset",
              "gitdiff", "mutate"):
     __import__("mvuld_tpu_torch.tools." + name)
+for name in ("utils.oom", "utils.torch_convert", "models.fusion_convert",
+             "models.swin_v1", "models.moe", "models.swin_variants",
+             "data.zip_folder", "tools.convert_checkpoint",
+             "tools.joern_json", "tools.make_images", "tools.results_table",
+             "tools.traceparse", "tools.hardprobe", "tools.fontbench"):
+    __import__("mvuld_tpu_torch." + name)
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
@@ -102,7 +108,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 PHASES = ("serve_phase", "train_phase", "swin_phase", "blockbench_phase",
           "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
-          "baselines_phase")
+          "baselines_phase", "swin_family_phase", "tools_phase")
 
 
 @pytest.mark.parametrize("phase", PHASES)
