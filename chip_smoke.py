@@ -91,12 +91,29 @@ Phases, in order; any failure exits non-zero:
      MoE's dropped share, a profiled step); each type card against CPU on
      one train-mode step at depths 2-2-2-2, fp64 and fp32 (the MoE's
      routings compared first);
-  13. the tools: ``convert_checkpoint swinv2`` 384/24 → 448/28 loaded as
+  13. the causal text model (``UniXcoderLM`` at UniXcoder-base width,
+     bf16): logits of 8 × 512 seeded tokens through K4 (counted) against
+     the plain layers by the bf16 bound, card vs CPU in fp64 at 2 layers,
+     ``beam_search_generate`` at beam 5 to 64 tokens over four seeded
+     prefixes (fp32: kernel and plain ids identical; bf16: agreement
+     printed), ms per generated token;
+  14. the parallel layer: a world-1 NCCL group through ``train_e2e.main``'s
+     data-parallel path (one batch-16 step, kernels counted); the pipelined
+     ``train_text`` classifier (PARALLEL.PP 2 × 4 microbatches, both stages
+     on the card, K4/K4b counted) against the sequential one; then two
+     ranks on the one card over gloo (spawned, timed out as a whole): the
+     dp e2e step at batch 16 (8 per rank; loss, gradients, BatchNorm
+     statistics), the sequence-parallel flat attention at the fine-tune's
+     shapes (dqkv, dbias, dscale; times beside the unsharded) and a
+     SwinV2-B 448 batch-64 step through it (K1/K2 counted per rank), a
+     tensor-parallel SwinV2-B step at mp 2, Swin-MoE-S's 8 experts over
+     the two ranks (routing compared first) — each against one rank;
+  15. the tools: ``convert_checkpoint swinv2`` 384/24 → 448/28 loaded as
      ``pipeline --swin-ckpt`` loads it (logits equal to the bit to
      ``load_pretrained_swinv2``'s on the card), ``traceparse`` over step
      4's exported trace against ``key_averages()``, ``joern_json`` on a
      node/edge pair, ``results_table`` over the staged and baselines runs;
-  14. print the kernels JSON line, the card line, and the result line last.
+  16. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -285,6 +302,44 @@ SWIN_MOE_S = ["MODEL.TYPE", "swin_moe", "DATA.IMG_SIZE", 192,
               "MODEL.SWIN_MOE.NUM_LOCAL_EXPERTS", 8,
               "MODEL.SWIN_MOE.TOP_VALUE", 1,
               "MODEL.SWIN_MOE.CAPACITY_FACTOR", 1.25]
+# the causal phase: UniXcoderLM at UniXcoder-base width (MODEL.UNIXCODER:
+# 12 layers, H 768, 12 heads, FFN 3072, vocab 51416, 1026 positions),
+# seed-0 weights, bf16: logits of CAUSAL_BATCH × CAUSAL_TOKENS tokens (tails
+# padded); the kernel path's rel L2 from the plain fp32 layers within
+# CAUSAL_NOISE × the plain bf16 layers' own; card vs CPU in fp64 at
+# CAUSAL_DEPTH64 layers within CAUSAL_TOL64; beam search at beam BEAM to
+# BEAM_MAX tokens over BEAM_PREFIXES seeded prefixes of BEAM_PREFIX tokens
+CAUSAL_BATCH = 8
+CAUSAL_TOKENS = 512
+CAUSAL_NOISE = 3.0
+CAUSAL_DEPTH64 = 2
+CAUSAL_TOL64 = 1e-9
+BEAM = 5
+BEAM_MAX = 64
+BEAM_PREFIXES = 4
+BEAM_PREFIX = 16
+# the parallel phase: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), each check against one rank on the same work. The
+# relative L2 of all gradients joined (and of all BatchNorm statistics) is
+# held, the worst tensor printed: within PAR_TOL in fp32 (the dp e2e step
+# at batch PAR_BATCH through the kernels, a tensor-parallel SwinV2-B 448
+# step at batch TP_BATCH: only the order of reduced sums differs), within
+# PAR_TOL16 in bf16 (SwinV2-B 448 at SWIN_BATCH with the sequence-parallel
+# attention; the pipelined text classifier at PP_MICRO microbatches, whose
+# smaller row counts pick other GEMM tilings), the losses within PAR_TOL
+# relative (fp32) or LOSS_TOL (bf16); the sharded attention's out and
+# dqkv within two bf16 ulps of the max (the same kernel on the same
+# windows), dbias and dscale (sums over the ranks) within SP_TOL;
+# Swin-MoE-S's 8 experts over the two ranks at PAR_MOE_BATCH images in
+# fp32, logits by ZOO_TOL
+PAR_BATCH = 16
+PAR_TOL = 1e-4
+PAR_TOL16 = 1e-2
+SP_TOL = 1e-5
+TP_BATCH = 8
+PAR_MOE_BATCH = 16
+PP_MICRO = 4
+PAR_TIMEOUT = 600
 # the tools phase: one Joern node/edge JSON pair (the shape of
 # tests/test_joern_json.py's fixture)
 JOERN_NODES = [
@@ -2937,6 +2992,620 @@ def swin_family_phase(dev, counters):
     return total
 
 
+# ------------------------------------------------------------------- causal
+
+def _lm(dtype, fused: bool, layers: int = 12):
+    """``UniXcoderLM`` at UniXcoder-base width (``layers`` deep), seed-0
+    weights (fp32 parameters, ``dtype`` activations)."""
+    import torch
+
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.roberta import RobertaConfig
+    from mvuld_tpu_torch.models.unixcoder import UniXcoderLM
+
+    model = UniXcoderLM(RobertaConfig(num_layers=layers, dtype=dtype,
+                                      use_pallas_mlp=fused))
+    init_jax_like(model, torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def causal_phase(dev, counters):
+    """The causal text model (``UniXcoderLM``, ``beam_search_generate``)
+    at UniXcoder-base width, bf16. Main path, launches counted: the
+    logits of CAUSAL_BATCH × CAUSAL_TOKENS seeded tokens through K4
+    (``use_pallas_mlp``, TRAIN.FUSED_MLP), then beam search at beam
+    BEAM to BEAM_MAX tokens over BEAM_PREFIXES seeded prefixes, ms per
+    generated token. Checks: the kernel logits' error from the plain fp32
+    layers within CAUSAL_NOISE × the plain bf16 layers' own; card = CPU
+    in fp64 at CAUSAL_DEPTH64 layers; in fp32 the kernel and plain paths
+    generate identical ids, in bf16 their agreement is printed. Returns
+    the launches."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.models.unixcoder import beam_search_generate
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(11)
+    kern = _lm(torch.bfloat16, True).to(dev)
+    plain = _lm(torch.bfloat16, False).to(dev)
+    V = kern.config.vocab_size
+    layers, hidden = kern.config.num_layers, kern.config.hidden_size
+    ids = rng.randint(3, V, (CAUSAL_BATCH, CAUSAL_TOKENS))
+    for i in range(1, CAUSAL_BATCH):                # padded tails
+        ids[i, CAUSAL_TOKENS - 37 * i:] = 1
+    ids = torch.as_tensor(ids, device=dev)
+    prefixes = rng.randint(3, V, (BEAM_PREFIXES, BEAM_PREFIX))
+    _reset(counters)
+    with torch.no_grad():
+        got = kern(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_k = beam_search_generate(kern, prefixes, BEAM, BEAM_MAX)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    counts = _counts(counters)
+    n_new = sum(len(g) - BEAM_PREFIX for g in gen_k)
+    with torch.no_grad():
+        base = plain(ids)
+        gen_p = beam_search_generate(plain, prefixes, BEAM, BEAM_MAX)
+        ref = _lm(torch.float32, False).to(dev)(ids)
+    e_k, e_p = rel_l2(got, ref), rel_l2(base, ref)
+    agree = np.mean([a == b for g, h in zip(gen_k, gen_p)
+                     for a, b in zip(g, h)])
+    del kern, plain, got, base, ref
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        k32 = _lm(torch.float32, True).to(dev)
+        ids32 = beam_search_generate(k32, prefixes, BEAM, BEAM_MAX)
+        del k32
+        p32 = _lm(torch.float32, False).to(dev)
+        ids32_plain = beam_search_generate(p32, prefixes, BEAM, BEAM_MAX)
+        del p32
+        m64 = _lm(torch.float64, False, CAUSAL_DEPTH64).double()
+        short = ids[:2, :64].cpu()
+        want64 = m64(short)
+        got64 = m64.to(dev)(short.to(dev)).cpu()
+    e64 = float((got64 - want64).norm() / want64.norm())
+    del m64
+    torch.cuda.empty_cache()
+    ok = (e_k <= CAUSAL_NOISE * e_p and e64 <= CAUSAL_TOL64
+          and ids32 == ids32_plain and counts["mlp_ln_res"] > 0)
+    print(f"causal: UniXcoderLM ({layers} layers, H {hidden}, vocab {V}) "
+          f"bf16 logits [{CAUSAL_BATCH}, {CAUSAL_TOKENS}, {V}] through K4: "
+          f"rel L2 from plain fp32 {e_k:.3e} (plain bf16 {e_p:.3e}, bound "
+          f"×{CAUSAL_NOISE:g}); card vs CPU fp64 at {CAUSAL_DEPTH64} layers "
+          f"{e64:.2e} (tol {CAUSAL_TOL64:.0e}); beam {BEAM} to {BEAM_MAX} "
+          f"over {BEAM_PREFIXES} prefixes of {BEAM_PREFIX}: fp32 kernel ids "
+          f"{'==' if ids32 == ids32_plain else '!='} plain ids, bf16 "
+          f"kernel/plain agreement {agree:.4f}, {n_new} tokens in "
+          f"{t_gen:.2f} s = {t_gen / max(n_new, 1) * 1e3:.2f} ms per "
+          f"generated token (bf16, kernels); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line()}]"
+          f"{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("causal: the LM's checks failed")
+    return counts
+
+
+# ----------------------------------------------------------------- parallel
+
+def _grads_of(model, loss):
+    import torch
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if p.requires_grad])
+    return dict(zip(names, torch.autograd.grad(loss, params,
+                                               allow_unused=True)))
+
+
+def _worst(got, want):
+    """(the relative L2 of all the tensors of two {name: tensor} dicts
+    joined, the largest per-tensor relative L2, its name); None entries
+    skipped. The joined error is the one held: a tensor whose exact value
+    cancels (the attention key bias's gradient) has a per-tensor error of
+    pure rounding noise."""
+    keys = [k for k in want if want[k] is not None
+            and got.get(k) is not None]
+    errs = {k: rel_l2(got[k], want[k]) for k in keys}
+    k = max(errs, key=errs.get)
+    num = sum(float((got[n].float() - want[n].float()).norm()) ** 2
+              for n in keys)
+    den = sum(float(want[n].float().norm()) ** 2 for n in keys)
+    return (num / max(den, 1e-30)) ** 0.5, errs[k], k
+
+
+def _dp_e2e(rank, dev, counters):
+    """The data-parallel e2e step at batch PAR_BATCH (PAR_BATCH / 2 per
+    rank), fp32 through the kernels, against the one-rank step (rank 0,
+    the whole batch): loss, gradients (after the dp mean), BatchNorm
+    statistics. Launches of the dp step counted."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.train_state import (cross_entropy,
+                                                  model_inputs)
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.parallel.mesh import (make_mesh, mean_over_dp,
+                                               reduce_gradients, shard_batch,
+                                               sync_batch_norm)
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+
+    opts = MODEL_OPTS + TRAIN_OPTS + ["PARALLEL.DTYPE", "float32"]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts,
+                                     output=tempfile.gettempdir()))
+    host = requests(cfg, PAR_BATCH, seed=3)
+    host["label"] = (np.arange(PAR_BATCH) % 2).astype(np.int32)
+
+    def model():
+        m, _, _ = build_e2e_model(cfg, VOCAB, node_capacity=NODE_CAPACITY,
+                                  use_pallas=True, roberta_pallas_mlp=True,
+                                  use_pallas_mlp=True)
+        init_jax_like(m, torch.Generator().manual_seed(0))
+        return m.to(dev)
+
+    def step(m, batch, mesh=None):
+        out = m(**model_inputs(batch), train=True, gen=None)
+        loss = cross_entropy(out, batch["label"], 0.1)
+        grads = _grads_of(m, loss)
+        if mesh is not None:
+            names = list(grads)
+            grads = dict(zip(names, reduce_gradients(
+                mesh, [grads[n] if grads[n] is not None
+                       else torch.zeros(1, device=dev) for n in names])))
+            loss = mean_over_dp(mesh, loss)
+        stats = {k: v.detach().clone() for k, v in m.state_dict().items()
+                 if "running_" in k}
+        return loss.detach(), grads, stats
+
+    ref = None
+    if rank == 0:
+        m1 = model()
+        ref = step(m1, to_device(host, dev))
+        ref = (ref[0].cpu(), {k: None if g is None else g.cpu()
+                              for k, g in ref[1].items()},
+               {k: v.cpu() for k, v in ref[2].items()})
+        del m1
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh()
+    m2 = sync_batch_norm(mesh, model())
+    _reset(counters)
+    got = step(m2, to_device(shard_batch(mesh, host), dev), mesh)
+    torch.cuda.synchronize()
+    counts = _counts(counters)
+    out = {"counts": counts}
+    if rank == 0:
+        out.update(loss=(float(got[0]), float(ref[0])),
+                   grad=_worst({k: None if g is None else g.cpu()
+                                for k, g in got[1].items()}, ref[1]),
+                   stats=_worst({k: v.cpu() for k, v in got[2].items()},
+                                ref[2]))
+    del m2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_attention(rank, dev, group):
+    """The sharded flat attention (K1 forward, K2 backward per block) at
+    the fine-tune's batch-64 shapes against the unsharded one on the same
+    inputs, and both timed (forward + backward)."""
+    import torch
+
+    from mvuld_tpu_torch.ops.window_attention import (
+        flat_attention, window_attention_flat_sharded)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for stage, Bn, N, C, H, shift, nWh, _per in SWIN_K1_SHAPES:
+        qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=gen,
+                          dtype=torch.bfloat16)
+        bias = torch.randn(H, N, N, device=dev, generator=gen)
+        scale = torch.rand(H, device=dev, generator=gen) * 9 + 1
+        g = torch.randn(Bn, N, C, device=dev, generator=gen,
+                        dtype=torch.bfloat16)
+
+        def run(sharded):
+            q, b, s = (t.clone().requires_grad_(True)
+                       for t in (qkv, bias, scale))
+            out, _ = (window_attention_flat_sharded(q, b, s, shift, nWh, nWh,
+                                                    group) if sharded
+                      else flat_attention(q, b, s, shift, nWh, nWh))
+            out.backward(g)
+            return out.detach(), q.grad, b.grad, s.grad
+
+        want, got = run(False), run(True)
+        errs = ([rel_err(got[i], want[i]) for i in (0, 1)]
+                + [rel_l2(got[i], want[i]) for i in (2, 3)])
+        rows.append((stage, shift, Bn, errs, time_ms(lambda: run(True), 3),
+                     time_ms(lambda: run(False), 3)))
+    return rows
+
+
+def _sp_model(rank, dev, group, counters):
+    """SwinV2-B 448 at the fine-tune's batch with the sequence-parallel
+    attention: one train step (kernels, every stage checkpointed), K1/K2
+    launches counted per rank; rank 0 then takes the same step unsharded
+    and compares loss and gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.core.train_state import cross_entropy
+    from mvuld_tpu_torch.models.swin_v2 import sequence_parallel
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+
+    cfg = _family_config(SWIN_OPTS, ["DATA.BATCH_SIZE", SWIN_BATCH,
+                                     "TRAIN.REMAT_STAGES", []])
+    S = cfg.DATA.IMG_SIZE
+    x = torch.randn(SWIN_BATCH, S, S, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    y = torch.arange(SWIN_BATCH, device=dev) % 2
+
+    def step(model):
+        loss = cross_entropy(model(x, train=True), y, 0.1)
+        return loss.detach().cpu(), {k: g.cpu() for k, g in
+                                     _grads_of(model, loss).items()}
+
+    run = build_swin_training(cfg, dev, kernels=True)
+    sequence_parallel(run.model, group)
+    _reset(counters)
+    got = step(run.model)
+    torch.cuda.synchronize()
+    counts = _counts(counters)
+    del run
+    torch.cuda.empty_cache()
+    out = {"counts": counts}
+    dist.barrier()
+    if rank == 0:
+        run = build_swin_training(cfg, dev, kernels=True)
+        want = step(run.model)
+        del run
+        torch.cuda.empty_cache()
+        out.update(loss=(float(got[0]), float(want[0])),
+                   grad=_worst(got[1], want[1]))
+    dist.barrier()
+    return out
+
+
+def _tp_swin(rank, dev):
+    """One AdamW step of SwinV2-B 448 at mp 2, fp32 (``shard_params_tp``;
+    the MLP on its plain layers, the attention through K1/K2 on the rank's
+    heads) against the one-rank step on the same batch: loss, the global
+    gradient norm, and each rank's gradient slices."""
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.train_state import image_inputs, train_step
+    from mvuld_tpu_torch.parallel.mesh import (make_mesh, shard_params_tp,
+                                               tp_global_norm)
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+
+    cfg = _family_config(SWIN_OPTS, ["DATA.BATCH_SIZE", TP_BATCH,
+                                     "PARALLEL.DTYPE", "float32"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    S = cfg.DATA.IMG_SIZE
+    batch = {"image": torch.randn(TP_BATCH, S, S, 3, device=dev,
+                                  generator=gen),
+             "label": torch.arange(TP_BATCH, device=dev) % 2}
+    mesh = make_mesh(dp=1, mp=2)
+
+    def step(tp: bool):
+        """(model, loss, grad norm, {name: gradient}) of one step."""
+        model = build_swin_training(cfg, dev, kernels=True).model
+        sharded = shard_params_tp(mesh, model) if tp else []
+        opt = build_optimizer(cfg, lambda count: 1e-5, model)
+        if tp:
+            opt.norm = tp_global_norm(mesh, sharded, model)
+        got, update = {}, opt.update
+        opt.update = lambda g: (got.setdefault("g", g), update(g))
+        m = train_step(model, opt, batch, None, 0.1, image_inputs)
+        names = [n for n, _ in model.named_parameters()]
+        return (model, float(m["loss"]), float(m["grad_norm"]),
+                dict(zip(names, got["g"])), len(sharded))
+
+    one, loss1, norm1, g1, _ = step(False)
+    # the one-rank gradients sliced as shard_params_tp slices parameters
+    with torch.no_grad():
+        for n, p in one.named_parameters():
+            p.data = g1[n].to(p.dtype)
+    shard_params_tp(mesh, one)
+    want = {n: p.detach().clone() for n, p in one.named_parameters()}
+    del one, g1
+    torch.cuda.empty_cache()
+    tp, loss2, norm2, g2, n_sharded = step(True)
+    grad = _worst(g2, want)
+    del tp, g2, want
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return {"loss": (loss2, loss1), "norm": (norm2, norm1),
+            "grad": grad, "sharded": n_sharded}
+
+
+def _ep_moe(rank, world, dev, group):
+    """Swin-MoE-S 192 with its 8 experts over the group (E/2 per rank),
+    fp32 eval forward on this rank's half of PAR_MOE_BATCH images, against
+    the one-card model on the whole batch: routings first, then logits of
+    the images no token of which was re-routed."""
+    import copy
+
+    import torch
+
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.moe import expert_parallel
+    from mvuld_tpu_torch.models.swin_variants import build_model
+
+    cfg = _family_config(SWIN_MOE_S, ["PARALLEL.DTYPE", "float32",
+                                      "MODEL.SWIN_MOE.GATE_NOISE", 0.0])
+    model = build_model(cfg)
+    init_jax_like(model, torch.Generator().manual_seed(0))
+    model.to(dev).eval()
+    ep = expert_parallel(copy.deepcopy(model), group)
+    S = cfg.DATA.IMG_SIZE
+    x = torch.randn(PAR_MOE_BATCH, S, S, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    n = PAR_MOE_BATCH // world
+    with torch.no_grad():
+        want, _ = model(x)
+        want_routes = _routes(model)
+        got, _ = ep(x[rank * n:(rank + 1) * n])
+        got_routes = _routes(ep)
+    # this rank's tokens are its block of each layer's global token order
+    mine = [(e[:, rank * e.shape[1] // world:(rank + 1) * e.shape[1] // world],
+             k[:, rank * k.shape[1] // world:(rank + 1) * k.shape[1] // world])
+            for e, k in want_routes]
+    moved, total, images = _rerouted(got_routes, mine, n)
+    keep = [i for i in range(n) if i not in images]
+    err = rel_l2(got[keep], want[rank * n:(rank + 1) * n][keep])
+    return {"moved": (moved, total), "err": err, "held": len(keep),
+            "experts": f"{ep.moe_layers()[0].w1.shape[0]} of "
+                       f"{ep.moe_layers()[0].num_experts}"}
+
+
+def parallel_world(rank: int, world: int, device: str):
+    """One rank of the two-rank world on ``device`` (gloo): each check's
+    results, with the launches of its main-path runs."""
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    counters = [wa.window_attention_flat, wa.window_attention_flat_bwd,
+                fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd]
+    group = dist.group.WORLD
+    out, t = {}, time.perf_counter()
+    out["dp"] = _dp_e2e(rank, dev, counters)
+    out["sp_ops"] = _sp_attention(rank, dev, group)
+    out["sp_model"] = _sp_model(rank, dev, group, counters)
+    out["tp"] = _tp_swin(rank, dev)
+    out["moe"] = _ep_moe(rank, world, dev, group)
+    out["seconds"] = time.perf_counter() - t
+    out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _nccl_e2e(dev, counters):
+    """A world-1 group of the device's backend (NCCL on the card) through
+    ``train_e2e.main``'s data-parallel path: one batch-16 step and the
+    eval, from a seeded cache."""
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.parallel.distributed import backend_for, free_port
+    from mvuld_tpu_torch.train.train_e2e import main as train_main
+
+    work = tempfile.mkdtemp(prefix="mvuld_nccl_")
+    backend = backend_for(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=dev if backend == "nccl" else None)
+    try:
+        opts = MODEL_OPTS + TRAIN_OPTS
+        cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output=work))
+        write_cache(cfg.OUTPUT, cfg, BATCH, BATCH)
+        _reset(counters)
+        t0 = time.perf_counter()
+        res = train_main(["--output", work, "--device", dev.type,
+                          "--node-capacity", str(NODE_CAPACITY), "--opts",
+                          *_opts_args(opts)])
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    val = {k: round(res["history"][0][k], 4) for k in ("acc", "f1")}
+    print(f"parallel: world-1 {backend} group through train_e2e.main's dp "
+          f"path, 1 step of batch {BATCH} + eval in "
+          f"{time.perf_counter() - t0:.1f} s, val {val}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts
+
+
+def _pp_text(dev, counters):
+    """``train_text``'s pipelined classifier (PARALLEL.PP 2 × 4
+    microbatches, both stages on the card) at UniXcoder-base, batch 16 ×
+    512 through K4/K4b: a warm-up and TRAIN_STEPS timed AdamW steps
+    (dropout on, launches counted), then one step without dropout against
+    the sequential classifier on the same weights."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.train_state import cross_entropy
+    from mvuld_tpu_torch.data.loader import ArrayDataset
+    from mvuld_tpu_torch.train.harness import to_device
+    from mvuld_tpu_torch.train.train_text import build_text_training
+
+    def build(pp):
+        opts = MODEL_OPTS + ["DATA.BATCH_SIZE", BATCH, "SEED", 0,
+                             "PARALLEL.PP", pp,
+                             "PARALLEL.PP_MICROBATCHES", PP_MICRO]
+        cfg = get_config(SimpleNamespace(cfg=None, opts=opts,
+                                         output=tempfile.gettempdir()))
+        arrs = requests(cfg, BATCH, seed=6)
+        labels = (np.arange(BATCH) % 2).astype(np.int32)
+        ds = {"train": ArrayDataset({"input_ids": arrs["func_ids"],
+                                     "label": labels})}
+        run = build_text_training(cfg, ds, VOCAB, dev, kernels=True)
+        return run, to_device({"input_ids": arrs["func_ids"],
+                               "label": labels}, dev)
+
+    run, batch = build(2)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    run.step(batch, gen)                                # warm-up
+    torch.cuda.synchronize()
+    _reset(counters)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = run.step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts(counters)
+    loss = float(m["loss"])
+
+    def grads(r):
+        out, _ = r.model(batch["input_ids"], train=True, gen=None)
+        lval = cross_entropy(out, batch["label"], 0.1)
+        return float(lval.detach()), {k: g.float().cpu() for k, g in
+                             _grads_of(r.model, lval).items()}
+
+    pp_loss, pp_grads = grads(run)
+    state = run.model.state_dict()
+    del run
+    seq, _ = build(1)
+    seq.model.load_state_dict(state)
+    seq_loss, seq_grads = grads(seq)
+    seq_ms = time_ms(lambda: seq.step(batch, gen), 2)
+    del seq, state
+    torch.cuda.empty_cache()
+    err, worst, name = _worst(pp_grads, seq_grads)
+    ok = (np.isfinite(loss) and abs(pp_loss - seq_loss) <= LOSS_TOL
+          and err <= PAR_TOL16 and counts["mlp_ln_res"] > 0
+          and counts["mlp_ln_res_bwd"] > 0)
+    print(f"parallel: train_text PP 2 × {PP_MICRO} microbatches (both stages "
+          f"on the card), UniXcoder-base batch {BATCH} × "
+          f"{batch['input_ids'].shape[1]} through K4/K4b: "
+          f"median {statistics.median(times):.1f} ms/step (steps "
+          f"{', '.join(f'{t:.1f}' for t in times)}; sequential "
+          f"{seq_ms:.1f} ms/step), loss {loss:.4f}; no-dropout step vs the "
+          f"sequential encoder: loss {pp_loss:.5f} / {seq_loss:.5f}, "
+          f"gradients rel L2 {err:.2e} (tol {PAR_TOL16:g}; worst tensor "
+          f"{worst:.2e}, {name}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }"
+          f"{'' if ok else ' FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("parallel: the pipelined text encoder")
+    return counts
+
+
+def parallel_phase(dev, counters):
+    """The parallel layer on the card: (a) a world-1 NCCL group through
+    ``train_e2e.main``'s dp path; (b) the pipelined ``train_text``
+    classifier; (c) a two-rank gloo world on the one card
+    (``parallel_world``): the dp e2e step, the sequence-parallel attention
+    (ops and SwinV2-B 448 batch 64), a tensor-parallel SwinV2 step at mp
+    2, Swin-MoE-S's experts over the two ranks, each against one rank.
+    Returns the main paths' launches (both ranks' summed)."""
+    import torch
+
+    from mvuld_tpu_torch.parallel.distributed import run_local_world
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_counts(counters), 0)
+    for counts in (_nccl_e2e(dev, counters), _pp_text(dev, counters)):
+        for k, v in counts.items():
+            total[k] += v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local_world(parallel_world, 2, str(dev), backend="gloo",
+                            timeout=PAR_TIMEOUT)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    bad = []
+    for r in ranks:
+        for part in ("dp", "sp_model"):
+            for k, v in r[part]["counts"].items():
+                total[k] += v
+    dp = r0["dp"]
+    per_rank = [{k: v for k, v in r["dp"]["counts"].items() if v}
+                for r in ranks]
+    print(f"parallel: dp e2e step, batch {PAR_BATCH} over 2 ranks on one "
+          f"card (gloo) vs 1 rank: loss {dp['loss'][0]:.5f} / "
+          f"{dp['loss'][1]:.5f}, gradients rel L2 {dp['grad'][0]:.2e} (worst "
+          f"tensor {dp['grad'][1]:.2e}, {dp['grad'][2]}), BatchNorm "
+          f"statistics rel L2 {dp['stats'][0]:.2e} (worst {dp['stats'][1]:.2e}"
+          f", {dp['stats'][2]}), tol {PAR_TOL:g} (fp32); launches per rank "
+          f"{per_rank}", flush=True)
+    if abs(dp["loss"][0] - dp["loss"][1]) > PAR_TOL * abs(dp["loss"][1]) \
+            or dp["grad"][0] > PAR_TOL or dp["stats"][0] > PAR_TOL:
+        bad.append("dp")
+    for stage, shift, Bn, errs, ms, ms1 in r0["sp_ops"]:
+        tol = 2.0 ** -6
+        ok = errs[0] <= tol and errs[1] <= tol and max(errs[2:]) <= SP_TOL
+        print(f"parallel: sharded flat attention stage {stage} shift {shift} "
+              f"Bn {Bn} over 2 ranks vs unsharded: out {errs[0]:.2e}, dqkv "
+              f"{errs[1]:.2e} (tol {tol:.1e} of the max), dbias "
+              f"{errs[2]:.2e}, dscale {errs[3]:.2e} (rel L2, tol "
+              f"{SP_TOL:.0e}); fwd+bwd {ms:.3f} ms per rank at world 2 "
+              f"(unsharded {ms1:.3f} ms)", flush=True)
+        if not ok:
+            bad.append(f"sp stage {stage}")
+    spm = r0["sp_model"]
+    sp_counts = [{k: v for k, v in r["sp_model"]["counts"].items() if v}
+                 for r in ranks]
+    print(f"parallel: SwinV2-B 448 batch {SWIN_BATCH} step with the "
+          f"sequence-parallel attention vs unsharded: loss "
+          f"{spm['loss'][0]:.5f} / {spm['loss'][1]:.5f}, gradients rel L2 "
+          f"{spm['grad'][0]:.2e} (tol {PAR_TOL16:g}; worst tensor "
+          f"{spm['grad'][1]:.2e}, {spm['grad'][2]}); launches per rank "
+          f"{sp_counts}", flush=True)
+    if abs(spm["loss"][0] - spm["loss"][1]) > LOSS_TOL or \
+            spm["grad"][0] > PAR_TOL16 or not all(
+                c.get("window_attention_flat") == SWIN_BLOCKS and
+                c.get("window_attention_flat_bwd") == SWIN_BLOCKS
+                for c in sp_counts):
+        bad.append("sp model")
+    for rank, r in enumerate(ranks):
+        tp = r["tp"]
+        print(f"parallel: tensor-parallel SwinV2-B 448 step at mp 2, batch "
+              f"{TP_BATCH}, rank {rank} ({tp['sharded']} tensors split): "
+              f"loss {tp['loss'][0]:.6f} / {tp['loss'][1]:.6f} (1 rank), "
+              f"grad norm {tp['norm'][0]:.5f} / {tp['norm'][1]:.5f}, gradient "
+              f"slices rel L2 {tp['grad'][0]:.2e} (worst tensor "
+              f"{tp['grad'][1]:.2e}, {tp['grad'][2]}), tol {PAR_TOL:g} (fp32)",
+              flush=True)
+        (l2, l1), (n2, n1) = tp["loss"], tp["norm"]
+        if abs(l2 - l1) > PAR_TOL * abs(l1) or \
+                abs(n2 - n1) > PAR_TOL * n1 or tp["grad"][0] > PAR_TOL:
+            bad.append(f"tp rank {rank}")
+        moe = r["moe"]
+        print(f"parallel: Swin-MoE-S 192, experts {moe['experts']} of each "
+              f"MoE layer's on rank {rank} of 2, fp32 eval, "
+              f"{PAR_MOE_BATCH // 2} images "
+              f"vs the one-card MoEFFN on {PAR_MOE_BATCH}: {moe['moved'][0]} "
+              f"of {moe['moved'][1]} token slots re-routed; logits of "
+              f"{moe['held']} images rel L2 {moe['err']:.2e} (tol "
+              f"{ZOO_TOL:.0e})", flush=True)
+        if moe["err"] > ZOO_TOL or moe["held"] == 0:
+            bad.append(f"moe rank {rank}")
+    print(f"parallel: world 2 on one card in {wall:.1f} s (rank 0's checks "
+          f"{r0['seconds']:.1f} s, peak {max(r['peak'] for r in ranks):.2f} "
+          f"GiB per rank); phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line()}]", flush=True)
+    if bad:
+        raise AssertionError(f"parallel: {bad}")
+    return total
+
+
 # -------------------------------------------------------------------- tools
 
 def tools_phase(dev, work: str) -> None:
@@ -3229,7 +3898,9 @@ def main() -> int:
                       lambda: swin_phase(dev, counters),
                       lambda: blockbench_phase(dev, counters),
                       lambda: ops_phase(dev, layouts),
-                      lambda: swin_family_phase(dev, e2e)):
+                      lambda: swin_family_phase(dev, e2e),
+                      lambda: causal_phase(dev, e2e),
+                      lambda: parallel_phase(dev, e2e)):
             for name, n in phase().items():
                 launches[name] += n
         fopts = staged_phase(dev, work)

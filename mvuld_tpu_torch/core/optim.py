@@ -48,8 +48,11 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """√Σ‖t‖² in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """√Σ‖t‖² in fp32 (optax.global_norm), on the first tensor's device
+    (a pipeline's stages may hold theirs on others)."""
+    dev = tensors[0].device
+    return torch.sqrt(sum((t.float() * t.float()).sum().to(dev)
+                          for t in tensors))
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
@@ -64,7 +67,9 @@ class Optimizer:
     over ``params`` (a list of (name, parameter)); ``clip=None`` leaves the
     clip out (``train_east``'s optax.adam). ``update(grads)``
     changes the parameters in place; ``count`` is optax's step count of the
-    inner optimizer (the schedule's argument)."""
+    inner optimizer (the schedule's argument). ``norm`` computes the
+    global norm that the clip reads (``parallel.mesh.tp_global_norm``
+    under tensor parallelism)."""
 
     def __init__(self, params: List[Tuple[str, torch.Tensor]],
                  decay: Dict[str, bool], schedule: Callable[[int], float],
@@ -83,6 +88,8 @@ class Optimizer:
         self.k = accumulation_steps
         self.count = 0
         self.mini_step = 0
+        self.norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = \
+            global_norm
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mu = zeros()
         self.nu = zeros() if name == "adamw" else []
@@ -102,7 +109,7 @@ class Optimizer:
             for a in self.acc:
                 a.zero_()
         if self.clip is not None:
-            grads = clip_by_global_norm(grads, self.clip, global_norm(grads))
+            grads = clip_by_global_norm(grads, self.clip, self.norm(grads))
         lr = self.schedule(self.count)
         self.count += 1
         wd = self.weight_decay

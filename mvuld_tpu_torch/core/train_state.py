@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvuld_tpu_torch.core.optim import Optimizer, global_norm
+from mvuld_tpu_torch.core.optim import Optimizer
 
 
 Inputs = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
@@ -67,14 +67,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
                gen: Optional[torch.Generator], label_smoothing: float = 0.1,
-               inputs: Inputs = model_inputs, aux_loss: bool = False
-               ) -> Dict[str, torch.Tensor]:
+               inputs: Inputs = model_inputs, aux_loss: bool = False,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (device tensors: what ``inputs``
     turns into the model's inputs, "label", and mixup's "soft_label" when
     present). ``aux_loss``: the model returns (logits, aux) and aux joins
     the loss (Swin-MoE's load-balancing loss). Returns the metrics loss,
     grad_norm (before clipping) and acc as device scalars, so the caller
-    decides when to synchronise."""
+    decides when to synchronise. ``mesh`` (``parallel/mesh.py``): the batch
+    is this rank's block of the global batch; the gradients are averaged
+    over dp before the clip, and loss and acc are the global batch's."""
     out = model(**inputs(batch), train=True, gen=gen)
     logits = _logits(out)
     loss = cross_entropy(logits, batch["label"], label_smoothing,
@@ -84,10 +86,16 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.params, grads)]
-    norm = global_norm(grads)
-    opt.update(grads)
     acc = (logits.argmax(-1) == batch["label"]).float().mean()
-    return {"loss": loss.detach(), "grad_norm": norm, "acc": acc}
+    loss = loss.detach()
+    if mesh is not None:
+        from mvuld_tpu_torch.parallel.mesh import (mean_over_dp,
+                                                   reduce_gradients)
+        grads = reduce_gradients(mesh, grads)
+        loss, acc = mean_over_dp(mesh, loss), mean_over_dp(mesh, acc)
+    norm = opt.norm(grads)
+    opt.update(grads)
+    return {"loss": loss, "grad_norm": norm, "acc": acc}
 
 
 @torch.no_grad()

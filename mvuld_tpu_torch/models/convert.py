@@ -9,7 +9,8 @@ that dict from any nested mapping of arrays, so exporting takes
 its towers (``SwinTransformerV2``, ``RobertaEncoder``,
 ``MultiDefectAblation`` under any key of the fusion zoo), into a
 ``UniXcoderClassifier`` / ``UniXcoderEmbedder`` (``encoder/…`` and
-``classifier``), into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
+``classifier``) or a ``UniXcoderLM`` (``encoder/…`` only: its head is the
+word embedding), into an operator of ``BILINEAR_FUSIONS`` (Dense leaves
 and the raw Tucker cores), or into the EAST detector (``ocr/east.py``,
 Flax module names: ``extractor/conv_{i}``, ``merge/bn_{i}``,
 ``score_head`` …), or into a baseline detector (``models/baselines.py``:
@@ -224,14 +225,15 @@ def _rules(model: nn.Module):
     from mvuld_tpu_torch.models.e2e import EndToEndMVulD
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
     from mvuld_tpu_torch.models.roberta import RobertaEncoder
-    from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
+    from mvuld_tpu_torch.models.unixcoder import (UniXcoderEmbedder,
+                                                  UniXcoderLM)
     from mvuld_tpu_torch.ocr.east import EAST
 
     if _is_swin(model):
         return _swin
     if isinstance(model, EAST):
         return _leaf
-    if isinstance(model, UniXcoderEmbedder):
+    if isinstance(model, (UniXcoderEmbedder, UniXcoderLM)):
         return _unixcoder
     if isinstance(model, RobertaEncoder):
         return _roberta
@@ -443,13 +445,16 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
     ``SwinTransformerV2`` alone (``params/layers_0_blocks_1/…``,
     ``params/head/kernel``), of a ``MultiDefectAblation`` alone
     (``params/graph/rs_gcn_0/W/kernel``), or of a ``UniXcoderClassifier`` /
-    ``UniXcoderEmbedder`` (``params/encoder/layer_0/…``,
-    ``params/classifier/kernel``), or of a bilinear fusion operator
+    ``UniXcoderEmbedder`` / ``UniXcoderLM`` (``params/encoder/layer_0/…``,
+    ``params/classifier/kernel``), of a ``RobertaEncoder`` alone
+    (``params/layer_0/…``), or of a bilinear fusion operator
     (``params/linear0/kernel``, ``params/core_0``). SwinV2 blocks take the
     unscanned ``layers_{i}_blocks_{j}`` names."""
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
+    from mvuld_tpu_torch.models.roberta import RobertaEncoder
     from mvuld_tpu_torch.models.swin_v2 import SwinTransformerV2
-    from mvuld_tpu_torch.models.unixcoder import UniXcoderEmbedder
+    from mvuld_tpu_torch.models.unixcoder import (UniXcoderEmbedder,
+                                                  UniXcoderLM)
     from mvuld_tpu_torch.ocr.east import EAST
 
     if _is_swin(model):
@@ -461,7 +466,9 @@ def torch_to_jax_names(model: nn.Module) -> Dict[str, str]:
         towers = [("", model, "leaf")]
     elif _is_baseline(model):
         towers = [("", model, "baseline")]
-    elif isinstance(model, UniXcoderEmbedder):
+    elif isinstance(model, RobertaEncoder):
+        towers = [("", model, "text_encoder")]
+    elif isinstance(model, (UniXcoderEmbedder, UniXcoderLM)):
         towers = [("encoder", model.encoder, "text_encoder")]
         if hasattr(model, "classifier"):
             towers.append(("classifier", model.classifier, "leaf"))

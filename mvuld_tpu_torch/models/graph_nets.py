@@ -85,7 +85,13 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d,
     variance), and update the
     running statistics in place with flax's momentum 0.99:
     running = 0.99·running + 0.01·batch. Torch's own train path differs in
-    both (momentum 0.1, unbiased running variance)."""
+    both (momentum 0.1, unbiased running variance).
+
+    Under data parallelism (``parallel.mesh.sync_batch_norm`` sets
+    ``bn.process_group`` to the dp group) the statistics are the global
+    batch's, as JAX's BatchNorm takes them over the sharded batch under
+    jit: Σx and Σx² are summed over the group (differentiably) before the
+    division."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
@@ -93,8 +99,17 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d,
     shape = [1] * x.dim()
     shape[1] = -1
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dims)
-    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    group = getattr(bn, "process_group", None)
+    if group is None:
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    else:
+        from mvuld_tpu_torch.parallel.collectives import all_reduce_fn, size
+        n = xf.numel() // xf.shape[1] * size(group)
+        sums = all_reduce_fn(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]),
+                             group)
+        mean = sums[0] / n
+        var = (sums[1] / n - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)

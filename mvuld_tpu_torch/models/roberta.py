@@ -7,8 +7,9 @@ parameter names are HF ``RobertaModel``'s (``embeddings.word_embeddings``,
 the JAX variables onto them one to one.
 
 Activations run in ``config.dtype`` with fp32 parameters; the attention
-softmax is fp32. ``use_pallas_mlp`` runs each layer's MLP half through the
-fused ``mlp_ln_res`` kernel (``ops/fused_dense.py``, K4; K4b backward).
+softmax is fp32 (fp64 for an fp64 model). ``use_pallas_mlp`` runs each
+layer's MLP half through the fused ``mlp_ln_res`` kernel
+(``ops/fused_dense.py``, K4; K4b backward).
 Given a generator, ``forward`` trains: dropout at ``dropout_rate`` on the
 embeddings, the attention probabilities, the attention output and the MLP
 output — on the kernel path the last is K4's {0,1} keep-mask of hidden's
@@ -16,19 +17,21 @@ shape and dtype, drawn where the plain path draws its dropout mask.
 ``remat`` checkpoints each layer in training (``torch.utils.checkpoint``,
 the JAX ``RobertaEncoder(remat=True)``): a layer's activations are rebuilt
 in the backward pass, with the generator put back to where the layer began
-so that the rebuilt layer draws the same dropout masks.
+so that the rebuilt layer draws the same dropout masks. ``causal`` adds the
+decoder-only mode's lower-triangular bias (``UniXcoderLM``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mvuld_tpu_torch.models.dropout import dropout, keep_mask
-from mvuld_tpu_torch.models.swin_v2 import layer_norm, linear
+from mvuld_tpu_torch.models.swin_v2 import acc_dtype, layer_norm, linear
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln_res
 
 
@@ -78,8 +81,9 @@ class SelfAttention(nn.Module):
             return y.reshape(y.shape[:-1] + (c.num_heads, hd)).transpose(1, 2)
 
         q, k, v = split(self.query), split(self.key), split(self.value)
-        # [B, H, Tq, Tk] — softmax in fp32 regardless of compute dtype
-        logits = (q @ k.transpose(-1, -2)).float() * (1.0 / hd ** 0.5)
+        # [B, H, Tq, Tk] — softmax in fp32 (fp64 for an fp64 model)
+        logits = ((q @ k.transpose(-1, -2)).to(acc_dtype(c.dtype))
+                  * (1.0 / hd ** 0.5))
         probs = torch.softmax(logits + attn_bias, dim=-1).to(c.dtype)
         probs = dropout(probs, c.dropout_rate, gen)
         ctx = (probs @ v).transpose(1, 2)                   # [B, T, H, hd]
@@ -186,31 +190,53 @@ class Encoder(nn.Module):
 
 
 class RobertaEncoder(nn.Module):
-    """Embeddings + transformer stack → last hidden state [B, T, H]
-    (encoder-only; the decoder-only ``causal`` mode comes with the UniXcoder
-    generation port)."""
+    """Embeddings + transformer stack → last hidden state [B, T, H].
 
-    def __init__(self, config: RobertaConfig, remat: bool = False):
+    ``causal=True`` adds a lower-triangular mask: −1e9 above the diagonal,
+    added to the key-side pad bias — the reference's decoder-only mode
+    (UniXcoder registers a tril bias buffer, unixcoder.py:113, used for
+    generation)."""
+
+    def __init__(self, config: RobertaConfig, remat: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.config = config
-        self.remat = remat
+        self.remat, self.causal = remat, causal
         self.embeddings = Embeddings(config)
         self.encoder = Encoder(config)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                gen=None) -> torch.Tensor:
-        """``gen``: the dropout generator (training), or None."""
+    def embed(self, input_ids: torch.Tensor, gen=None) -> torch.Tensor:
+        """Word + position + token-type embeddings, LayerNorm, dropout."""
         c = self.config
         emb = self.embeddings
         pos_ids = roberta_position_ids(input_ids, c.pad_token_id)
         hidden = (emb.word_embeddings.weight.to(c.dtype)[input_ids]
                   + emb.position_embeddings.weight.to(c.dtype)[pos_ids]
                   + emb.token_type_embeddings.weight[0].to(c.dtype))
-        hidden = dropout(layer_norm(hidden, emb.LayerNorm, c.dtype),
-                         c.dropout_rate, gen)
-        # additive key-side mask, broadcast over heads and query positions
-        attn_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
-                                ).float()
+        return dropout(layer_norm(hidden, emb.LayerNorm, c.dtype),
+                       c.dropout_rate, gen)
+
+    def attention_bias(self, attention_mask: torch.Tensor) -> torch.Tensor:
+        """The additive fp32 bias [B, 1, 1 or T, T]: the key-side pad mask,
+        broadcast over heads and query positions, plus the causal one."""
+        bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
+                           ).float()
+        if self.causal:
+            T = attention_mask.shape[-1]
+            tril = torch.ones(T, T, device=bias.device).tril()
+            bias = bias + torch.where(tril > 0, 0.0, -1e9)[None, None]
+        return bias
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                gen=None) -> torch.Tensor:
+        """``attention_mask``: 1 on real tokens (by default where the ids
+        are not the pad id); ``gen``: the dropout generator (training), or
+        None."""
+        if attention_mask is None:
+            attention_mask = (input_ids != self.config.pad_token_id).long()
+        hidden = self.embed(input_ids, gen)
+        attn_bias = self.attention_bias(attention_mask)
         remat = self.remat and torch.is_grad_enabled() and hidden.requires_grad
         for layer in self.encoder.layer:
             hidden = (checkpointed_layer(layer, hidden, attn_bias, gen)

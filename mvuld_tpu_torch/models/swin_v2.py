@@ -42,6 +42,15 @@ and the DropPath masks are the same in both passes.
 ``num_classes`` > 0 adds the classification head (``head``, fp32) and the
 forward returns its logits, the JAX model without ``return_features``: the
 SwinV2 fine-tune (``train/train_swin.py``) trains it.
+
+``sequence_parallel(model, group)`` is the JAX ``PallasOpts.sp_mesh`` /
+``sp_axis``: the kernel path's attention runs
+``window_attention_flat_sharded`` over the group, each rank K1/K2 on its
+block of windows. ``parallel.mesh.shard_params_tp`` sets each attention's
+and MLP's ``tp`` group: their column-parallel layers (qkv, ``cpb_mlp.0``,
+fc1) hold the rank's share of output features, the row-parallel ones
+(proj, fc2) its share of input features, summed over the group; the
+replicated per-head parameters are sliced to the rank's heads.
 """
 
 from __future__ import annotations
@@ -59,8 +68,10 @@ from torch import nn
 
 from mvuld_tpu_torch.models.dropout import dropout, keep_mask
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
-from mvuld_tpu_torch.ops.window_attention import (flat_attention,
-                                                  window_attention_flat)
+from mvuld_tpu_torch.ops.window_attention import (
+    flat_attention, window_attention_flat, window_attention_flat_sharded)
+from mvuld_tpu_torch.parallel.collectives import (all_gather_fn, copy_to_fn,
+                                                  rank, reduce_from_fn)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's default epsilon
 
@@ -211,10 +222,18 @@ class MlpBlock(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden)
         self.fc2 = nn.Linear(hidden, out)
         self.drop = drop
+        self.tp = None          # the tensor-parallel group
 
     def forward(self, x, dtype, gen: Optional[torch.Generator] = None):
+        x = copy_to_fn(x, self.tp)
         x = dropout(gelu(linear(x, self.fc1, dtype)), self.drop, gen)
-        return dropout(linear(x, self.fc2, dtype), self.drop, gen)
+        if self.tp is None:
+            y = linear(x, self.fc2, dtype)
+        else:                   # fc2 row-parallel: partial sums, then bias
+            y = (reduce_from_fn(F.linear(x.to(dtype),
+                                         self.fc2.weight.to(dtype)), self.tp)
+                 + self.fc2.bias.to(dtype))
+        return dropout(y, self.drop, gen)
 
 
 class WindowAttentionV2(nn.Module):
@@ -244,6 +263,7 @@ class WindowAttentionV2(nn.Module):
         else:
             self.q_bias = self.v_bias = None
         self.proj = nn.Linear(dim, dim)
+        self.sp = self.tp = None    # sequence- / tensor-parallel groups
         self.register_buffer(
             "relative_coords_table",
             torch.as_tensor(relative_coords_table(window_size,
@@ -259,7 +279,10 @@ class WindowAttentionV2(nn.Module):
         """[H, N, N] fp32: 16·sigmoid(cpb[relative_position_index]). The
         gather runs on the compute-dtype table, as the JAX expansion does."""
         N = self.window_size ** 2
-        cpb = self.cpb_mlp(self.relative_coords_table)        # [(2W-1)², H]
+        h = F.relu(self.cpb_mlp[0](self.relative_coords_table))
+        if self.tp is not None:         # cpb_fc1 column-parallel
+            h = all_gather_fn(h.t(), self.tp).t()
+        cpb = self.cpb_mlp[2](h)                              # [(2W-1)², H]
         bias = cpb.to(self.dtype)[self.relative_position_index]
         bias = bias.reshape(N, N, -1).permute(2, 0, 1)
         return 16.0 * torch.sigmoid(bias.to(acc_dtype(self.dtype)))
@@ -273,23 +296,38 @@ class WindowAttentionV2(nn.Module):
         path, checkpointed stages) keeps K1's (out, r) — r None under the
         v1 backward — between the first forward and its recomputation.
         ``gen``: the dropout masks' generator (training), or None."""
-        B, Hp, Wp, C = x.shape
-        ws, H, dt = self.window_size, self.num_heads, self.dtype
-        hd = C // H
+        B, Hp, Wp, _ = x.shape
+        ws, dt = self.window_size, self.dtype
+        hd = self.dim // self.num_heads
+        H = self.qkv.weight.shape[0] // (3 * hd)     # this rank's heads
+        C = H * hd
         N = ws * ws
-        x_ = x.to(dt)
+        x_ = copy_to_fn(x.to(dt), self.tp)
         qkv_b = None
         if self.q_bias is not None:
             qkv_b = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                self.v_bias]).to(dt)
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
         bias = self.relative_bias()
+        if self.tp is not None:         # the replicated per-head parameters
+            lo = rank(self.tp) * H
+            if qkv_b is not None:
+                qkv_b = copy_to_fn(qkv_b, self.tp).reshape(3, -1)[
+                    :, lo * hd:(lo + H) * hd].reshape(-1)
+            scale = copy_to_fn(scale, self.tp)[lo:lo + H]
+            bias = copy_to_fn(bias, self.tp)[lo:lo + H]
 
         if self.use_pallas:
             xw = window_partition(x_, ws)
             qkv = F.linear(xw, self.qkv.weight.to(dt), qkv_b)   # [Bn, N, 3C]
             args = (qkv, bias, scale.reshape(H), shift, Hp // ws, Wp // ws)
-            if torch.is_grad_enabled():
+            if self.sp is not None:
+                prev = None if store is None else store.get(self)
+                out, r = window_attention_flat_sharded(*args, self.sp,
+                                                       saved=prev)
+                if store is not None and prev is None:
+                    store[self] = (out.detach(), r)
+            elif torch.is_grad_enabled():
                 prev = None if store is None else store.get(self)
                 out, r = flat_attention(*args, saved=prev)
                 if store is not None and prev is None:
@@ -318,7 +356,12 @@ class WindowAttentionV2(nn.Module):
             out = attn.to(dt) @ v
             out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
             out = window_reverse(out, ws, Hp, Wp)
-        return dropout(linear(out, self.proj, dt), self.proj_drop, gen)
+        if self.tp is None:
+            y = linear(out, self.proj, dt)
+        else:                   # proj row-parallel: partial sums, then bias
+            y = (reduce_from_fn(F.linear(out.to(dt), self.proj.weight.to(dt)),
+                                self.tp) + self.proj.bias.to(dt))
+        return dropout(y, self.proj_drop, gen)
 
 
 class SwinBlockV2(nn.Module):
@@ -556,3 +599,14 @@ class SwinTransformerV2(nn.Module):
         x = layer_norm(x, self.norm, c.dtype).mean(dim=1)
         x = x.to(acc_dtype(c.dtype))
         return x if self.head is None or return_features else self.head(x)
+
+
+def sequence_parallel(model: nn.Module, group) -> nn.Module:
+    """Run every kernel-path window attention of ``model`` sequence-parallel
+    over ``group`` (``window_attention_flat_sharded``; the JAX
+    ``PallasOpts(sp_mesh, sp_axis)``). Every rank runs the model alike on
+    the whole batch; the batch must divide into the group's blocks."""
+    for m in model.modules():
+        if isinstance(m, WindowAttentionV2):
+            m.sp = group
+    return model

@@ -33,7 +33,9 @@ the saved (qkv, bias, scale, out, r); v1 (``MVULD_ATTN_BWD=v1``) saves
 only (qkv, bias, scale) and K5 recomputes the softmax statistics. Neither
 backward replays K1. All of them follow ``MVULD_ATTN_MXU_BF16`` (or
 ``mxu_bf16=True``) as the JAX package's flat attention does: the product
-operands rounded to bf16, the sums fp32.
+operands rounded to bf16, the sums fp32. ``window_attention_flat_sharded``
+is the sequence-parallel form over a process group: each rank runs K1 and
+K2 (or K5) on its block of windows.
 
 The other two layouts of the JAX module are here too, with the exact
 softmax (the row maximum is subtracted, no fixed shift) that its kernels
@@ -66,6 +68,7 @@ import numpy as np
 import torch
 
 from mvuld_tpu_torch.ops import _build
+from mvuld_tpu_torch.parallel import collectives as cc
 
 _HEAD_DIM = 32   # SwinV2's head dim; the kernel is instantiated for it
 
@@ -559,6 +562,78 @@ def flat_attention(qkv, bias, scale, shift: int = 0, nWh: int = 1,
                                     mxu_bf16)
     return (_FlatAttentionV1.apply(qkv, bias, scale, shift, nWh, nWw, saved,
                                    mxu_bf16), None)
+
+
+class _ShardedFlatAttention(torch.autograd.Function):
+    """``window_attention_flat_sharded``'s forward and backward: K1 on this
+    rank's block of windows, the outputs gathered; K2 (K5 under v1) on the
+    block, dqkv gathered, dbias and dscale summed over the group."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, shift, nWh, nWw, group, saved,
+                mxu_bf16, bwd_v2):
+        n = qkv.shape[0] // cc.size(group)
+        lo = cc.rank(group) * n
+        mine = qkv[lo:lo + n]
+        if saved is None:
+            out_mine, r = window_attention_flat(mine, bias, scale, shift, nWh,
+                                                nWw, return_rowsum=True,
+                                                mxu_bf16=mxu_bf16)
+            out = cc.all_gather(out_mine, group)
+        else:
+            out, r = saved[0].detach(), saved[1].detach()
+            out_mine = out[lo:lo + n]
+        ctx.geom = (shift, nWh, nWw, mxu_bf16)
+        ctx.group, ctx.lo, ctx.bwd_v2 = group, lo, bwd_v2
+        ctx.save_for_backward(mine, bias, scale, out_mine, r)
+        ctx.mark_non_differentiable(r)
+        return out, r
+
+    @staticmethod
+    def backward(ctx, g, _g_r):
+        mine, bias, scale, out_mine, r = ctx.saved_tensors
+        g_mine = g[ctx.lo:ctx.lo + mine.shape[0]].contiguous()
+        if ctx.bwd_v2:
+            dq, dbias, dscale = window_attention_flat_bwd(
+                mine, bias, scale, out_mine, r, g_mine, *ctx.geom)
+        else:
+            dq, dbias, dscale = window_attention_flat_bwd_v1(
+                mine, bias, scale, g_mine, *ctx.geom)
+        return (cc.all_gather(dq, ctx.group),
+                cc.all_reduce(dbias, ctx.group).to(bias.dtype),
+                cc.all_reduce(dscale, ctx.group).to(scale.dtype),
+                None, None, None, None, None, None, None)
+
+
+def window_attention_flat_sharded(qkv, bias, scale, shift: int, nWh: int,
+                                  nWw: int, group, saved=None,
+                                  bwd_v2: Optional[bool] = None,
+                                  mxu_bf16: bool = False):
+    """Sequence-parallel flat window attention (the JAX
+    ``window_attention_flat_sharded``): the window axis of a program that
+    every rank of ``group`` runs alike is split into the ranks' contiguous
+    blocks. Each rank runs K1 on its block and the outputs are gathered, so
+    every rank holds the whole [Bn, N, C] output; the backward runs K2 (K5
+    under ``MVULD_ATTN_BWD=v1``) on the block, gathers dqkv and sums the
+    dbias [H, N, N] and dscale [H] partials over the group — shard_map's
+    semantics with replicated inputs.
+
+    Returns (out, r), r this rank's row sums [Bn/k, H, N]; ``saved``, a
+    previous call's (out, r) on the same inputs, skips K1 (checkpointed
+    stages). Each block must hold whole images' window sets, so that the
+    kernel's window id modulo nW stays each window's boundary mask."""
+    Bn = qkv.shape[0]
+    nW = max(nWh * nWw, 1)
+    k = cc.size(group)
+    if (Bn // nW) % k != 0:
+        raise ValueError(
+            f"sequence-parallel window attention: batch {Bn // nW} (Bn={Bn}, "
+            f"nW={nW}) must be a multiple of the group size {k}")
+    if bwd_v2 is None:
+        bwd_v2 = _flat_bwd_v2_default()
+    return _ShardedFlatAttention.apply(qkv, bias, scale, shift, nWh, nWw,
+                                       group, saved,
+                                       _mxu_bf16_default(mxu_bf16), bwd_v2)
 
 
 # --------------------------------------------------------------------------- #

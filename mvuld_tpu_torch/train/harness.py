@@ -11,6 +11,12 @@ Batches come from ``data/loader.py`` on the host; ``to_device`` turns
 each into device tensors. With ``device_data`` (TRAIN.DEVICE_DATA /
 DEVICE_EVAL) a split's columns already live on the device and its host
 batches carry only row indices ("idx"), gathered on the device.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank reads the same global
+batches, keeps its block of rows (after ``batch_hook``, so mixup sees the
+global batch) and steps with the gradients averaged over dp; evaluation
+shards its batches the same way and gathers the logits. Only the primary
+rank writes the config, checkpoints and ``history.json``.
 """
 
 from __future__ import annotations
@@ -49,16 +55,21 @@ def to_device(batch: Dict[str, np.ndarray], device,
 
 
 def run_eval(model, ds: ArrayDataset, batch_size: int, device,
-             device_data=None, inputs: Inputs = model_inputs
+             device_data=None, inputs: Inputs = model_inputs, mesh=None
              ) -> Dict[str, float]:
     """Logits over the eval set (the padded final batch masked out) and
     the metric suite on the host."""
+    from mvuld_tpu_torch.parallel.mesh import gather_batch, shard_batch
     all_logits, all_labels = [], []
     for batch in eval_batches(ds, batch_size):
         valid = batch.pop("_valid")
         labels = np.asarray(batch["label"])
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
         logits = eval_step(model, to_device(batch, device, device_data),
                            inputs)
+        if mesh is not None:
+            logits = gather_batch(mesh, logits)
         keep = valid > 0
         all_logits.append(logits.float().cpu().numpy()[keep])
         all_labels.append(labels[keep])
@@ -84,20 +95,24 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         batch_hook: Optional[Callable] = None,
         patience: Optional[int] = None,
         label_smoothing: Optional[float] = None,
-        inputs: Inputs = model_inputs) -> Dict:
+        inputs: Inputs = model_inputs, mesh=None) -> Dict:
     """Run the training loop; returns {best_f1, best_epoch, history,
     test_metrics}. ``eval_device_data``: {"val": cols, "test": cols}.
     ``batch_hook(batch, epoch, it)`` rewrites each host train batch before
     it goes to the device (mixup); ``patience`` overrides
     TRAIN.EARLY_STOP_PATIENCE and ``label_smoothing``
     MODEL.LABEL_SMOOTHING; ``inputs`` maps a device batch onto the model's
-    inputs (``core/train_state.py``)."""
+    inputs (``core/train_state.py``); ``mesh``: data parallelism over its
+    dp ranks (module docstring)."""
     if device_data is not None and batch_hook is not None:
         raise ValueError("device_data mode ships index batches; batch_hook "
                          "(host-side augmentation) cannot apply — disable "
                          "one of them")
-    logger = logger or create_logger(output_dir)
-    if output_dir:
+    from mvuld_tpu_torch.parallel.mesh import rank_seed, shard_batch
+    # only the primary rank writes; every rank resumes from output_dir
+    write_dir = output_dir if mesh is None or mesh.is_primary else ""
+    logger = logger or create_logger(write_dir)
+    if write_dir:
         # the resolved config beside the checkpoints: the predict CLI
         # rebuilds the run's model from it
         from mvuld_tpu_torch.config import save_config
@@ -107,7 +122,8 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
     if label_smoothing is None:
         label_smoothing = cfg.MODEL.LABEL_SMOOTHING
     best_save_full = cfg.TRAIN.BEST_SAVE != "params"
-    gen = torch.Generator(device=device).manual_seed(cfg.SEED)
+    gen = torch.Generator(device=device).manual_seed(
+        cfg.SEED if mesh is None else rank_seed(mesh, cfg.SEED))
     best, history = None, []
 
     start_epoch = cfg.TRAIN.START_EPOCH
@@ -131,9 +147,11 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
                                                cfg.SEED)):
             if batch_hook is not None:
                 raw = batch_hook(raw, epoch, it)
+            if mesh is not None:
+                raw = shard_batch(mesh, raw)
             metrics = train_step(model, opt, to_device(raw, device,
                                                        device_data),
-                                 gen, label_smoothing, inputs)
+                                 gen, label_smoothing, inputs, mesh=mesh)
             speed_meter.add(batch_size)
             if it % cfg.PRINT_FREQ == 0:
                 loss = float(metrics["loss"])     # syncs — only on print
@@ -142,20 +160,20 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
                             f"({speed_meter.read():.1f} samples/s)")
 
         val_metrics = run_eval(model, val_ds, batch_size, device,
-                               eval_dd.get("val"), inputs)
+                               eval_dd.get("val"), inputs, mesh)
         history.append({"epoch": epoch, **val_metrics})
         logger.info(f"epoch {epoch} VAL  {format_metrics(val_metrics)} "
                     f"({time.time() - t_epoch:.1f}s)")
 
         if stopper.update(val_metrics["f1"], epoch):
             best = _snapshot(model, opt, best_save_full)
-            if output_dir:
-                save_checkpoint(output_dir, epoch,
+            if write_dir:
+                save_checkpoint(write_dir, epoch,
                                 {**best, "epoch": epoch,
                                  "best_f1": val_metrics["f1"]}, best=True)
-        if output_dir and cfg.SAVE_FREQ > 0 and (
+        if write_dir and cfg.SAVE_FREQ > 0 and (
                 epoch % cfg.SAVE_FREQ == 0 or epoch == cfg.TRAIN.EPOCHS - 1):
-            save_checkpoint(output_dir, epoch,
+            save_checkpoint(write_dir, epoch,
                             {**_snapshot(model, opt, True), "epoch": epoch,
                              "best_f1": stopper.best})
         if stopper.should_stop:
@@ -169,12 +187,12 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
            "history": history}
     if test_ds is not None:
         test_metrics = run_eval(model, test_ds, batch_size, device,
-                                eval_dd.get("test"), inputs)
+                                eval_dd.get("test"), inputs, mesh)
         logger.info(f"TEST {format_metrics(test_metrics)}")
         out["test_metrics"] = test_metrics
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-        with open(os.path.join(output_dir, "history.json"), "w") as f:
+    if write_dir:
+        os.makedirs(write_dir, exist_ok=True)
+        with open(os.path.join(write_dir, "history.json"), "w") as f:
             json.dump({"history": history, "best_f1": stopper.best,
                        "best_epoch": stopper.best_epoch,
                        "test_metrics": out.get("test_metrics")}, f, indent=1)

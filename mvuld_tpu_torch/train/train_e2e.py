@@ -202,28 +202,35 @@ def main(argv=None) -> dict:
     from mvuld_tpu_torch.data.loader import steps_per_epoch
     from mvuld_tpu_torch.data.tokenizer import vocab_size_of
     from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.parallel.distributed import local_device
+    from mvuld_tpu_torch.parallel.mesh import (mesh_from_cfg, primary_first,
+                                               replicate, sync_batch_norm)
     from mvuld_tpu_torch.train.harness import fit
     from mvuld_tpu_torch.train.predict import resolve_device
 
     cfg = get_config(args)
-    logger = create_logger(cfg.OUTPUT)
     device = resolve_device(args.device)
+    mesh = mesh_from_cfg(cfg, device)
+    device = local_device(device)
+    logger = create_logger(cfg.OUTPUT if mesh.is_primary else "", mesh.rank)
 
     # the tokenizer persists next to the checkpoints: the predict CLI must
     # tokenize new functions with the training vocabulary
     tok_path = os.path.join(cfg.OUTPUT, "tokenizer.json")
     cache_path = os.path.join(cfg.OUTPUT, "cache", "e2e.npz")
-    cache = _load_cache(cache_path, cfg, cfg.DATA.IMG_SIZE, logger)
-    if cache is not None and os.path.exists(tok_path):
-        vocab = vocab_size_of(tok_path)
-        n_functions = len(cache["label"])
-    else:
-        from mvuld_tpu_torch.train.train_text import get_or_train_tokenizer
-        df = _corpus(args, cfg)
-        tok = get_or_train_tokenizer(df, tok_path, vocab_size=4096)
-        cache = build_e2e_cache(df, cfg, tok, cache_path, cfg.DATA.IMG_SIZE,
-                                logger)
-        vocab, n_functions = tok.vocab_size, len(df)
+    with primary_first(mesh):
+        cache = _load_cache(cache_path, cfg, cfg.DATA.IMG_SIZE, logger)
+        if cache is not None and os.path.exists(tok_path):
+            vocab = vocab_size_of(tok_path)
+            n_functions = len(cache["label"])
+        else:
+            from mvuld_tpu_torch.train.train_text import (
+                get_or_train_tokenizer)
+            df = _corpus(args, cfg)
+            tok = get_or_train_tokenizer(df, tok_path, vocab_size=4096)
+            cache = build_e2e_cache(df, cfg, tok, cache_path,
+                                    cfg.DATA.IMG_SIZE, logger)
+            vocab, n_functions = tok.vocab_size, len(df)
     if args.cache_only:
         logger.info("cache-only: corpus cache + tokenizer written; exiting")
         return {"cache_only": True, "n_functions": n_functions,
@@ -253,6 +260,7 @@ def main(argv=None) -> dict:
         use_pallas_mlp=kernels and cfg.TRAIN.FUSED_MLP)
     init_jax_like(model, torch.Generator().manual_seed(cfg.SEED))
     model.to(device)
+    sync_batch_norm(mesh, replicate(mesh, model))
 
     spe = max(steps_per_epoch(len(datasets["train"]), B), 1)
     opt = build_optimizer(cfg, build_schedule(cfg, spe, B), model)
@@ -290,7 +298,7 @@ def main(argv=None) -> dict:
                val_ds=datasets.get("val", datasets["train"]), device=device,
                test_ds=datasets.get("test"), output_dir=cfg.OUTPUT,
                logger=logger, device_data=device_data,
-               eval_device_data=eval_device_data)
+               eval_device_data=eval_device_data, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -73,6 +73,38 @@ def fusion_inputs(bits: int):
     return inputs
 
 
+def _caches(args, cfg, cache_dir: str, cache_paths: Dict, logger) -> Dict:
+    """The split caches' paths; when one is missing, all are built first
+    from the corpus (--synthetic or --data) with random text and image
+    encoders."""
+    from mvuld_tpu_torch.train.precompute import (build_fusion_cache,
+                                                  make_random_encoders)
+
+    if all(os.path.exists(p) for p in cache_paths.values()):
+        return cache_paths
+    if args.synthetic:
+        from mvuld_tpu_torch.tools.dataset import prepare_corpus
+        from mvuld_tpu_torch.tools.synthetic import generate_dataset
+        df = prepare_corpus(generate_dataset(args.synthetic,
+                                             hard=args.hard,
+                                             seed=cfg.SEED or 42))
+    else:
+        if args.data is None:
+            missing = [p for p in cache_paths.values()
+                       if not os.path.exists(p)]
+            raise FileNotFoundError(
+                f"fusion caches missing ({missing}) and no --data/"
+                f"--synthetic corpus given to rebuild them")
+        import pandas as pd
+        df = pd.read_pickle(args.data)
+    from mvuld_tpu_torch.data.tokenizer import CodeTokenizer
+    tok = CodeTokenizer.train(df.func_before.tolist(), vocab_size=2048)
+    text_enc, swin_enc = make_random_encoders(cfg)
+    return build_fusion_cache(df, cache_dir, cfg, text_encoder=text_enc,
+                              swin_encoder=swin_enc, tokenizer=tok,
+                              logger=logger)
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", default=None)
@@ -99,44 +131,26 @@ def main(argv=None) -> dict:
     from mvuld_tpu_torch.data.loader import ArrayDataset, steps_per_epoch
     from mvuld_tpu_torch.models import convert
     from mvuld_tpu_torch.models.fusion_zoo import build_fusion_model
+    from mvuld_tpu_torch.parallel.distributed import local_device
+    from mvuld_tpu_torch.parallel.mesh import (mesh_from_cfg, primary_first,
+                                               replicate, sync_batch_norm)
     from mvuld_tpu_torch.train.harness import fit, run_eval
-    from mvuld_tpu_torch.train.precompute import (build_fusion_cache,
-                                                  make_random_encoders)
     from mvuld_tpu_torch.train.predict import resolve_device
 
     cfg = get_config(args)
     output_dir = os.path.join(cfg.MULTI_OUTPUT, cfg.TAG) if not args.output \
         else cfg.OUTPUT
-    logger = create_logger(output_dir)
     device = resolve_device(args.device)
+    mesh = mesh_from_cfg(cfg, device)
+    device = local_device(device)
+    logger = create_logger(output_dir if mesh.is_primary else "", mesh.rank)
 
     # ---- caches
     cache_dir = args.cache_dir or os.path.join(output_dir, "cache")
     parts = ("train", "val", "test")
     cache_paths = {p: os.path.join(cache_dir, f"{p}.npz") for p in parts}
-    if not all(os.path.exists(p) for p in cache_paths.values()):
-        if args.synthetic:
-            from mvuld_tpu_torch.tools.dataset import prepare_corpus
-            from mvuld_tpu_torch.tools.synthetic import generate_dataset
-            df = prepare_corpus(generate_dataset(args.synthetic,
-                                                 hard=args.hard,
-                                                 seed=cfg.SEED or 42))
-        else:
-            if args.data is None:
-                missing = [p for p in cache_paths.values()
-                           if not os.path.exists(p)]
-                raise FileNotFoundError(
-                    f"fusion caches missing ({missing}) and no --data/"
-                    f"--synthetic corpus given to rebuild them")
-            import pandas as pd
-            df = pd.read_pickle(args.data)
-        from mvuld_tpu_torch.data.tokenizer import CodeTokenizer
-        tok = CodeTokenizer.train(df.func_before.tolist(), vocab_size=2048)
-        text_enc, swin_enc = make_random_encoders(cfg)
-        cache_paths = build_fusion_cache(df, cache_dir, cfg,
-                                         text_encoder=text_enc,
-                                         swin_encoder=swin_enc,
-                                         tokenizer=tok, logger=logger)
+    with primary_first(mesh):
+        cache_paths = _caches(args, cfg, cache_dir, cache_paths, logger)
     datasets = load_cached_datasets(cache_paths)
     logger.info(f"dataset sizes: { {k: len(v) for k, v in datasets.items()} }")
 
@@ -146,6 +160,7 @@ def main(argv=None) -> dict:
     logger.info(f"fusion arch: {arch}")
     convert.init_jax_like(model, torch.Generator().manual_seed(cfg.SEED))
     model.to(device)
+    sync_batch_norm(mesh, replicate(mesh, model))
     inputs = fusion_inputs(edge_bits(cfg.DATA.GTYPE))
     B = cfg.DATA.BATCH_SIZE
     spe = max(steps_per_epoch(len(datasets["train"]), B), 1)
@@ -196,14 +211,15 @@ def main(argv=None) -> dict:
 
     if args.test:
         metrics = run_eval(model, datasets["test"], B, device,
-                           (eval_device_data or {}).get("test"), inputs)
+                           (eval_device_data or {}).get("test"), inputs,
+                           mesh)
         logger.info(f"TEST(only) {metrics}")
         return {"test_metrics": metrics}
     return fit(cfg=cfg, model=model, opt=opt, train_ds=datasets["train"],
                val_ds=datasets.get("val", datasets["train"]), device=device,
                test_ds=datasets.get("test"), output_dir=output_dir,
                logger=logger, device_data=device_data,
-               eval_device_data=eval_device_data, inputs=inputs)
+               eval_device_data=eval_device_data, inputs=inputs, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ On a CUDA device the model runs the port's kernels: K1 attention with K2
 TRAIN.FUSED_MLP the K3/K3b MLP halves; on the CPU it runs the plain layers,
 as the JAX trainer runs its XLA path off the TPU. ``build_swin_training``
 makes the model, the optimizer and the step for ``main`` and for any other
-caller that feeds its own image tensors.
+caller that feeds its own image tensors. PARALLEL.DP / MP lay the ranks of
+a torchrun launch out as the JAX mesh (``parallel/mesh.py``): every rank
+mixes the same global batch and trains on its block of rows.
 
 Usage:
   python -m mvuld_tpu_torch.train.train_swin --cfg cfg.yaml [--synthetic N]
@@ -73,16 +75,18 @@ class SwinTraining:
     opt: object
     label_smoothing: float
     batch_hook: Callable[[Dict, int, int], Dict]
+    mesh: object = None
 
     def step(self, batch, gen):
         from mvuld_tpu_torch.core.train_state import image_inputs, train_step
         return train_step(self.model, self.opt, batch, gen,
-                          self.label_smoothing, image_inputs)
+                          self.label_smoothing, image_inputs, mesh=self.mesh)
 
 
 def build_swin_training(cfg, device, steps_per_epoch: int = 1,
                         pretrained: Optional[str] = None,
-                        kernels: Optional[bool] = None) -> SwinTraining:
+                        kernels: Optional[bool] = None,
+                        mesh=None) -> SwinTraining:
     """SwinTransformerV2 with its head, initialised with the JAX
     initialisers from ``cfg.SEED`` or loaded from ``pretrained``; AdamW
     with the config's schedule; mixup soft targets from a generator seeded
@@ -90,7 +94,8 @@ def build_swin_training(cfg, device, steps_per_epoch: int = 1,
     loss). ``kernels`` (by default on CUDA) runs the attention kernels and,
     with TRAIN.FUSED_MLP, the fused MLP; off, the plain layers.
     TRAIN.USE_CHECKPOINT with TRAIN.REMAT_STAGES (empty: every stage) picks
-    the checkpointed stages."""
+    the checkpointed stages. ``mesh``: the parameters broadcast from rank
+    0 and the step data-parallel."""
     import torch
 
     from mvuld_tpu_torch.core.optim import build_optimizer
@@ -114,6 +119,9 @@ def build_swin_training(cfg, device, steps_per_epoch: int = 1,
     if pretrained:
         load_pretrained_swinv2(model, pretrained)
     model.to(device)
+    if mesh is not None:
+        from mvuld_tpu_torch.parallel.mesh import replicate
+        replicate(mesh, model)
     B = cfg.DATA.BATCH_SIZE
     opt = build_optimizer(cfg, build_schedule(cfg, steps_per_epoch, B), model)
 
@@ -134,7 +142,7 @@ def build_swin_training(cfg, device, steps_per_epoch: int = 1,
     # mixup folds LABEL_SMOOTHING into the soft targets; without mixup the
     # reference falls back to LabelSmoothingCrossEntropy (main.py:136-142)
     smoothing = 0.0 if use_mix else cfg.MODEL.LABEL_SMOOTHING
-    return SwinTraining(model, opt, smoothing, batch_hook)
+    return SwinTraining(model, opt, smoothing, batch_hook, mesh)
 
 
 def throughput(model, cfg, device, warmup: int = 50, iters: int = 30
@@ -186,12 +194,16 @@ def main(argv=None) -> dict:
     from mvuld_tpu_torch.core.logger import create_logger
     from mvuld_tpu_torch.core.train_state import image_inputs
     from mvuld_tpu_torch.data.loader import steps_per_epoch
+    from mvuld_tpu_torch.parallel.distributed import local_device
+    from mvuld_tpu_torch.parallel.mesh import mesh_from_cfg, primary_first
     from mvuld_tpu_torch.train.harness import fit, run_eval
     from mvuld_tpu_torch.train.predict import resolve_device
 
     cfg = get_config(args)
-    logger = create_logger(cfg.OUTPUT)
     device = resolve_device(args.device)
+    mesh = mesh_from_cfg(cfg, device)
+    device = local_device(device)
+    logger = create_logger(cfg.OUTPUT if mesh.is_primary else "", mesh.rank)
 
     # ---- throughput mode (reference: main.py:438-455)
     if args.throughput or cfg.THROUGHPUT_MODE:
@@ -212,17 +224,19 @@ def main(argv=None) -> dict:
         import pandas as pd
         df = pd.read_pickle(args.data)
     cache_root = args.cache_dir or os.path.join(cfg.OUTPUT, "cache")
-    datasets = build_image_datasets(cfg, df, os.path.join(cache_root, "imgs"),
-                                    os.path.join(cache_root, "pos"), logger)
+    with primary_first(mesh):
+        datasets = build_image_datasets(
+            cfg, df, os.path.join(cache_root, "imgs"),
+            os.path.join(cache_root, "pos"), logger)
     logger.info(f"dataset sizes: { {k: len(v) for k, v in datasets.items()} }")
 
     spe = max(steps_per_epoch(len(datasets["train"]), cfg.DATA.BATCH_SIZE), 1)
-    run = build_swin_training(cfg, device, spe, args.pretrained)
+    run = build_swin_training(cfg, device, spe, args.pretrained, mesh=mesh)
     if args.pretrained:
         logger.info(f"converted pretrained weights from {args.pretrained}")
     if args.test or cfg.EVAL_MODE:
         metrics = run_eval(run.model, datasets["test"], cfg.DATA.BATCH_SIZE,
-                           device, inputs=image_inputs)
+                           device, inputs=image_inputs, mesh=mesh)
         logger.info(f"TEST(only) {metrics}")
         return {"test_metrics": metrics}
     result = fit(cfg=cfg, model=run.model, opt=run.opt,
@@ -230,7 +244,8 @@ def main(argv=None) -> dict:
                  val_ds=datasets.get("val", datasets["train"]), device=device,
                  test_ds=datasets.get("test"), output_dir=cfg.OUTPUT,
                  logger=logger, batch_hook=run.batch_hook, patience=10,
-                 label_smoothing=run.label_smoothing, inputs=image_inputs)
+                 label_smoothing=run.label_smoothing, inputs=image_inputs,
+                 mesh=mesh)
     result["model"] = run.model       # the best-F1 state, as ``fit`` left it
     return result
 

@@ -74,8 +74,15 @@ for name in ("utils.oom", "utils.torch_convert", "models.fusion_convert",
              "models.swin_v1", "models.moe", "models.swin_variants",
              "data.zip_folder", "tools.convert_checkpoint",
              "tools.joern_json", "tools.make_images", "tools.results_table",
-             "tools.traceparse", "tools.hardprobe", "tools.fontbench"):
+             "tools.traceparse", "tools.hardprobe", "tools.fontbench",
+             "parallel", "parallel.collectives", "parallel.distributed",
+             "parallel.mesh", "parallel.pipeline"):
     __import__("mvuld_tpu_torch." + name)
+from mvuld_tpu_torch.models.unixcoder import (UniXcoderLM,
+                                              beam_search_generate)
+from mvuld_tpu_torch.models.moe import expert_parallel
+from mvuld_tpu_torch.ops.window_attention import (
+    window_attention_flat_sharded)
 for m in pkgutil.walk_packages(mvuld_tpu_torch.__path__, "mvuld_tpu_torch."):
     __import__(m.name)
 bad = [m for m in sys.modules if m == "mvuld_tpu" or m.startswith("mvuld_tpu.")]
@@ -108,7 +115,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 PHASES = ("serve_phase", "train_phase", "swin_phase", "blockbench_phase",
           "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
-          "baselines_phase", "swin_family_phase", "tools_phase")
+          "baselines_phase", "swin_family_phase", "causal_phase",
+          "parallel_phase", "tools_phase")
 
 
 @pytest.mark.parametrize("phase", PHASES)

@@ -232,11 +232,13 @@ def test_train_text_cli_matches_jax(tmp_path, monkeypatch):
 
 
 def test_train_text_pipeline_parallel_raises(tmp_path):
+    """PARALLEL.PP trains the pipelined encoder (test_torch_parallel.py);
+    a stack that does not split into the stages raises, as in JAX."""
     from mvuld_tpu_torch.train.train_text import main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="2 layers must divide into 3"):
         main(["--synthetic", "24", "--batch-size", "8", "--output",
               str(tmp_path), "--device", "cpu", "--opts", *TEXT,
-              "PARALLEL.PP", "2"])
+              "PARALLEL.PP", "3", "PARALLEL.PP_MICROBATCHES", "2"])
 
 
 def test_pretrained_encoder_loads_hf_names(tmp_path):
