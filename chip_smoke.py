@@ -48,35 +48,45 @@ Phases, in order; any failure exits non-zero:
      plain layers against the plain layers in fp32 at batch 16, and v1
      against v2;
      a profile of one step of each generation;
-  6. the block microbenchmark (``tools/blockbench.py``): its five variants
+  6. TRAIN.FUSED_STEPS as a CUDA graph (``make_multi_train_step``) on the
+     same fine-tune, K 8 at batch 64: 8 replayed steps against 8 eager
+     steps from one saved state (losses, the update, the DropPath masks),
+     the capture's seconds, ms/step eager and by replay, images/s, peak
+     memory, a profile of one replay beside one eager step;
+     ``train_swin.main --opts TRAIN.FUSED_STEPS 4`` in a world-1 NCCL
+     group (the Prefetcher, BEST_FETCH async, a remainder of single steps)
+     against the unfused run; a capture with dropout in the checkpointed
+     stage at reduced depth; the kernels counted as captured launches ×
+     replays;
+  7. the block microbenchmark (``tools/blockbench.py``): its five variants
      of the stage-3 MLP half, fwd_bwd at batch 64, one JSON line each, the
      K6/K6b launches counted in v3's run;
-  7. the op entry points: ``window_attention_map`` and ``window_attention``
+  8. the op entry points: ``window_attention_map`` and ``window_attention``
      forward and backward through autograd at stage-1 (shifted) and stage-3
      full width, K7/K7b/K8/K8b launches counted, the map and head layouts
      held against each other on the same numbers re-laid and both against
      ``flat_attention`` (K1/K2); a profile of one K7, one K8b and one K7b
      launch;
-  8. the staged path at full width from seeded arrays: a warm-up and three
+  9. the staged path at full width from seeded arrays: a warm-up and three
      AdamW steps of the text classifier (``build_text_training``,
      UniXcoder-base, batch 16 × 512 tokens), the trained encoder and
      SwinV2-Base-448 as frozen featurizers filling the fusion cache columns
      (``encode_cache_columns``), and ``train_fusion.main`` on those caches
      with the splits resident on the card;
-  9. the fusion zoo on those caches at production width: each of the 23
+  10. the fusion zoo on those caches at production width: each of the 23
      keys of ``FUSION_MODELS`` at batch 32, one train-mode step (dropout
      0) on the card against the same weights on the CPU in fp32 (logits,
      loss, gradients, BatchNorm statistics), the time of a train step
      (dropout on, AdamW) and of an eval forward; ``train_fusion.main
      --arch`` for four keys; each bilinear operator's forward and backward
      on the card against the CPU;
-  10. the OCR subsystem: EAST one train-mode step at batch 8 × 256² on the
+  11. the OCR subsystem: EAST one train-mode step at batch 8 × 256² on the
      card against the CPU (fp64 and fp32), ``train_east.main`` for three
      epochs on a seeded canvas cache (timed step, images/s, peak memory),
      oracle score/geo maps decoded through the native NMS (every box back
      within 1 px), the eval forward at the four ``pad_to`` 256 input
      shapes, the host decode and one ``detect_array`` call timed;
-  11. the baseline detectors: GloVe and SGNS at V 20000, dim 100 from
+  12. the baseline detectors: GloVe and SGNS at V 20000, dim 100 from
      seeded arrays (ms per epoch, card vs CPU in fp64 and fp32); Devign,
      ReVeal (GGNNSum, SMOTE, metric learner) and IVDetect at the JAX
      modules' widths, 100 nodes, batch 16, on features the port's
@@ -84,20 +94,20 @@ Phases, in order; any failure exits non-zero:
      card vs CPU in fp64, the three trainers' epochs, timed and profiled
      steps, the TreeLSTM's share; the trained checkpoints served through
      ``eval_patches``;
-  12. the Swin family through ``build_model``: SwinV1-B, Swin-MLP-B (224²),
+  13. the Swin family through ``build_model``: SwinV1-B, Swin-MLP-B (224²),
      Swin-MoE-S (192², 8 experts on the card) and SwinV2-B 448 (through
      K1, K2, K3, K3b, counted) at the published widths, a warm-up and five
      AdamW steps at batch 64 each (ms/step, images/s, peak memory, the
      MoE's dropped share, a profiled step); each type card against CPU on
      one train-mode step at depths 2-2-2-2, fp64 and fp32 (the MoE's
      routings compared first);
-  13. the causal text model (``UniXcoderLM`` at UniXcoder-base width,
+  14. the causal text model (``UniXcoderLM`` at UniXcoder-base width,
      bf16): logits of 8 × 512 seeded tokens through K4 (counted) against
      the plain layers by the bf16 bound, card vs CPU in fp64 at 2 layers,
      ``beam_search_generate`` at beam 5 to 64 tokens over four seeded
      prefixes (fp32: kernel and plain ids identical; bf16: agreement
      printed), ms per generated token;
-  14. the parallel layer: a world-1 NCCL group through ``train_e2e.main``'s
+  15. the parallel layer: a world-1 NCCL group through ``train_e2e.main``'s
      data-parallel path (one batch-16 step, kernels counted); the pipelined
      ``train_text`` classifier (PARALLEL.PP 2 × 4 microbatches, both stages
      on the card, K4/K4b counted) against the sequential one; then two
@@ -108,12 +118,12 @@ Phases, in order; any failure exits non-zero:
      SwinV2-B 448 batch-64 step through it (K1/K2 counted per rank), a
      tensor-parallel SwinV2-B step at mp 2, Swin-MoE-S's 8 experts over
      the two ranks (routing compared first) — each against one rank;
-  15. the tools: ``convert_checkpoint swinv2`` 384/24 → 448/28 loaded as
+  16. the tools: ``convert_checkpoint swinv2`` 384/24 → 448/28 loaded as
      ``pipeline --swin-ckpt`` loads it (logits equal to the bit to
      ``load_pretrained_swinv2``'s on the card), ``traceparse`` over step
      4's exported trace against ``key_averages()``, ``joern_json`` on a
      node/edge pair, ``results_table`` over the staged and baselines runs;
-  16. print the kernels JSON line, the card line, and the result line last.
+  17. print the kernels JSON line, the card line, and the result line last.
 
 Needs no network and no package beyond torch and numpy: no JAX, PIL,
 yaml, pandas or tokenizers (``serve`` takes the featurised arrays; the
@@ -122,6 +132,7 @@ trainer starts from a prebuilt cache and tokenizer.json).
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -165,6 +176,16 @@ SWIN_K1_SHAPES = [(s, Bn * SWIN_BATCH // BATCH, *rest)
                   for s, Bn, *rest in K1_SHAPES]
 SWIN_K3_SHAPES = [(label, M * SWIN_BATCH // BATCH, C, n)
                   for label, M, C, n in K3_SHAPES]
+# the fused_steps phase: TRAIN.FUSED_STEPS K steps as one CUDA graph
+FUSED_K = 8              # bench.py's steps per dispatch
+FUSED_REPLAYS = 3        # timed replays (their median)
+FUSED_LOSS_TOL = 1e-6    # the K losses, replay against eager, fp32 relative
+FUSED_UPDATE_TOL = 1e-5  # the update p_K − p_0, replay against eager, rel L2
+FUSED_CLI_K = 4          # train_swin --opts TRAIN.FUSED_STEPS 4
+FUSED_CLI_BATCH = 16
+FUSED_CLI_SPLITS = (6 * FUSED_CLI_BATCH, 32, 32)   # 6 batches: 4 + 2 single
+FUSED_DROP_K = 4         # the dropout capture (reduced depth)
+FUSED_DROP_DEPTHS = [2, 2, 2, 2]
 SCORE_BYTES = 2 ** 32    # a plain attention version's fp32 scores per chunk
 KEEP = 0.9              # RoBERTa dropout 0.1: K4/K4b's keep probability
 TRAIN_STEPS = 3          # timed steps per path, after one warm-up step
@@ -437,16 +458,17 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def by_windows(fn, Bn, nW, H, N, n_summed=0):
+def by_windows(fn, Bn, nW, H, N, n_summed=0, budget=None):
     """``fn(w)`` over slices ``w`` of whole images' windows (the shift mask
     repeats per image), each slice's fp32 [windows, H, N, N] scores within
-    SCORE_BYTES: the plain attention versions hold several such tensors at
-    once, more than the card holds at the fine-tune's stage 1. The outputs
-    are joined along windows; the last ``n_summed`` (dbias and dscale, sums
-    over windows) are added."""
+    ``budget`` (SCORE_BYTES by default): the plain attention versions hold
+    several such tensors at once, more than the card holds at the
+    fine-tune's stage 1. The outputs are joined along windows; the last
+    ``n_summed`` (dbias and dscale, sums over windows) are added."""
     import torch
 
-    step = max(nW, SCORE_BYTES // (H * N * N * 4) // nW * nW)
+    budget = budget or SCORE_BYTES
+    step = max(nW, budget // (H * N * N * 4) // nW * nW)
     parts = [fn(slice(i, i + step)) for i in range(0, Bn, step)]
     k = len(parts[0]) - n_summed
     return (tuple(torch.cat([p[j] for p in parts]) for j in range(k))
@@ -1671,6 +1693,298 @@ def swin_phase(dev, counters):
     del g1, g2, gp, gr
     torch.cuda.empty_cache()
     return total
+
+
+def _graph_state(run, gen):
+    """The training state a replay reads: parameters, the optimizer's
+    moments and counters, the step generator."""
+    opt = run.opt
+    return ([p.detach().clone() for p in opt.params],
+            [t.clone() for t in opt.mu + opt.nu + opt.acc],
+            (opt.count_t.clone(), opt.mini_step_t.clone()), gen.get_state())
+
+
+def _graph_restore(run, gen, state):
+    import torch
+    params, moments, (count, mini), rng = state
+    opt = run.opt
+    with torch.no_grad():
+        for t, v in zip(opt.params + opt.mu + opt.nu + opt.acc,
+                        params + moments):
+            t.copy_(v)
+    opt.count_t.copy_(count)
+    opt.mini_step_t.copy_(mini)
+    gen.set_state(rng)
+
+
+def _graph_vs_eager(label, run, sb, gen, k, dev):
+    """The first call of ``run.multi_step(k)`` on ``sb`` (K eager warm-up
+    steps, then the capture); from the state it leaves, K eager
+    ``train_step``s on the same batches against one replay: the K losses
+    within FUSED_LOSS_TOL, the update p_K − p_0 within FUSED_UPDATE_TOL
+    (relative L2 of the difference over the eager update), the DropPath
+    masks to the bit. Returns (the multi-step, the device batches, eager
+    s/step, first call's s)."""
+    import torch
+
+    from mvuld_tpu_torch.models import swin_v2
+
+    drawn = []
+    inner = swin_v2.keep_mask
+
+    def keep(*a):
+        drawn.append(inner(*a))
+        return drawn[-1]
+
+    multi = run.multi_step(k)
+    swin_v2.keep_mask = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(sb, gen)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        start = _graph_state(run, gen)
+        n = len(drawn)
+        batches = [{key: torch.as_tensor(v[i], device=dev)
+                    for key, v in sb.items()} for i in range(k)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = [run.step(b, gen) for b in batches]
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / k
+        eager_masks = drawn[n:]
+        p_eager = [p.detach().clone() for p in run.opt.params]
+        _graph_restore(run, gen, start)
+        got = multi(sb, gen)
+        torch.cuda.synchronize()
+    finally:
+        swin_v2.keep_mask = inner
+    le = torch.stack([m["loss"] for m in eager]).double()
+    lg = got["loss"].double()
+    loss_rel = float(((lg - le).abs() / le.abs()).max())
+    num = sum(float((p.detach().double() - e.double()).norm() ** 2)
+              for p, e in zip(run.opt.params, p_eager)) ** 0.5
+    den = sum(float((e.double() - s.double()).norm() ** 2)
+              for e, s in zip(p_eager, start[0])) ** 0.5
+    captured = drawn[n // 2:n]
+    masks = (len(captured) == len(eager_masks) > 0
+             and all(torch.equal(a, b) for a, b in zip(captured,
+                                                       eager_masks)))
+    print(f"fused_steps {label}: {k} replayed steps against {k} eager from "
+          f"one state: losses {[round(float(x), 5) for x in lg]}, max rel "
+          f"{loss_rel:.3e} (tol {FUSED_LOSS_TOL}); update rel L2 "
+          f"{num / max(den, 1e-30):.3e} (tol {FUSED_UPDATE_TOL}, |update| "
+          f"{den:.4e}); DropPath masks {len(eager_masks)} equal to the bit: "
+          f"{masks}; capture {multi.capture_s:.2f} s [{card_line()}]",
+          flush=True)
+    if not (math.isfinite(loss_rel) and loss_rel <= FUSED_LOSS_TOL
+            and den > 0 and num <= FUSED_UPDATE_TOL * den and masks):
+        raise AssertionError(f"fused_steps {label}: replay differs from the "
+                             f"eager steps")
+    return multi, batches, eager_s, first_s
+
+
+def fused_steps_phase(dev, counters):
+    """TRAIN.FUSED_STEPS as a CUDA graph (``make_multi_train_step``) on the
+    SwinV2 fine-tune at full width (SWIN_OPTS: bf16, the fused MLP, stage 2
+    checkpointed, DropPath 0.2), batch SWIN_BATCH: (a) FUSED_K replayed
+    steps against FUSED_K eager ``train_step``s from one saved state; (b)
+    the capture's seconds, ms/step eager and by replay (median of
+    FUSED_REPLAYS replays, the superbatch on the card), images/s, peak
+    memory; (c) a profile of one replay beside one eager step; (d)
+    ``train_swin.main --opts TRAIN.FUSED_STEPS FUSED_CLI_K`` (Prefetcher,
+    BEST_FETCH async) in a world-1 NCCL group (the gradients' all-reduce
+    captured) on a seeded image corpus whose 6 batches leave a remainder,
+    its history.json against the unfused run's; (e) a capture
+    at MODEL.DROP_RATE 0.1 and depths FUSED_DROP_DEPTHS (the checkpointed
+    stage's masks replayed from its tape). Returns the launches: the
+    counted ones, each capture's launches counted × its replays."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.train_state import MultiTrainStep
+    from mvuld_tpu_torch.parallel.distributed import backend_for, free_port
+    from mvuld_tpu_torch.data.loader import ArrayDataset
+    from mvuld_tpu_torch.train import train_swin
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+
+    def config(batch, extra=()):
+        return get_config(SimpleNamespace(
+            cfg=None, opts=SWIN_OPTS + ["DATA.BATCH_SIZE", batch, *extra],
+            output=tempfile.gettempdir()))
+
+    captures, extra = [], dict.fromkeys(_counts(counters), 0)
+    record = MultiTrainStep.record
+
+    def counted_record(self, gen, data):
+        before = _counts(counters)
+        graph = record(self, gen, data)
+        after = _counts(counters)
+        captures.append((self, {k: after[k] - before[k] for k in after}))
+        return graph
+
+    def settle():
+        """Count the finished graphs' launches (a capture launched nothing,
+        each replay all) and drop them, with their private memory pools."""
+        for m, cap in captures:
+            for name, n in cap.items():
+                extra[name] += n * (m.replays - 1)
+        captures.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.time()
+    _reset(counters)
+    MultiTrainStep.record = counted_record
+    work = tempfile.mkdtemp(prefix="mvuld_fused_")
+    try:
+        K, B = FUSED_K, SWIN_BATCH
+        run = build_swin_training(config(B), dev, steps_per_epoch=4 * K)
+        S = run.model.config.img_size
+        rng = np.random.RandomState(11)
+        hosts = [run.batch_hook({"image": rng.randn(B, S, S, 3).astype(
+            np.float32), "label": (np.arange(B) % 2).astype(np.int32)}, 0, i)
+            for i in range(K)]
+        sb = {key: np.stack([h[key] for h in hosts]) for key in hosts[0]}
+        del hosts
+        gen = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # (a)
+        multi, batches, eager_s, first_s = _graph_vs_eager(
+            f"SwinV2-B 448 batch {B}", run, sb, gen, K, dev)
+        # (b) replays with the superbatch on the card
+        sb_dev = {key: torch.as_tensor(v, device=dev) for key, v in sb.items()}
+        times = []
+        for _ in range(FUSED_REPLAYS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            multi(sb_dev, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        replay_ms = statistics.median(times) / K * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"fused_steps times: batch {B}, {K} steps per call: first call "
+              f"{first_s:.2f} s ({K} eager warm-up steps and the capture, "
+              f"capture {multi.capture_s:.2f} s); eager {eager_s * 1e3:.1f} "
+              f"ms/step = {B / eager_s:.2f} images/s; replay "
+              f"{replay_ms:.1f} ms/step = {B / replay_ms * 1e3:.2f} images/s "
+              f"(replays {', '.join(f'{t * 1e3:.1f}' for t in times)} ms per "
+              f"{K} steps); peak memory {peak:.2f} GiB (eager and graph "
+              f"pools) [{card_line()}]", flush=True)
+        # (c)
+        prof_graph = profile_run(f"fused_steps replay ({K} steps, batch {B})",
+                                 lambda: multi(sb_dev, gen))
+        prof_eager = profile_run(f"fused_steps eager step (batch {B})",
+                                 lambda: run.step(batches[0], gen))
+        g_idle = 1 - prof_graph["busy_ms"] / prof_graph["wall_ms"]
+        e_idle = 1 - prof_eager["busy_ms"] / prof_eager["wall_ms"]
+        print(f"fused_steps profile: replay wall {prof_graph['wall_ms']:.1f} "
+              f"ms per {K} steps, busy {prof_graph['busy_ms']:.1f}, idle "
+              f"share {max(g_idle, 0.0):.3f}; eager step wall "
+              f"{prof_eager['wall_ms']:.1f} ms, busy "
+              f"{prof_eager['busy_ms']:.1f}, idle share "
+              f"{max(e_idle, 0.0):.3f} [{card_line()}]", flush=True)
+        del multi, batches, sb_dev, run
+        settle()
+
+        # (e) dropout in the checkpointed stage, reduced depth
+        k = FUSED_DROP_K
+        drun = build_swin_training(config(B, ["MODEL.SWINV2.DEPTHS",
+                                              FUSED_DROP_DEPTHS,
+                                              "MODEL.DROP_RATE", 0.1]),
+                                   dev, steps_per_epoch=4 * k)
+        dsb = {key: v[:k] for key, v in sb.items()}
+        _graph_vs_eager(f"MODEL.DROP_RATE 0.1 depths {FUSED_DROP_DEPTHS}",
+                        drun, dsb, torch.Generator(device=dev).manual_seed(2),
+                        k, dev)
+        del drun, dsb, sb
+        settle()
+
+        # (d) the trainer CLI, fused and unfused, on seeded images
+        def split(n, seed):
+            rs = np.random.RandomState(seed)
+            return ArrayDataset({
+                "image": rs.randn(n, S, S, 3).astype(np.float32),
+                "label": (np.arange(n) % 2).astype(np.int32)})
+
+        data = dict(zip(("train", "val", "test"),
+                        (split(n, 20 + i)
+                         for i, n in enumerate(FUSED_CLI_SPLITS))))
+        corpus = train_swin.corpus_datasets
+        train_swin.corpus_datasets = lambda *a: data
+        hist = {}
+        backend = backend_for(dev)
+        try:
+            for k in (FUSED_CLI_K, 1):
+                out = os.path.join(work, f"fused{k}")
+                t0 = time.time()
+                if k > 1:   # the fused run's step all-reduces in the graph
+                    dist.init_process_group(
+                        backend, init_method=f"tcp://127.0.0.1:"
+                        f"{free_port()}", world_size=1, rank=0,
+                        device_id=dev if backend == "nccl" else None)
+                try:
+                    res = train_swin.main([
+                        "--output", out, "--device", dev.type, "--opts",
+                        *_opts_args(SWIN_OPTS + [
+                            "DATA.BATCH_SIZE", FUSED_CLI_BATCH,
+                            "TRAIN.FUSED_STEPS", k, "TRAIN.EPOCHS", 2,
+                            "TRAIN.BEST_FETCH", "async",
+                            "TRAIN.BEST_SAVE", "params", "PRINT_FREQ", 1,
+                            "SAVE_FREQ", 0])])
+                    torch.cuda.synchronize()
+                finally:
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                path = [os.path.join(d, "history.json")
+                        for d, _, files in os.walk(out)
+                        if "history.json" in files]
+                with open(path[0]) as f:
+                    hist[k] = json.load(f)
+                best = [d for d, _, files in os.walk(out)
+                        if d.endswith("checkpoint-best-f1") and files]
+                print(f"fused_steps cli TRAIN.FUSED_STEPS {k}"
+                      f"{f' (a world-1 {backend} group)' if k > 1 else ''}: "
+                      f"{FUSED_CLI_SPLITS} images, batch {FUSED_CLI_BATCH}, "
+                      f"2 epochs in {time.time() - t0:.1f} s, best f1 "
+                      f"{res['best_f1']:.4f} @ {res['best_epoch']}, "
+                      f"best checkpoints {len(best)}", flush=True)
+                del res
+                torch.cuda.empty_cache()
+        finally:
+            train_swin.corpus_datasets = corpus
+        shape = lambda h: ([sorted(e) for e in h["history"]],  # noqa: E731
+                           sorted(h), sorted(h["test_metrics"] or {}))
+        replays = [m.replays for m, _ in captures]
+        got = hist[FUSED_CLI_K]
+        print(f"fused_steps cli: history.json keys {shape(got)[1]}, "
+              f"{len(got['history'])} epochs, equal in shape to the unfused "
+              f"run's: {shape(got) == shape(hist[1])}; the fused run's "
+              f"graph replays {replays}", flush=True)
+        if (shape(hist[FUSED_CLI_K]) != shape(hist[1])
+                or not replays or replays[0] < 1):
+            raise AssertionError("fused_steps cli: the fused run's history "
+                                 "differs in shape or no graph replayed")
+        settle()
+    finally:
+        MultiTrainStep.record = record
+        shutil.rmtree(work, ignore_errors=True)
+    counts = _counts(counters)
+    for name, n in extra.items():
+        counts[name] += n
+    print(f"fused_steps launches (replays × captured, plus the eager "
+          f"steps): { {k: v for k, v in counts.items() if v} }; phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    need = ("window_attention_flat", "window_attention_flat_bwd", "mlp_ln",
+            "mlp_ln_bwd")
+    if not all(counts[name] for name in need):
+        raise AssertionError(f"fused_steps: a kernel of the path never ran: "
+                             f"{counts}")
+    return counts
 
 
 def blockbench_phase(dev, counters):
@@ -3190,10 +3504,44 @@ def _dp_e2e(rank, dev, counters):
     return out
 
 
+def _sp_plain(H, N, nW):
+    """The sharded attention's plain version: K1 and K2 replaced by their
+    plain versions over slices of whole images' windows (``by_windows``),
+    the gathers and sums as they are; a quarter of SCORE_BYTES per slice,
+    as two ranks share the card. A context: the module's names are
+    restored on exit."""
+    import contextlib
+
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    def fwd(q, b, s, shift, nWh, nWw, return_rowsum=False, mxu_bf16=False):
+        return by_windows(lambda w: wa.window_attention_flat_plain(
+            q[w], b, s, shift, nWh, nWw, return_rowsum=True),
+            q.shape[0], nW, H, N, budget=SCORE_BYTES // 4)
+
+    def bwd(q, b, s, o, r, g, shift, nWh, nWw, mxu_bf16=False):
+        return by_windows(lambda w: wa.window_attention_flat_bwd_plain(
+            q[w], b, s, o[w], r[w], g[w], shift, nWh, nWw),
+            q.shape[0], nW, H, N, 2, budget=SCORE_BYTES // 4)
+
+    @contextlib.contextmanager
+    def patched():
+        kept = wa.window_attention_flat, wa.window_attention_flat_bwd
+        wa.window_attention_flat, wa.window_attention_flat_bwd = fwd, bwd
+        try:
+            yield
+        finally:
+            wa.window_attention_flat, wa.window_attention_flat_bwd = kept
+
+    return patched()
+
+
 def _sp_attention(rank, dev, group):
     """The sharded flat attention (K1 forward, K2 backward per block) at
     the fine-tune's batch-64 shapes against the unsharded one on the same
-    inputs, and both timed (forward + backward)."""
+    inputs, and both timed (forward + backward), beside the sharded op's
+    plain version (K1/K2's plain versions) and its bound: K1's and K2's
+    bounds (§6's rule) on this rank's half of the windows."""
     import torch
 
     from mvuld_tpu_torch.ops.window_attention import (
@@ -3220,8 +3568,20 @@ def _sp_attention(rank, dev, group):
         want, got = run(False), run(True)
         errs = ([rel_err(got[i], want[i]) for i in (0, 1)]
                 + [rel_l2(got[i], want[i]) for i in (2, 3)])
+        with _sp_plain(H, N, nWh * nWh):
+            plain_ms = time_ms(lambda: run(True), 1)
+        torch.cuda.empty_cache()        # the plain versions' score blocks
+        n, hd = Bn // 2, C // H            # this rank's windows
+        exps = n * H * N * N / SFU_EXP_S
+        k1 = max(4 * n * H * N * N * hd / BF16_TC_FLOP_S, exps,
+                 (n * N * 3 * C * 2 + H * N * N * 4 + n * N * C * 2)
+                 / HBM_BYTES_S)
+        k2 = max(10 * n * H * N * N * hd / BF16_TC_FLOP_S, exps,
+                 (2 * n * N * 3 * C * 2 + 2 * n * N * C * 2 + n * H * N * 4
+                  + 2 * H * N * N * 4) / HBM_BYTES_S)
+        bound_ms = (k1 + k2) * 1e3
         rows.append((stage, shift, Bn, errs, time_ms(lambda: run(True), 3),
-                     time_ms(lambda: run(False), 3)))
+                     time_ms(lambda: run(False), 3), plain_ms, bound_ms))
     return rows
 
 
@@ -3548,7 +3908,7 @@ def parallel_phase(dev, counters):
     if abs(dp["loss"][0] - dp["loss"][1]) > PAR_TOL * abs(dp["loss"][1]) \
             or dp["grad"][0] > PAR_TOL or dp["stats"][0] > PAR_TOL:
         bad.append("dp")
-    for stage, shift, Bn, errs, ms, ms1 in r0["sp_ops"]:
+    for stage, shift, Bn, errs, ms, ms1, plain, bound in r0["sp_ops"]:
         tol = 2.0 ** -6
         ok = errs[0] <= tol and errs[1] <= tol and max(errs[2:]) <= SP_TOL
         print(f"parallel: sharded flat attention stage {stage} shift {shift} "
@@ -3556,7 +3916,8 @@ def parallel_phase(dev, counters):
               f"{errs[1]:.2e} (tol {tol:.1e} of the max), dbias "
               f"{errs[2]:.2e}, dscale {errs[3]:.2e} (rel L2, tol "
               f"{SP_TOL:.0e}); fwd+bwd {ms:.3f} ms per rank at world 2 "
-              f"(unsharded {ms1:.3f} ms)", flush=True)
+              f"(unsharded {ms1:.3f} ms; plain version {plain:.3f} ms; bound "
+              f"{bound:.4f} ms: K1 + K2 on {Bn // 2} windows)", flush=True)
         if not ok:
             bad.append(f"sp stage {stage}")
     spm = r0["sp_model"]
@@ -3896,6 +4257,7 @@ def main() -> int:
         for phase in (lambda: serve_phase(dev),
                       lambda: train_phase(dev, e2e, work),
                       lambda: swin_phase(dev, counters),
+                      lambda: fused_steps_phase(dev, counters),
                       lambda: blockbench_phase(dev, counters),
                       lambda: ops_phase(dev, layouts),
                       lambda: swin_family_phase(dev, e2e),

@@ -20,6 +20,14 @@ optax's arithmetic, written out over lists of tensors and updated in place:
 The decay decision is taken on the JAX name of each parameter
 (``models/convert.py`` ``torch_to_jax_names``): torch names such as
 ``...norm.weight`` would decide differently.
+
+The step state lives on the device, so that a CUDA graph of the update
+(``core/train_state.make_multi_train_step``) replays it: the inner step
+count and the micro-step are device integers, the learning rate is read
+from the schedule's fp32 table (``core/schedule.lr_table``) at the clamped
+count, the bias corrections are ``torch.pow`` of fp32 betas on the count
+(optax's fp32 arithmetic), and MultiSteps' "emit every k-th call" is a
+device-side select. The eager step runs the same code.
 """
 
 from __future__ import annotations
@@ -66,8 +74,10 @@ class Optimizer:
     """optax.chain(clip_by_global_norm, adamw | sgd) [inside MultiSteps]
     over ``params`` (a list of (name, parameter)); ``clip=None`` leaves the
     clip out (``train_east``'s optax.adam). ``update(grads)``
-    changes the parameters in place; ``count`` is optax's step count of the
-    inner optimizer (the schedule's argument). ``norm`` computes the
+    changes the parameters in place; ``count_t`` is optax's step count of
+    the inner optimizer (the schedule's argument) and ``mini_step_t``
+    MultiSteps' micro-step, both device int64 scalars (``count`` and
+    ``mini_step`` read them on the host). ``norm`` computes the
     global norm that the clip reads (``parallel.mesh.tp_global_norm``
     under tensor parallelism)."""
 
@@ -76,6 +86,8 @@ class Optimizer:
                  name: str = "adamw", betas=(0.9, 0.999), eps: float = 1e-8,
                  momentum: float = 0.9, weight_decay: float = 0.0,
                  clip: Optional[float] = 5.0, accumulation_steps: int = 1):
+        from mvuld_tpu_torch.core.schedule import lr_table
+
         if name not in ("adamw", "sgd"):
             raise ValueError(f"Unknown optimizer {name!r}")
         self.names = [n for n, _ in params]
@@ -86,61 +98,116 @@ class Optimizer:
         self.eps, self.momentum = eps, momentum
         self.weight_decay, self.clip = weight_decay, clip
         self.k = accumulation_steps
-        self.count = 0
-        self.mini_step = 0
         self.norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = \
             global_norm
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mu = zeros()
         self.nu = zeros() if name == "adamw" else []
         self.acc = zeros() if self.k > 1 else []
+        dev = self.params[0].device
+        self.lrs = lr_table(schedule).to(dev)
+        self.betas_t = torch.tensor(betas, dtype=torch.float32, device=dev)
+        self.count_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.mini_step_t = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @property
+    def count(self) -> int:
+        return int(self.count_t)         # syncs
+
+    @property
+    def mini_step(self) -> int:
+        return int(self.mini_step_t)     # syncs
+
+    def _follow_params(self) -> None:
+        """The step state on the parameters' device (a model moved after
+        the optimizer was built); before any capture, at the first step."""
+        dev = self.params[0].device
+        if self.count_t.device != dev:
+            for key in ("lrs", "betas_t", "count_t", "mini_step_t"):
+                setattr(self, key, getattr(self, key).to(dev))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
+        self._follow_params()
         grads = [g.float() for g in grads]
+        emit = None                 # MultiSteps: True on every k-th call
         if self.k > 1:
-            n = self.mini_step
+            n1 = self.mini_step_t + 1
+            inv = 1.0 / n1.float()
             for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            self.mini_step = (n + 1) % self.k
-            if self.mini_step != 0:
-                return
-            grads = [a.clone() for a in self.acc]
-            for a in self.acc:
-                a.zero_()
+                a.add_((g - a) * inv)
+            emit = n1 == self.k
+            self.mini_step_t.copy_(torch.where(emit, 0, n1))
+            grads = self.acc
         if self.clip is not None:
             grads = clip_by_global_norm(grads, self.clip, self.norm(grads))
-        lr = self.schedule(self.count)
-        self.count += 1
+        lr = torch.take(self.lrs, self.count_t.clamp(max=len(self.lrs) - 1))
+        self.count_t.add_(1 if emit is None else emit.long())
+        count = self.count_t.float()
+        scal = _Scalars(-lr, count, self.betas_t)
+
+        def moment(t, decay, x):
+            """decay·t + x (optax's order), in place unless gated."""
+            return (t.mul_(decay).add_(x) if emit is None
+                    else t.mul(decay).add_(x))
+
+        def step(p, upd, *moments):
+            """p += upd; under MultiSteps, p and the moments (tensor, new
+            value) change only on an emitting call."""
+            if emit is None:
+                p.add_(upd)
+                return
+            for dst, new in ((p, p + upd),) + moments:
+                dst.copy_(torch.where(emit, new, dst))
+
         wd = self.weight_decay
         if self.name == "adamw":
-            c1 = 1 - self.b1 ** self.count
-            c2 = 1 - self.b2 ** self.count
             for p, g, m, v, dec in zip(self.params, grads, self.mu, self.nu,
                                        self.decay):
-                m.mul_(self.b1).add_(g, alpha=1 - self.b1)
-                v.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-                u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+                neg_lr, c1, c2 = scal.on(p.device)
+                m_new = moment(m, self.b1, g * (1 - self.b1))
+                v_new = moment(v, self.b2, g * g * (1 - self.b2))
+                u = (m_new / c1) / (torch.sqrt(v_new / c2) + self.eps)
                 if dec:
                     u = u + wd * p
-                p.add_(u, alpha=-lr)
+                step(p, u * neg_lr, (m, m_new), (v, v_new))
         else:
             mu = self.momentum
             for p, g, t, dec in zip(self.params, grads, self.mu, self.decay):
+                neg_lr = scal.on(p.device)[0]
                 if dec:
                     g = g + wd * p
-                t.mul_(mu).add_(g)
-                p.add_(g + mu * t, alpha=-lr)
+                t_new = moment(t, mu, g)
+                step(p, (g + mu * t_new) * neg_lr, (t, t_new))
+        if emit is not None:
+            for a in self.acc:
+                a.masked_fill_(emit, 0.0)
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mini_step": self.mini_step,
                 "mu": self.mu, "nu": self.nu, "acc": self.acc}
 
     def load_state_dict(self, state: Dict) -> None:
-        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        self.count_t.fill_(int(state["count"]))
+        self.mini_step_t.fill_(int(state["mini_step"]))
         for key in ("mu", "nu", "acc"):
             for dst, src in zip(getattr(self, key), state[key]):
                 dst.copy_(src)
+
+
+class _Scalars:
+    """−lr and the bias corrections 1 − βᵗ of one update, copied once to
+    each device the parameters hold (a pipeline's stages)."""
+
+    def __init__(self, neg_lr, count, betas):
+        c = 1 - torch.pow(betas, count)
+        self._by_dev = {neg_lr.device: (neg_lr, c[0], c[1])}
+
+    def on(self, dev):
+        if dev not in self._by_dev:
+            first = next(iter(self._by_dev.values()))
+            self._by_dev[dev] = tuple(t.to(dev) for t in first)
+        return self._by_dev[dev]
 
 
 def build_optimizer(cfg, schedule: Callable[[int], float],

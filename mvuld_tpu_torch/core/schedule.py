@@ -7,13 +7,38 @@ over ``warmup_steps``, joined at ``warmup_steps`` (``join_schedules``: the
 second schedule sees ``step − warmup_steps``) to cosine, linear or
 staircase exponential decay; plus the linear LR scaling rule applied at
 startup (BASE_LR × batch/512, mvuld/main.py:486-493). A schedule is a
-function of the optimizer's step count returning a float.
+function of the optimizer's step count returning a float; its
+``total_steps`` attribute is the count from which it no longer changes
+(the staircase decay goes on stepping; training never counts past its
+total).
+
+``lr_table`` tabulates a schedule as fp32 rates, the optimizer's device
+copy (``core/optim.py``): one rate per count up to ``total_steps``, read at
+the clamped count on the device, so a CUDA graph replays the schedule
+(optax evaluates the schedule in fp32 too).
 """
 
 from __future__ import annotations
 
 import math
 from typing import Callable
+
+import torch
+
+TABLE_STEPS = 1 << 16     # counts tabulated of a schedule without a total
+
+
+def _total(fn: Callable, total_steps: int) -> Callable:
+    fn.total_steps = total_steps
+    return fn
+
+
+def lr_table(schedule: Callable[[int], float]) -> torch.Tensor:
+    """fp32 [n + 1]: ``schedule(count)`` for counts 0..n, n its
+    ``total_steps`` (TABLE_STEPS − 1 for a callable without one)."""
+    n = getattr(schedule, "total_steps", TABLE_STEPS - 1)
+    return torch.tensor([schedule(i) for i in range(max(n, 0) + 1)],
+                        dtype=torch.float32)
 
 
 def scale_lr(base_lr: float, global_batch: int, denom: int = 512) -> float:
@@ -44,15 +69,16 @@ def cosine_schedule(base_lr: float, warmup_lr: float, min_lr: float,
         decayed = (1 - alpha) * 0.5 * (1 + math.cos(math.pi * frac)) + alpha
         return base_lr * decayed
 
-    return _join(_linear(warmup_lr, base_lr, max(warmup_steps, 1)), cosine,
-                 warmup_steps)
+    return _total(_join(_linear(warmup_lr, base_lr, max(warmup_steps, 1)),
+                        cosine, warmup_steps), max(total_steps, warmup_steps + 1))
 
 
 def linear_schedule(base_lr: float, warmup_lr: float, min_lr: float,
                     warmup_steps: int, total_steps: int) -> Callable:
-    return _join(_linear(warmup_lr, base_lr, max(warmup_steps, 1)),
-                 _linear(base_lr, min_lr, max(total_steps - warmup_steps, 1)),
-                 warmup_steps)
+    return _total(_join(
+        _linear(warmup_lr, base_lr, max(warmup_steps, 1)),
+        _linear(base_lr, min_lr, max(total_steps - warmup_steps, 1)),
+        warmup_steps), max(total_steps, warmup_steps + 1))
 
 
 def step_schedule(base_lr: float, warmup_lr: float, min_lr: float,
@@ -63,8 +89,8 @@ def step_schedule(base_lr: float, warmup_lr: float, min_lr: float,
     def step(count: int) -> float:        # optax.exponential_decay, staircase
         return base_lr * decay_rate ** (count // every)
 
-    return _join(_linear(warmup_lr, base_lr, max(warmup_steps, 1)), step,
-                 warmup_steps)
+    return _total(_join(_linear(warmup_lr, base_lr, max(warmup_steps, 1)),
+                        step, warmup_steps), max(total_steps, warmup_steps + 1))
 
 
 SCHEDULERS = {"cosine": cosine_schedule, "linear": linear_schedule,

@@ -10,6 +10,9 @@ Two iteration modes mirror the reference:
   * train: shuffle, drop_last,
   * eval: sequential, last partial batch padded + a validity mask so metric
     code can drop padding (the reference gathers all logits and slices).
+
+``Prefetcher`` runs a batch iterator in a background thread (the trainer
+harness wraps every epoch's batches in one).
 """
 
 from __future__ import annotations
@@ -81,3 +84,44 @@ def eval_batches(ds: ArrayDataset, batch_size: int
 def steps_per_epoch(n: int, batch_size: int) -> int:
     return n // batch_size
 
+
+
+class Prefetcher:
+    """Background-thread prefetch over a batch iterator (the JAX package's
+    ``Prefetcher``; the reference's DataLoader(num_workers=8)): a producer
+    thread pulls from ``it``, applies ``place_fn`` and keeps up to
+    ``depth`` items queued, so host input work (decode, augmentation,
+    superbatch stacking) overlaps the device's steps. ``produced`` counts
+    the items made; an exception in the producer reaches the consumer."""
+
+    _SENTINEL = object()
+
+    def __init__(self, it, place_fn: Optional[Callable] = None,
+                 depth: int = 2):
+        import queue
+        import threading
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err = None
+        self.produced = 0
+
+        def run():
+            try:
+                for item in it:
+                    self._q.put(place_fn(item) if place_fn else item)
+                    self.produced += 1
+            except BaseException as e:   # noqa: BLE001 — to the consumer
+                self._err = e
+            finally:
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._SENTINEL:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item

@@ -6,19 +6,97 @@ or a zero rate leaves the tensor as it is. Masks are uniform draws below
 the keep probability, so two models that draw the same shapes in the same
 order from equally seeded generators drop the same elements (the kernel
 and plain paths of ``chip_smoke.py`` rely on it).
+
+Data parallelism: the JAX package draws a dp batch's masks from one key
+over the global batch. A generator made by ``rank_generator`` carries its
+dp rank and size (``dp_layout``); every draw through ``draw_rows`` then
+takes the shape of the global batch, (dp · rows, ...), from a generator
+seeded as rank 0's, and keeps this rank's rows [rank · rows, (rank + 1) ·
+rows). ``shard_batch`` gives a rank a contiguous block of every column's
+rows and the masks are batch-major (window rows included: windows are
+partitioned image by image), so the ranks' masks concatenated are one
+rank's mask.
+
+Activation checkpointing: a ``MaskTape`` stands in for the generator in a
+checkpointed stage. Its first run draws from the generator and records
+the masks; the recomputation replays them in order. Nothing rewinds a
+generator, so the stage runs inside a CUDA graph capture, where a
+generator's state can be neither cloned nor set.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+# id(generator) → (generator, dp size, dp rank); the entry keeps its
+# generator alive (one per dp trainer), so an id is never reused
+_DP_LAYOUT: Dict[int, Tuple[torch.Generator, int, int]] = {}
 
-def keep_mask(shape: Sequence[int], rate: float, gen: torch.Generator,
-              device) -> torch.Tensor:
+
+def rank_generator(device, seed: int, dp_size: int = 1, dp_rank: int = 0
+                   ) -> torch.Generator:
+    """The step generator of a dp rank: seeded ``seed`` on every rank, its
+    draws taken over the global batch (module docstring)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dp_size > 1:
+        _DP_LAYOUT[id(gen)] = (gen, dp_size, dp_rank)
+    return gen
+
+
+def dp_layout(gen) -> Tuple[int, int]:
+    """(dp size, dp rank) the generator draws for; (1, 0) for a plain one."""
+    if isinstance(gen, MaskTape):
+        gen = gen.gen
+    entry = _DP_LAYOUT.get(id(gen))
+    return entry[1:] if entry is not None and entry[0] is gen else (1, 0)
+
+
+def draw_rows(fn: Callable, shape: Sequence[int], gen: torch.Generator,
+              device, **kw) -> torch.Tensor:
+    """``fn(shape, generator=gen, device=device)`` (``torch.rand``,
+    ``torch.randn``), the rows of this dp rank cut from the global draw."""
+    size, rank = dp_layout(gen)
+    shape = tuple(shape)
+    if size == 1:
+        return fn(shape, generator=gen, device=device, **kw)
+    n = shape[0]
+    full = fn((size * n,) + shape[1:], generator=gen, device=device, **kw)
+    return full[rank * n:(rank + 1) * n]
+
+
+class MaskTape:
+    """The generator of a checkpointed stage: ``start()`` begins a run; the
+    first run draws its keep-masks from ``gen`` and records them, a later
+    run returns them in the same order."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self.masks: List[torch.Tensor] = []
+        self.runs = 0
+        self.pos: Optional[int] = None      # None: recording
+
+    def start(self) -> None:
+        self.pos = None if self.runs == 0 else 0
+        self.runs += 1
+
+    def keep_mask(self, shape, rate: float, device) -> torch.Tensor:
+        if self.pos is None:
+            mask = keep_mask(shape, rate, self.gen, device)
+            self.masks.append(mask)
+            return mask
+        mask = self.masks[self.pos]
+        self.pos += 1
+        return mask
+
+
+def keep_mask(shape: Sequence[int], rate: float, gen, device
+              ) -> torch.Tensor:
     """Boolean keep-mask: True with probability 1 − rate."""
-    return torch.rand(tuple(shape), generator=gen, device=device) < 1.0 - rate
+    if isinstance(gen, MaskTape):
+        return gen.keep_mask(shape, rate, device)
+    return draw_rows(torch.rand, shape, gen, device) < 1.0 - rate
 
 
 def apply_keep(x: torch.Tensor, mask: torch.Tensor, rate: float
@@ -28,8 +106,7 @@ def apply_keep(x: torch.Tensor, mask: torch.Tensor, rate: float
                                                           device=x.device))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     if gen is None or rate == 0.0:
         return x
     return apply_keep(x, keep_mask(x.shape, rate, gen, x.device), rate)

@@ -41,9 +41,10 @@ each rank's local cumsum (after the earlier passes' global counts). The
 [E, C, D] dispatch goes to the expert owners by one all-to-all (each slot
 holds one token of one rank, so the owner sums what it receives) and the
 owners' outputs come back by another; the aux loss's means are summed
-over the group. The gate noise is rank-folded: each rank draws the k
-ranks' blocks from ``gen`` and keeps its own, so the ranks' noise differs
-and their generators stay in step.
+over the group. The gate noise is the global tokens' draw: each rank
+draws the k ranks' rows from ``gen`` and keeps its own block (also under
+data parallelism, ``models/dropout.draw_rows``), so the ranks' noise
+differs and their generators stay in step.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvuld_tpu_torch.models.dropout import dropout
+from mvuld_tpu_torch.models.dropout import draw_rows, dropout
 from mvuld_tpu_torch.ops.fused_dense import gelu
 from mvuld_tpu_torch.parallel import collectives as cc
 
@@ -113,8 +114,10 @@ class MoEFFN(nn.Module):
 
         logits = tokens.to(acc) @ self.gate.to(acc)              # [T, E]
         if gen is not None and self.gate_noise > 0:
-            noise = torch.randn((nr,) + logits.shape, generator=gen,
-                                device=logits.device, dtype=acc)[me]
+            # the global tokens' noise (rank-major under expert or data
+            # parallelism), this rank's rows kept
+            noise = draw_rows(torch.randn, (nr * T, E), gen, logits.device,
+                              dtype=acc)[me * T:(me + 1) * T]
             logits = logits + noise * self.gate_noise / E
         probs = torch.softmax(logits, dim=-1)
 

@@ -16,8 +16,8 @@ output — on the kernel path the last is K4's {0,1} keep-mask of hidden's
 shape and dtype, drawn where the plain path draws its dropout mask.
 ``remat`` checkpoints each layer in training (``torch.utils.checkpoint``,
 the JAX ``RobertaEncoder(remat=True)``): a layer's activations are rebuilt
-in the backward pass, with the generator put back to where the layer began
-so that the rebuilt layer draws the same dropout masks. ``causal`` adds the
+in the backward pass, and the rebuilt layer replays the dropout masks
+its first run recorded (``models/dropout.MaskTape``). ``causal`` adds the
 decoder-only mode's lower-triangular bias (``UniXcoderLM``).
 """
 
@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvuld_tpu_torch.models.dropout import dropout, keep_mask
+from mvuld_tpu_torch.models.dropout import MaskTape, dropout, keep_mask
 from mvuld_tpu_torch.models.swin_v2 import acc_dtype, layer_norm, linear
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln_res
 
@@ -150,21 +150,14 @@ class TransformerLayer(nn.Module):
 def checkpointed_layer(layer: nn.Module, hidden: torch.Tensor,
                        attn_bias: torch.Tensor, gen) -> torch.Tensor:
     """``layer(hidden, attn_bias, gen)`` under activation checkpointing. The
-    recomputation rewinds ``gen`` to the layer's start, replays its draws and
-    then puts ``gen`` back where the backward pass found it."""
-    start = gen.get_state() if gen is not None else None
-    first = [True]
+    layer draws through a ``MaskTape``: the recomputation replays the first
+    run's masks, and ``gen`` advances once."""
+    tape = MaskTape(gen) if gen is not None else None
 
     def run(h, b):
-        if first[0] or gen is None:
-            first[0] = False
-            return layer(h, b, gen)
-        now = gen.get_state()
-        gen.set_state(start)
-        try:
-            return layer(h, b, gen)
-        finally:
-            gen.set_state(now)
+        if tape is not None:
+            tape.start()
+        return layer(h, b, tape)
 
     return checkpoint(run, hidden, attn_bias, use_reentrant=False,
                       preserve_rng_state=False)

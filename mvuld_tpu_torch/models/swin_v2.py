@@ -29,8 +29,8 @@ drawn from ``gen`` for a whole stage before the stage runs, and
 does, the patch embedding, the MLP after GELU and after fc2, and the
 attention's projection; with ``attn_drop_rate`` > 0 (no config key, as in
 JAX) the attention probabilities. Those masks come from ``gen`` too; a
-checkpointed stage draws them from a generator restored to the stage's
-starting state, so its recomputation drops the same elements. The kernel
+checkpointed stage draws them through a ``MaskTape`` (``models/dropout.py``)
+that records them, so its recomputation drops the same elements. The kernel
 paths follow JAX's conditions: ``drop_rate`` > 0 runs the plain MLP (not
 K3/K3b), ``attn_drop_rate`` > 0 the plain attention (not K1/K2/K5), and
 dropout on the projection alone keeps the attention kernel. Under
@@ -66,7 +66,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from mvuld_tpu_torch.models.dropout import dropout, keep_mask
+from mvuld_tpu_torch.models.dropout import MaskTape, dropout, keep_mask
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
 from mvuld_tpu_torch.ops.window_attention import (
     flat_attention, window_attention_flat, window_attention_flat_sharded)
@@ -506,16 +506,12 @@ class BasicLayer(nn.Module):
 
 
 def _replay_stage(layer: BasicLayer, x, drops, store: dict,
-                  gen: torch.Generator, state: torch.Tensor):
-    """A checkpointed stage with element-wise dropout: its masks come from
-    a generator set to ``state`` (``gen``'s state when the stage began), so
-    the recomputation draws them again; ``store["rng_after"]`` keeps the
-    state after the first run, for ``gen`` to continue from."""
-    g = torch.Generator(device=gen.device)
-    g.set_state(state)
-    y = layer(x, drops, store, g)
-    store.setdefault("rng_after", g.get_state())
-    return y
+                  tape: MaskTape):
+    """A checkpointed stage with element-wise dropout: the first run draws
+    its masks through ``tape`` and records them, the recomputation replays
+    them."""
+    tape.start()
+    return layer(x, drops, store, tape)
 
 
 class SwinTransformerV2(nn.Module):
@@ -586,14 +582,17 @@ class SwinTransformerV2(nn.Module):
             first += n
             if train and i in self.remat_stages:
                 store: dict = {}
+                # the stage draws from no generator but the tape, so the
+                # checkpoint keeps no generator state
                 if egen is None:
                     x = torch.utils.checkpoint.checkpoint(
-                        layer, x, drops, store, use_reentrant=False)
+                        layer, x, drops, store, use_reentrant=False,
+                        preserve_rng_state=False)
                 else:
                     x = torch.utils.checkpoint.checkpoint(
-                        _replay_stage, layer, x, drops, store, egen,
-                        egen.get_state(), use_reentrant=False)
-                    egen.set_state(store["rng_after"])
+                        _replay_stage, layer, x, drops, store,
+                        MaskTape(egen), use_reentrant=False,
+                        preserve_rng_state=False)
             else:
                 x = layer(x, drops, None, egen)
         x = layer_norm(x, self.norm, c.dtype).mean(dim=1)

@@ -10,17 +10,21 @@ ranks of its row d.
 Data parallelism, with JAX's global-batch semantics:
 
   * every rank builds the same global batch from the same seeded loader and
-    keeps its contiguous block of rows (``shard_batch``, JAX's ``P("dp")``),
-    so host-side work on the global batch (mixup) matches one rank's run;
+    keeps its contiguous block of rows (``shard_batch``, JAX's ``P("dp")``;
+    a [K, B, ...] superbatch of K fused steps its block of axis 1,
+    ``shard_superbatch``, JAX's ``P(None, "dp")``), so host-side work on
+    the global batch (mixup) matches one rank's run;
   * the gradients are averaged over dp before ``clip_by_global_norm``
     (``reduce_gradients``), which is the gradient of the mean over the
     global batch;
   * BatchNorm takes its training statistics over the global batch
     (``sync_batch_norm`` hands each BatchNorm the dp group; ``batch_norm``
     all-reduces the sums);
-  * dropout and DropPath masks are drawn per rank (``rank_seed``): the JAX
-    package draws the global batch's masks from one key, which a process
-    holding only its rows cannot reproduce, so dp parity holds at rate 0;
+  * dropout and DropPath masks are the global batch's, as the JAX package
+    draws them from one key: every rank's step generator is seeded alike
+    and draws (dp · rows, ...) for a mask of its rows, keeping its own
+    block (``step_generator``; ``models/dropout.py``), so a dp run equals
+    one rank at any rate;
   * the mp ranks of a dp block hold the same rows and the same replicated
     parameters, as the JAX trainers replicate their state over mp.
 
@@ -46,9 +50,6 @@ import torch.distributed as dist
 from torch import nn
 
 from mvuld_tpu_torch.parallel import collectives as cc
-
-SEED_STRIDE = 1_000_003      # between the dp ranks' dropout seeds
-
 
 @dataclasses.dataclass
 class Mesh:
@@ -144,6 +145,24 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
     return out
 
 
+def shard_superbatch(mesh: Mesh, superbatch: Dict) -> Dict:
+    """This rank's block of a stacked [K, B, ...] superbatch (K fused
+    steps): the batch axis, axis 1, split over dp as ``shard_batch``
+    splits axis 0; the step axis K kept whole on every rank."""
+    dp = mesh.shape["dp"]
+    if dp == 1:
+        return superbatch
+    out = {}
+    for k, v in superbatch.items():
+        n = v.shape[1]
+        if n % dp:
+            raise ValueError(f"shard_superbatch: {k!r} has {n} rows per "
+                             f"step, not a multiple of dp={dp}")
+        lo = mesh.dp_rank * (n // dp)
+        out[k] = v[:, lo:lo + n // dp]
+    return out
+
+
 def gather_batch(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The dp ranks' blocks of rows concatenated back into the global
     batch."""
@@ -181,11 +200,16 @@ def sync_batch_norm(mesh: Mesh, module: nn.Module) -> nn.Module:
     return module
 
 
-def rank_seed(mesh: Mesh, seed: int) -> int:
-    """The dropout generator's seed of this rank: ``seed`` on dp rank 0,
-    distinct on every other dp rank, the same across a dp block's mp
-    ranks (they compute the same rows)."""
-    return seed + SEED_STRIDE * mesh.dp_rank
+def step_generator(mesh: Optional[Mesh], device, seed: int
+                   ) -> torch.Generator:
+    """The training step's generator: seeded ``seed`` on every rank; under
+    dp it draws each mask over the global batch and keeps this rank's
+    rows (``models/dropout.rank_generator``). The mp ranks of a dp block
+    draw alike (they compute the same rows)."""
+    from mvuld_tpu_torch.models.dropout import rank_generator
+    if mesh is None:
+        return rank_generator(device, seed)
+    return rank_generator(device, seed, mesh.shape["dp"], mesh.dp_rank)
 
 
 # --------------------------------------------------------------------------- #

@@ -13,13 +13,17 @@ baselines/scripts/getImages.py:53-99):
   * stratified 80/10/10 split with a fixed seed (default 42),
   * drop functions with ≥ ``max_lines`` lines (default 100),
   * undersample train negatives to 1:1 (val/test stay imbalanced),
-  * "img_path label" manifests per partition (``write_manifests``).
+  * "img_path label" manifests per partition (``write_manifests``) and
+    their reader (``read_manifest``),
+  * ``BigVulDataset``: a partition's view with sampling and the
+    vulnerable-only filter, and its functions' ``.c`` files.
 """
 
 from __future__ import annotations
 
 import os
-from typing import TYPE_CHECKING, Tuple
+import re
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 
@@ -39,6 +43,10 @@ def clean_function(code: str) -> str:
             continue
         out.append(line)
     return "\n".join(out)
+
+
+def remove_space_before_newline(code: str) -> str:
+    return re.sub(r"[ \t]+\n", "\n", code)
 
 
 def dedup(df: pd.DataFrame, col: str = "func_before") -> pd.DataFrame:
@@ -126,3 +134,60 @@ def write_manifests(df: pd.DataFrame, img_dir: str, out_dir: str,
                 f.write(f"{img} {int(r[label_col])}\n")
         paths[part] = p
     return paths["train"], paths["val"], paths["test"]
+
+
+class BigVulDataset:
+    """Corpus view with partition filter / sampling / vulnerable-only modes
+    (reference: baselines/utils/dclass.py BigVulDataset:11-138)."""
+
+    def __init__(self, df: pd.DataFrame, partition: str = "train",
+                 sample: int = -1, vulonly: bool = False, seed: int = 0,
+                 func_dir: Optional[str] = None):
+        self.func_dir = func_dir
+        view = df[df.label == partition] if "label" in df else df
+        if vulonly:
+            view = view[view.vul == 1]
+        if sample > 0:
+            view = view.sample(min(sample, len(view)), random_state=seed)
+        self.df = view.reset_index(drop=True)
+        self.partition = partition
+
+    def __len__(self) -> int:
+        return len(self.df)
+
+    def itempath(self, _id: int) -> str:
+        """Path of the function's .c file (reference: dclass.py itempath →
+        processed/bigvul/func_before/{_id}.c)."""
+        from mvuld_tpu_torch.tools.storage import processed_dir
+        base = self.func_dir or os.path.join(processed_dir(), "bigvul",
+                                             "func_before")
+        return os.path.join(base, f"{_id}.c")
+
+    def write_functions(self) -> None:
+        """Materialize {_id}.c files (the processJoern input layout)."""
+        for _, row in self.df.iterrows():
+            p = self.itempath(int(row._id))
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+            with open(p, "w") as f:
+                f.write(row.func_before)
+
+    def stats(self) -> dict:
+        return {"n": len(self.df),
+                "vul": int(self.df.vul.sum()),
+                "nonvul": int((self.df.vul == 0).sum()),
+                "partition": self.partition}
+
+
+def read_manifest(path: str) -> pd.DataFrame:
+    """Parse a "path label" manifest; _id recovered from the file stem."""
+    import pandas as pd
+    recs = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            img_path, label = line.rsplit(" ", 1)
+            _id = int(os.path.splitext(os.path.basename(img_path))[0])
+            recs.append({"_id": _id, "img_path": img_path, "vul": int(label)})
+    return pd.DataFrame(recs)

@@ -12,11 +12,25 @@ each into device tensors. With ``device_data`` (TRAIN.DEVICE_DATA /
 DEVICE_EVAL) a split's columns already live on the device and its host
 batches carry only row indices ("idx"), gathered on the device.
 
+Every epoch's host batches come through a ``Prefetcher`` thread, which
+runs ``batch_hook`` and stacks superbatches while the device trains; the
+copies to the device are made on the training thread. With
+``multi_step`` (``core/train_state.make_multi_train_step``) and
+``fused_steps`` K > 1, K host batches are stacked into a [K, B, ...]
+superbatch and trained in one call (a CUDA graph replay on the card); the
+epoch's remainder trains one batch at a time.
+
+TRAIN.BEST_FETCH "async": an improvement of the validation F1 starts
+non-blocking copies of the state into pinned host buffers behind a CUDA
+event; the snapshot's checkpoint is written at the next improvement or
+after the loop, the same files as "sync" writes.
+
 With a ``mesh`` (``parallel/mesh.py``) every rank reads the same global
 batches, keeps its block of rows (after ``batch_hook``, so mixup sees the
-global batch) and steps with the gradients averaged over dp; evaluation
-shards its batches the same way and gathers the logits. Only the primary
-rank writes the config, checkpoints and ``history.json``.
+global batch; a superbatch's rows per step) and steps with the gradients
+averaged over dp; evaluation shards its batches the same way and gathers
+the logits. Only the primary rank writes the config, checkpoints and
+``history.json``.
 """
 
 from __future__ import annotations
@@ -36,7 +50,8 @@ from mvuld_tpu_torch.core.metrics import format_metrics, get_metrics_logits
 from mvuld_tpu_torch.core.train_state import (EarlyStopper, Inputs,
                                               eval_step, model_inputs,
                                               train_step)
-from mvuld_tpu_torch.data.loader import ArrayDataset, eval_batches, train_batches
+from mvuld_tpu_torch.data.loader import (ArrayDataset, Prefetcher,
+                                         eval_batches, train_batches)
 
 
 def to_device(batch: Dict[str, np.ndarray], device,
@@ -77,15 +92,41 @@ def run_eval(model, ds: ArrayDataset, batch_size: int, device,
                               np.concatenate(all_logits))
 
 
-def _snapshot(model, opt, full: bool) -> Dict:
-    """Host copy of the state (the best-F1 snapshot)."""
-    return {"params": {k: v.detach().cpu().clone()
-                       for k, v in model.state_dict().items()},
-            "opt_state": ({k: ([t.detach().cpu().clone() for t in v]
-                               if isinstance(v, list) else v)
-                           for k, v in opt.state_dict().items()}
-                          if full else None),
-            "step": opt.count}
+def _snapshot(model, opt, full: bool, non_blocking: bool = False) -> Dict:
+    """Host copy of the state (the best-F1 snapshot); ``_finish`` makes it
+    a checkpoint tree. ``non_blocking``: CUDA tensors go to pinned host
+    buffers by copies on the stream, and a CUDA event marks their end."""
+    def host(t):
+        t = t.detach()
+        if non_blocking and t.is_cuda:
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t, non_blocking=True)
+        return t.cpu().clone()
+
+    opt_state = None
+    if full:
+        opt_state = {"count": host(opt.count_t),
+                     "mini_step": host(opt.mini_step_t),
+                     **{k: [host(t) for t in getattr(opt, k)]
+                        for k in ("mu", "nu", "acc")}}
+    tree = {"params": {k: host(v) for k, v in model.state_dict().items()},
+            "opt_state": opt_state, "step": host(opt.count_t)}
+    if non_blocking and opt.count_t.is_cuda:
+        tree["_done"] = torch.cuda.Event()
+        tree["_done"].record()
+    return tree
+
+
+def _finish(tree: Dict) -> Dict:
+    """Wait for a snapshot's copies; the step counters as Python ints."""
+    done = tree.pop("_done", None)
+    if done is not None:
+        done.synchronize()
+    tree["step"] = int(tree["step"])
+    if tree["opt_state"] is not None:
+        for k in ("count", "mini_step"):
+            tree["opt_state"][k] = int(tree["opt_state"][k])
+    return tree
 
 
 def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
@@ -95,7 +136,8 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         batch_hook: Optional[Callable] = None,
         patience: Optional[int] = None,
         label_smoothing: Optional[float] = None,
-        inputs: Inputs = model_inputs, mesh=None) -> Dict:
+        inputs: Inputs = model_inputs, mesh=None,
+        multi_step: Optional[Callable] = None, fused_steps: int = 1) -> Dict:
     """Run the training loop; returns {best_f1, best_epoch, history,
     test_metrics}. ``eval_device_data``: {"val": cols, "test": cols}.
     ``batch_hook(batch, epoch, it)`` rewrites each host train batch before
@@ -103,12 +145,14 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
     TRAIN.EARLY_STOP_PATIENCE and ``label_smoothing``
     MODEL.LABEL_SMOOTHING; ``inputs`` maps a device batch onto the model's
     inputs (``core/train_state.py``); ``mesh``: data parallelism over its
-    dp ranks (module docstring)."""
+    dp ranks; ``multi_step`` with ``fused_steps`` > 1: K steps per call
+    (module docstring)."""
     if device_data is not None and batch_hook is not None:
         raise ValueError("device_data mode ships index batches; batch_hook "
                          "(host-side augmentation) cannot apply — disable "
                          "one of them")
-    from mvuld_tpu_torch.parallel.mesh import rank_seed, shard_batch
+    from mvuld_tpu_torch.parallel.mesh import (shard_batch, shard_superbatch,
+                                               step_generator)
     # only the primary rank writes; every rank resumes from output_dir
     write_dir = output_dir if mesh is None or mesh.is_primary else ""
     logger = logger or create_logger(write_dir)
@@ -122,9 +166,16 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
     if label_smoothing is None:
         label_smoothing = cfg.MODEL.LABEL_SMOOTHING
     best_save_full = cfg.TRAIN.BEST_SAVE != "params"
-    gen = torch.Generator(device=device).manual_seed(
-        cfg.SEED if mesh is None else rank_seed(mesh, cfg.SEED))
+    best_fetch_async = cfg.TRAIN.BEST_FETCH == "async"
+    gen = step_generator(mesh, device, cfg.SEED)
     best, history = None, []
+    pending = None              # an async snapshot: (tree, epoch, f1)
+
+    def write_best(tree, epoch, f1):
+        if write_dir:
+            save_checkpoint(write_dir, epoch,
+                            {**tree, "epoch": epoch, "best_f1": f1},
+                            best=True)
 
     start_epoch = cfg.TRAIN.START_EPOCH
     resume_path = (resume_ladder(output_dir, cfg.MODEL.RESUME,
@@ -139,23 +190,54 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         logger.info(f"resumed from {resume_path}: epoch {meta['epoch']}, "
                     f"best_f1 {meta['best_f1']:.4f}")
 
+    use_fused = multi_step is not None and fused_steps > 1
+
+    def host_stream(epoch: int):
+        """(is a superbatch, this rank's host batch, first it, samples):
+        runs in the Prefetcher's thread."""
+        def shard(b, superbatch=False):
+            if mesh is None:
+                return b
+            return (shard_superbatch if superbatch else shard_batch)(mesh, b)
+
+        pending_batches, it = [], -1
+        for raw in train_batches(train_ds, batch_size, epoch, cfg.SEED):
+            it += 1
+            batch = batch_hook(raw, epoch, it) if batch_hook else raw
+            if not use_fused:
+                yield False, shard(batch), it, batch_size
+                continue
+            pending_batches.append(batch)
+            if len(pending_batches) < fused_steps:
+                continue
+            sb = {k: np.stack([b[k] for b in pending_batches])
+                  for k in pending_batches[0]}
+            pending_batches = []
+            yield (True, shard(sb, True), it - fused_steps + 1,
+                   fused_steps * batch_size)
+        for batch in pending_batches:     # the epoch's remainder
+            yield False, shard(batch), it, batch_size
+
     eval_dd = eval_device_data or {}
     for epoch in range(start_epoch, cfg.TRAIN.EPOCHS):
         t_epoch = time.time()
         loss_meter, speed_meter = AverageMeter(), WindowRate()
-        for it, raw in enumerate(train_batches(train_ds, batch_size, epoch,
-                                               cfg.SEED)):
-            if batch_hook is not None:
-                raw = batch_hook(raw, epoch, it)
-            if mesh is not None:
-                raw = shard_batch(mesh, raw)
-            metrics = train_step(model, opt, to_device(raw, device,
-                                                       device_data),
-                                 gen, label_smoothing, inputs, mesh=mesh)
-            speed_meter.add(batch_size)
-            if it % cfg.PRINT_FREQ == 0:
-                loss = float(metrics["loss"])     # syncs — only on print
-                loss_meter.update(loss, batch_size)
+        for is_multi, b, it, n_done in Prefetcher(host_stream(epoch),
+                                                  depth=2):
+            if is_multi:
+                metrics = (multi_step({"idx": b["idx"]}, gen, device_data)
+                           if device_data is not None
+                           else multi_step(b, gen))
+                step_loss = metrics["loss"][-1]
+            else:
+                metrics = train_step(model, opt,
+                                     to_device(b, device, device_data), gen,
+                                     label_smoothing, inputs, mesh=mesh)
+                step_loss = metrics["loss"]
+            speed_meter.add(n_done)
+            if it % cfg.PRINT_FREQ < (fused_steps if use_fused else 1):
+                loss = float(step_loss)           # syncs — only on print
+                loss_meter.update(loss, n_done)
                 logger.info(f"epoch {epoch} it {it}: loss {loss:.4f} "
                             f"({speed_meter.read():.1f} samples/s)")
 
@@ -166,21 +248,28 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
                     f"({time.time() - t_epoch:.1f}s)")
 
         if stopper.update(val_metrics["f1"], epoch):
-            best = _snapshot(model, opt, best_save_full)
-            if write_dir:
-                save_checkpoint(write_dir, epoch,
-                                {**best, "epoch": epoch,
-                                 "best_f1": val_metrics["f1"]}, best=True)
+            if best_fetch_async:
+                if pending is not None:
+                    best = _finish(pending[0])
+                    write_best(best, *pending[1:])
+                pending = (_snapshot(model, opt, best_save_full, True),
+                           epoch, val_metrics["f1"])
+            else:
+                best = _finish(_snapshot(model, opt, best_save_full))
+                write_best(best, epoch, val_metrics["f1"])
         if write_dir and cfg.SAVE_FREQ > 0 and (
                 epoch % cfg.SAVE_FREQ == 0 or epoch == cfg.TRAIN.EPOCHS - 1):
             save_checkpoint(write_dir, epoch,
-                            {**_snapshot(model, opt, True), "epoch": epoch,
-                             "best_f1": stopper.best})
+                            {**_finish(_snapshot(model, opt, True)),
+                             "epoch": epoch, "best_f1": stopper.best})
         if stopper.should_stop:
             logger.info(f"early stop at epoch {epoch} "
                         f"(best f1 {stopper.best:.4f} @ {stopper.best_epoch})")
             break
 
+    if pending is not None:         # the last async snapshot
+        best = _finish(pending[0])
+        write_best(best, *pending[1:])
     if best is not None:            # the best state for the test eval
         model.load_state_dict(best["params"])
     out = {"best_f1": stopper.best, "best_epoch": stopper.best_epoch,

@@ -193,7 +193,12 @@ def lr_schedule(lr: float, steps: int) -> Callable[[int], float]:
     base = np.float32(lr)
     low = float(base * np.float32(0.1))
     boundary = steps // 2
-    return lambda count: low if count >= boundary else float(base)
+
+    def schedule(count: int) -> float:
+        return low if count >= boundary else float(base)
+
+    schedule.total_steps = boundary        # constant from there (schedule.py)
+    return schedule
 
 
 def build_optimizer(model, lr: float, steps: int):

@@ -16,6 +16,9 @@ makes the model, the optimizer and the step for ``main`` and for any other
 caller that feeds its own image tensors. PARALLEL.DP / MP lay the ranks of
 a torchrun launch out as the JAX mesh (``parallel/mesh.py``): every rank
 mixes the same global batch and trains on its block of rows.
+TRAIN.FUSED_STEPS K > 1 trains K steps per call
+(``core/train_state.make_multi_train_step``, as the JAX trainer does): on
+the card one CUDA graph replay per K steps, on the CPU a loop.
 
 Usage:
   python -m mvuld_tpu_torch.train.train_swin --cfg cfg.yaml [--synthetic N]
@@ -81,6 +84,14 @@ class SwinTraining:
         from mvuld_tpu_torch.core.train_state import image_inputs, train_step
         return train_step(self.model, self.opt, batch, gen,
                           self.label_smoothing, image_inputs, mesh=self.mesh)
+
+    def multi_step(self, num_steps: int):
+        """``num_steps`` steps per call on a [K, B, ...] superbatch."""
+        from mvuld_tpu_torch.core.train_state import (image_inputs,
+                                                      make_multi_train_step)
+        return make_multi_train_step(self.model, self.opt, num_steps,
+                                     self.label_smoothing, image_inputs,
+                                     mesh=self.mesh)
 
 
 def build_swin_training(cfg, device, steps_per_epoch: int = 1,
@@ -169,6 +180,28 @@ def throughput(model, cfg, device, warmup: int = 50, iters: int = 30
     return iters * B / (time.perf_counter() - t0)
 
 
+def corpus_datasets(args, cfg, mesh, logger) -> Dict:
+    """The image datasets of ``--synthetic N`` or ``--data`` (a pickled
+    corpus frame): the corpus rendered into the cache (``--cache-dir``,
+    else OUTPUT/cache; the primary rank first) and split by its labels."""
+    from mvuld_tpu_torch.parallel.mesh import primary_first
+
+    if args.synthetic:
+        from mvuld_tpu_torch.tools.dataset import prepare_corpus
+        from mvuld_tpu_torch.tools.synthetic import generate_dataset
+        df = prepare_corpus(generate_dataset(args.synthetic,
+                                             seed=cfg.SEED or 42,
+                                             hard=args.hard))
+    else:
+        import pandas as pd
+        df = pd.read_pickle(args.data)
+    cache_root = args.cache_dir or os.path.join(cfg.OUTPUT, "cache")
+    with primary_first(mesh):
+        return build_image_datasets(
+            cfg, df, os.path.join(cache_root, "imgs"),
+            os.path.join(cache_root, "pos"), logger)
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", default=None)
@@ -195,7 +228,7 @@ def main(argv=None) -> dict:
     from mvuld_tpu_torch.core.train_state import image_inputs
     from mvuld_tpu_torch.data.loader import steps_per_epoch
     from mvuld_tpu_torch.parallel.distributed import local_device
-    from mvuld_tpu_torch.parallel.mesh import mesh_from_cfg, primary_first
+    from mvuld_tpu_torch.parallel.mesh import mesh_from_cfg
     from mvuld_tpu_torch.train.harness import fit, run_eval
     from mvuld_tpu_torch.train.predict import resolve_device
 
@@ -213,21 +246,7 @@ def main(argv=None) -> dict:
                     f"(batch {cfg.DATA.BATCH_SIZE}, {device})")
         return {"throughput": tp}
 
-    # ---- data
-    if args.synthetic:
-        from mvuld_tpu_torch.tools.dataset import prepare_corpus
-        from mvuld_tpu_torch.tools.synthetic import generate_dataset
-        df = prepare_corpus(generate_dataset(args.synthetic,
-                                             seed=cfg.SEED or 42,
-                                             hard=args.hard))
-    else:
-        import pandas as pd
-        df = pd.read_pickle(args.data)
-    cache_root = args.cache_dir or os.path.join(cfg.OUTPUT, "cache")
-    with primary_first(mesh):
-        datasets = build_image_datasets(
-            cfg, df, os.path.join(cache_root, "imgs"),
-            os.path.join(cache_root, "pos"), logger)
+    datasets = corpus_datasets(args, cfg, mesh, logger)
     logger.info(f"dataset sizes: { {k: len(v) for k, v in datasets.items()} }")
 
     spe = max(steps_per_epoch(len(datasets["train"]), cfg.DATA.BATCH_SIZE), 1)
@@ -239,13 +258,15 @@ def main(argv=None) -> dict:
                            device, inputs=image_inputs, mesh=mesh)
         logger.info(f"TEST(only) {metrics}")
         return {"test_metrics": metrics}
+    k = cfg.TRAIN.FUSED_STEPS
     result = fit(cfg=cfg, model=run.model, opt=run.opt,
                  train_ds=datasets["train"],
                  val_ds=datasets.get("val", datasets["train"]), device=device,
                  test_ds=datasets.get("test"), output_dir=cfg.OUTPUT,
                  logger=logger, batch_hook=run.batch_hook, patience=10,
                  label_smoothing=run.label_smoothing, inputs=image_inputs,
-                 mesh=mesh)
+                 mesh=mesh, multi_step=run.multi_step(k) if k > 1 else None,
+                 fused_steps=k)
     result["model"] = run.model       # the best-F1 state, as ``fit`` left it
     return result
 

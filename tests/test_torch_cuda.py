@@ -13,7 +13,10 @@ the model's windows, twice to the bit, on misaligned views, with
 shapes, ragged rows, misaligned views, a backward that repeats to the
 bit), K6/K6b (dense with its epilogue, bf16 and fp32, at the GEMM core's
 tile edges, blockbench's shapes and a 3072-wide LayerNorm; a backward that
-repeats to the bit). Tolerances: fp32
+repeats to the bit), and ``make_multi_train_step``'s CUDA graph: K replayed steps of a
+tiny SwinV2 through K1/K2/K3/K3b (DropPath and, in one case, dropout in
+a checkpointed stage) against K eager steps from the same state, and its
+refusal under a gloo group. Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
 and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
 at the largest value (both round one fp32 result to bf16).
@@ -1024,3 +1027,134 @@ def test_flat_backward_from_the_forward_kernel(dev, dtype):
             assert float((a - b).abs().max()) <= t
     else:
         assert max(_rel_l2(a, b) for a, b in zip(got, want)) <= 2e-2
+
+
+# ------------------------------------------ K steps per call (CUDA graph)
+
+def _tiny_swin_training(dev, drop_rate):
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+    opts = ["DATA.IMG_SIZE", 32, "MODEL.SWINV2.EMBED_DIM", 64,
+            "MODEL.SWINV2.DEPTHS", [2, 2], "MODEL.SWINV2.NUM_HEADS", [2, 4],
+            "MODEL.SWINV2.WINDOW_SIZE", 4,
+            "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", [0, 0],
+            "MODEL.DROP_PATH_RATE", 0.2, "MODEL.DROP_RATE", drop_rate,
+            "MODEL.NUM_CLASSES", 2, "PARALLEL.DTYPE", "bfloat16",
+            "TRAIN.FUSED_MLP", True, "TRAIN.USE_CHECKPOINT", True,
+            "TRAIN.REMAT_STAGES", [0], "DATA.BATCH_SIZE", 4, "SEED", 0]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    return build_swin_training(cfg, dev, steps_per_epoch=8)
+
+
+def _train_state(run, gen):
+    opt = run.opt
+    return ([p.detach().clone() for p in opt.params],
+            [t.clone() for t in opt.mu + opt.nu],
+            opt.count_t.clone(), gen.get_state())
+
+
+def _restore(run, gen, state):
+    opt = run.opt
+    params, moments, count, rng = state
+    with torch.no_grad():
+        for p, v in zip(opt.params, params):
+            p.copy_(v)
+        for t, v in zip(opt.mu + opt.nu, moments):
+            t.copy_(v)
+    opt.count_t.copy_(count)
+    gen.set_state(rng)
+
+
+@pytest.mark.parametrize("drop_rate", [0.0, 0.1], ids=["droppath",
+                                                      "dropout_remat"])
+def test_multi_step_graph_replay_equals_eager_steps(dev, drop_rate):
+    """One replay of the captured K = 3 steps from a saved state (the
+    parameters, AdamW's moments, the device count and the generator) equals
+    3 eager steps from it: the DropPath masks to the bit, the losses within
+    fp32 relative 1e-6 and the parameter update within relative L2 1e-5
+    (the same kernels in the same order; a library backward that sums with
+    atomics may move last bits). K1 and K2 run, and at rate 0 K3 and K3b
+    (dropout takes the MLP off the fused kernel, as in JAX)."""
+    import numpy as np
+
+    from mvuld_tpu_torch.models import swin_v2
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.ops import window_attention as wa
+
+    run = _tiny_swin_training(dev, drop_rate)
+    k = 3
+    rng = np.random.RandomState(0)
+    sb = {"image": rng.randn(k, 4, 32, 32, 3).astype(np.float32),
+          "label": rng.randint(0, 2, (k, 4)).astype(np.int32)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    step = run.multi_step(k)
+    kernels = [wa.window_attention_flat, wa.window_attention_flat_bwd,
+               fd.mlp_ln, fd.mlp_ln_bwd]
+    drawn = []
+    inner = swin_v2.keep_mask
+
+    def keep(*a):
+        drawn.append(inner(*a))
+        return drawn[-1]
+
+    swin_v2.keep_mask = keep
+    try:
+        start_counts = [f.launches for f in kernels]
+        step(sb, gen)                       # eager warm-up, then capture
+        before = [f.launches for f in kernels]
+        ran = [b - a > 0 for a, b in zip(start_counts, before)]
+        assert step.graph is not None
+        assert ran == [True, True] + [drop_rate == 0.0] * 2, ran
+        start = _train_state(run, gen)
+        n = len(drawn)
+        eager = [run.step({key: torch.as_tensor(v[i], device=dev)
+                           for key, v in sb.items()}, gen)
+                 for i in range(k)]
+        eager_masks = drawn[n:]
+        eager_params = [p.detach().clone() for p in run.opt.params]
+        _restore(run, gen, start)
+        before = [f.launches for f in kernels]
+        got = step(sb, gen)
+    finally:
+        swin_v2.keep_mask = inner
+    assert [f.launches for f in kernels] == before     # a replay is silent
+    assert step.replays == 1
+    torch.testing.assert_close(got["loss"],
+                               torch.stack([m["loss"] for m in eager]),
+                               rtol=1e-6, atol=0)
+    captured = drawn[n // 2:n]               # the masks the capture drew
+    assert len(captured) == len(eager_masks) > 0
+    for a, b in zip(captured, eager_masks):
+        assert torch.equal(a, b)
+    num = sum(float((p.detach() - e).float().norm() ** 2)
+              for p, e in zip(run.opt.params, eager_params)) ** 0.5
+    den = sum(float((e - s).float().norm() ** 2)
+              for e, s in zip(eager_params, start[0])) ** 0.5
+    assert den > 0 and num <= 1e-5 * den, (num, den)
+    assert run.opt.count == 2 * k
+
+
+def test_multi_step_refuses_a_gloo_group_on_the_card(dev):
+    """Gloo moves CUDA tensors through the host: a capture under a gloo
+    group raises (nothing falls back to eager steps)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from mvuld_tpu_torch.parallel.distributed import free_port
+    from mvuld_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        run = _tiny_swin_training(dev, 0.0)
+        run.mesh = make_mesh()
+        rng = np.random.RandomState(0)
+        sb = {"image": rng.randn(2, 4, 32, 32, 3).astype(np.float32),
+              "label": rng.randint(0, 2, (2, 4)).astype(np.int32)}
+        with pytest.raises(ValueError, match="NCCL"):
+            run.multi_step(2)(sb, torch.Generator(device=dev))
+        assert run.opt.count == 0
+    finally:
+        dist.destroy_process_group()

@@ -113,8 +113,8 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-PHASES = ("serve_phase", "train_phase", "swin_phase", "blockbench_phase",
-          "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
+PHASES = ("serve_phase", "train_phase", "swin_phase", "fused_steps_phase",
+          "blockbench_phase", "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
           "baselines_phase", "swin_family_phase", "causal_phase",
           "parallel_phase", "tools_phase")
 

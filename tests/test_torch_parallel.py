@@ -26,7 +26,12 @@ sums its statistics in another order), BatchNorm statistics 1e-5,
 parameters after one AdamW step 1e-5 where the gradient entry exceeds
 1e-3 of its tensor's largest (2·lr elsewhere: AdamW's first update
 lr·g/(|g| + eps) turns a last-bit difference of a near-zero g into a
-whole update). MoE against JAX's global forward 1e-5.
+whole update); in the e2e step with dropout on, the two gradients that
+vanish in exact arithmetic (SwinV2's final LayerNorm before the fusion
+head's BatchNorm) are held jointly, their difference's L2 within 1e-5 of
+the whole gradient's.
+A dp rank's masks concatenated equal one rank's bit for bit. MoE against
+JAX's global forward 1e-5.
 Pipeline against the sequential encoder 1e-5 (forward), 2e-5 / rtol 2e-4
 (gradients, JAX's bounds).
 """
@@ -44,7 +49,8 @@ import torch_parallel_workers as workers
 from jax_reference import no_persistent_compile_cache  # noqa: F401
 from mvuld_tpu_torch.models.convert import jax_variables_to_torch
 from mvuld_tpu_torch.parallel.distributed import run_local_world
-from test_torch_models import _graph_inputs, _random_variables
+from test_torch_models import (E2E_OPTS, _e2e_inputs, _graph_inputs,
+                               _random_variables)
 
 WORLD_TIMEOUT = 240
 
@@ -293,11 +299,28 @@ TEXT = ["MODEL.UNIXCODER.LAYERS", "2", "MODEL.UNIXCODER.HIDDEN", "32",
         "TRAIN.EPOCHS", "1", "PRINT_FREQ", "1"]
 
 
+# the tiny e2e model with dropout on: the text tower's and the fusion
+# head's rates as the config sets them, DropPath 0.2, the second SwinV2
+# stage and the text layers checkpointed (their masks replayed)
+E2E_DROP = E2E_OPTS + ["MODEL.DROP_PATH_RATE", "0.2",
+                       "TRAIN.USE_CHECKPOINT", "True",
+                       "TRAIN.REMAT_STAGES", "[1]"]
+
+
+def _e2e_cfg():
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    return get_config(SimpleNamespace(cfg=None, opts=E2E_DROP,
+                                      output="unused"))
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """One spawned world of two ranks: data-parallel steps against one
-    rank, a toy run that learns, the expert-parallel MoE with gradients,
-    the ranks' dropout masks, and ``train_text.main`` at world 2."""
+    rank (with masks drawn in the e2e step), a toy run that learns, the
+    expert-parallel MoE with gradients, the ranks' dropout masks, and
+    ``train_text.main`` at world 2."""
     from mvuld_tpu_torch.train.train_text import main as text_main
 
     rng = np.random.RandomState(7)
@@ -309,6 +332,7 @@ def world2(tmp_path_factory):
     x = np.random.RandomState(4).randn(B_DP, 16, 16, 3).astype(np.float32)
     _, flat, _ = _jax_swin(TP_SWIN, x, seed=6)
     swin_batch = dict(image=x, label=zoo_batch["label"])
+    e2e_batch = dict(_e2e_inputs(B_DP, _e2e_cfg()), label=zoo_batch["label"])
 
     w_true = np.random.RandomState(0).randn(8)
     xs = np.random.RandomState(1).randn(32, 8).astype(np.float32)
@@ -333,9 +357,48 @@ def world2(tmp_path_factory):
         (functools.partial(workers.zoo_model, ZOO_SIZES), zoo_batch, "zoo"),
         (functools.partial(workers.swin_model, TP_SWIN, flat), swin_batch,
          "image"),
+        (functools.partial(workers.e2e_model, E2E_DROP), e2e_batch, "e2e",
+         3),
         (xs, ys), [(kw, p, moe_x, True) for kw, p, _, _ in moe],
         (argv_test, argv_train), timeout=WORLD_TIMEOUT)
     return dict(res=res, moe=moe, text_one=one, ys=ys, run=run)
+
+
+def _assert_dp_parity(d, which, jointly=()):
+    """``jointly``: the tensors whose gradients vanish in exact arithmetic,
+    held by their joined difference (L2 ≤ 1e-5 of the whole gradient's)
+    and by AdamW's 2·lr bound instead of tensor by tensor."""
+    assert abs(d["dp"]["loss"] - d["one"]["loss"]) < 1e-6
+    assert abs(d["dp"]["grad_norm"] - d["one"]["grad_norm"]) < \
+        1e-5 * d["one"]["grad_norm"]
+    (g1, g2), (sd1, sd2) = d["grads"], d["state"]
+    if jointly:
+        diff = np.sqrt(sum(float(((g2[k] - g1[k]) ** 2).sum())
+                           for k in jointly))
+        whole = np.sqrt(sum(float((g ** 2).sum()) for g in g1.values()))
+        assert diff <= 1e-5 * whole, (diff, whole)
+    for k, g in g1.items():
+        if k in jointly:
+            np.testing.assert_allclose(sd2[k], sd1[k], rtol=0,
+                                       atol=2 * LR + 1e-6, err_msg=k)
+            continue
+        scale = max(np.abs(g).max(), 1e-3)
+        np.testing.assert_allclose(g2[k], g, rtol=0, atol=1e-5 * scale,
+                                   err_msg=k)
+        # AdamW's first update is lr·g/(|g| + eps): where an entry is
+        # near zero a last-bit difference moves it by up to 2·lr, so
+        # the 1e-5 bound holds where |g| > 1e-3 of the tensor's max
+        sure = np.abs(g) > 1e-3 * scale
+        np.testing.assert_allclose(sd2[k][sure], sd1[k][sure], rtol=0,
+                                   atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(sd2[k], sd1[k], rtol=0,
+                                   atol=2 * LR + 1e-6, err_msg=k)
+    stats = [k for k in sd1 if k not in g1]
+    for k in stats:
+        np.testing.assert_allclose(sd2[k], sd1[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+    if which in ("zoo", "e2e"):
+        assert any("running_var" in k for k in stats)
 
 
 @pytest.mark.parametrize("which", ["zoo", "swin"])
@@ -345,29 +408,27 @@ def test_dp_step_equals_one_rank(world2, which):
     equals the world-1 step on 8 rows — loss, gradients (averaged over dp
     before the clip), parameters after AdamW, BatchNorm statistics."""
     for r in world2["res"]:
-        d = r[which]
-        assert abs(d["dp"]["loss"] - d["one"]["loss"]) < 1e-6
-        assert abs(d["dp"]["grad_norm"] - d["one"]["grad_norm"]) < \
-            1e-5 * d["one"]["grad_norm"]
-        (g1, g2), (sd1, sd2) = d["grads"], d["state"]
-        for k, g in g1.items():
-            scale = max(np.abs(g).max(), 1e-3)
-            np.testing.assert_allclose(g2[k], g, rtol=0, atol=1e-5 * scale,
-                                       err_msg=k)
-            # AdamW's first update is lr·g/(|g| + eps): where an entry is
-            # near zero a last-bit difference moves it by up to 2·lr, so
-            # the 1e-5 bound holds where |g| > 1e-3 of the tensor's max
-            sure = np.abs(g) > 1e-3 * scale
-            np.testing.assert_allclose(sd2[k][sure], sd1[k][sure], rtol=0,
-                                       atol=1e-5, err_msg=k)
-            np.testing.assert_allclose(sd2[k], sd1[k], rtol=0,
-                                       atol=2 * LR + 1e-6, err_msg=k)
-        stats = [k for k in sd1 if k not in g1]
-        for k in stats:
-            np.testing.assert_allclose(sd2[k], sd1[k], rtol=0, atol=1e-5,
-                                       err_msg=k)
-        if which == "zoo":
-            assert any("running_var" in k for k in stats)
+        _assert_dp_parity(r[which], which)
+
+
+def test_dp_step_with_dropout_equals_one_rank(world2):
+    """The tiny e2e model with dropout and DropPath on (a checkpointed
+    SwinV2 stage and checkpointed text layers among them): each rank draws
+    the global batch's masks and keeps its rows, so the world-2 step
+    equals the world-1 step within the bounds of the rate-0 steps. The
+    fusion head's batch-statistics BatchNorm after the image projection
+    makes the gradient of SwinV2's final LayerNorm, which feeds the pooled
+    embedding, vanish in exact arithmetic (the bias's sums to zero over
+    the batch): its fp32 values are summation noise, 1e-4 of the model's
+    largest gradient or less, and miss the per-tensor bound at rate 0 too,
+    so those two tensors are held jointly."""
+    for r in world2["res"]:
+        d = r["e2e"]
+        g1 = d["grads"][0]
+        top = max(float(np.abs(g).max()) for g in g1.values())
+        jointly = ("swin.norm.weight", "swin.norm.bias")
+        assert all(float(np.abs(g1[k]).max()) < 1e-4 * top for k in jointly)
+        _assert_dp_parity(d, "e2e", jointly)
 
 
 def test_sharded_train_step_runs_and_learns(world2):
@@ -380,11 +441,18 @@ def test_sharded_train_step_runs_and_learns(world2):
     assert count == 30
 
 
-def test_dp_ranks_draw_distinct_dropout_masks(world2):
-    """Dropout and DropPath masks are drawn per rank (``rank_seed``): the
-    two ranks' masks differ, so dp parity is held at rate 0."""
-    masks = world2["res"][0]["masks"]
-    assert masks.shape == (2, 64) and not np.array_equal(masks[0], masks[1])
+def test_dp_ranks_draw_the_global_batch_masks(world2):
+    """A dp rank draws the global batch's dropout and DropPath masks from
+    a generator seeded as rank 0's and keeps its rows: the two ranks'
+    masks concatenated equal one rank's mask bit for bit."""
+    from mvuld_tpu_torch.models.dropout import keep_mask, rank_generator
+    one = rank_generator("cpu", 0)
+    want = [keep_mask((2 * shape[0],) + shape[1:], rate, one, "cpu")
+            .float().numpy() for shape, rate in workers.MASKS]
+    for r in world2["res"]:
+        for got, w in zip(r["masks"], want):
+            assert 0 < w.mean() < 1
+            np.testing.assert_array_equal(got, w)
 
 
 @pytest.mark.parametrize("case", range(len(MOE_CASES)),

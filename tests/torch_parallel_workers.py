@@ -25,9 +25,10 @@ def _optimizer(model):
                      lambda count: 1e-3, weight_decay=0.05, clip=5.0)
 
 
-def _step(model, batch, inputs, mesh=None, tp_norm=None):
-    """One train step; returns (metrics, the gradients the optimizer got,
-    the state dict after the step)."""
+def _step(model, batch, inputs, mesh=None, tp_norm=None, gen=None):
+    """One train step (masks from ``gen``, none without one); returns
+    (metrics, the gradients the optimizer got, the state dict after the
+    step)."""
     from mvuld_tpu_torch.core.train_state import train_step
     opt = _optimizer(model)
     if tp_norm is not None:
@@ -40,7 +41,7 @@ def _step(model, batch, inputs, mesh=None, tp_norm=None):
         update(grads)
 
     opt.update = capture
-    metrics = train_step(model, opt, batch, None, 0.1, inputs, mesh=mesh)
+    metrics = train_step(model, opt, batch, gen, 0.1, inputs, mesh=mesh)
     names = [n for n, _ in model.named_parameters()]
     return ({k: float(v.detach()) for k, v in metrics.items()},
             dict(zip(names, [_np(g) for g in got["grads"]])),
@@ -195,21 +196,34 @@ def _tp_step(mesh, cfg_kw, flat, x, y):
 
 # ------------------------------------------------------------- world 2
 
-def world2(rank, world, zoo_case, swin_case, toy_case, moe_cases, text_case):
+def world2(rank, world, zoo_case, swin_case, e2e_case, toy_case, moe_cases,
+           text_case):
     from mvuld_tpu_torch.models.dropout import keep_mask
-    from mvuld_tpu_torch.parallel.mesh import make_mesh, rank_seed
+    from mvuld_tpu_torch.parallel.mesh import make_mesh, step_generator
 
     torch.set_num_threads(1)
     mesh = make_mesh()
     out = {"zoo": _dp_parity(mesh, *zoo_case),
            "swin": _dp_parity(mesh, *swin_case),
+           "e2e": _dp_parity(mesh, *e2e_case),
            "toy": _learns(mesh, *toy_case),
            "moe": [_moe(rank, world, *case) for case in moe_cases]}
-    gen = torch.Generator().manual_seed(rank_seed(mesh, 0))
-    mask = keep_mask((64,), 0.5, gen, "cpu")
-    out["masks"] = _np(cc.all_gather(mask[None].float(), mesh.dp_group))
+    # this rank's rows (half) of a dropout and a DropPath mask
+    gen = step_generator(mesh, "cpu", 0)
+    out["masks"] = [_np(cc.all_gather(keep_mask(shape, rate, gen, "cpu")
+                                      .float(), mesh.dp_group))
+                    for shape, rate in MASKS]
     out["text"] = [_train_text(argv) for argv in text_case]
     return out
+
+
+MASKS = (((4, 5, 3), 0.3), ((8,), 0.5))     # a rank's shapes, rates
+
+
+def superbatch_world2(rank, world, sb):
+    """This rank's ``shard_superbatch`` block of ``sb`` (numpy)."""
+    from mvuld_tpu_torch.parallel.mesh import make_mesh, shard_superbatch
+    return shard_superbatch(make_mesh(), sb)
 
 
 def zoo_model(sizes):
@@ -231,23 +245,45 @@ def swin_model(cfg_kw, flat):
     return m
 
 
+def e2e_model(opts):
+    """A tiny ``EndToEndMVulD`` (plain layers, fp32, every line slot
+    encoded) with seed-0 JAX-like weights, its dropout rates the config's."""
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    m = build_e2e_model(cfg, 50, node_capacity=None)[0]
+    init_jax_like(m, torch.Generator().manual_seed(0))
+    return m
+
+
 def _zoo_inputs(batch):
     return {k: v for k, v in batch.items() if k != "label"}
 
 
-def _dp_parity(mesh, build, batch, inputs_name):
+def _dp_parity(mesh, build, batch, inputs_name, seed=None):
     """One step at world 1 (whole batch, no mesh) against the data-parallel
     step (this rank's rows, synced BatchNorm): metrics, gradients, the
-    state dict after the step (parameters and BatchNorm statistics)."""
-    from mvuld_tpu_torch.core.train_state import image_inputs
+    state dict after the step (parameters and BatchNorm statistics). With
+    ``seed`` both steps draw their masks: world 1 from a plain generator,
+    the ranks from their step generators."""
+    from mvuld_tpu_torch.core.train_state import image_inputs, model_inputs
+    from mvuld_tpu_torch.models.dropout import rank_generator
     from mvuld_tpu_torch.parallel.mesh import (replicate, shard_batch,
+                                               step_generator,
                                                sync_batch_norm)
-    inputs = {"zoo": _zoo_inputs, "image": image_inputs}[inputs_name]
+    inputs = {"zoo": _zoo_inputs, "image": image_inputs,
+              "e2e": model_inputs}[inputs_name]
     batch = {k: torch.tensor(v) for k, v in batch.items()}
     torch.manual_seed(0)
-    one, g1, sd1 = _step(build(), batch, inputs)
+    gens = ((None, None) if seed is None else
+            (rank_generator("cpu", seed), step_generator(mesh, "cpu", seed)))
+    one, g1, sd1 = _step(build(), batch, inputs, gen=gens[0])
     model = sync_batch_norm(mesh, replicate(mesh, build()))
-    dp, g2, sd2 = _step(model, shard_batch(mesh, batch), inputs, mesh)
+    dp, g2, sd2 = _step(model, shard_batch(mesh, batch), inputs, mesh,
+                        gen=gens[1])
     return {"one": one, "dp": dp, "grads": (g1, g2), "state": (sd1, sd2)}
 
 
