@@ -1717,14 +1717,15 @@ def _graph_restore(run, gen, state):
     gen.set_state(rng)
 
 
-def _graph_vs_eager(label, run, sb, gen, k, dev):
-    """The first call of ``run.multi_step(k)`` on ``sb`` (K eager warm-up
-    steps, then the capture); from the state it leaves, K eager
-    ``train_step``s on the same batches against one replay: the K losses
-    within FUSED_LOSS_TOL, the update p_K − p_0 within FUSED_UPDATE_TOL
-    (relative L2 of the difference over the eager update), the DropPath
-    masks to the bit. Returns (the multi-step, the device batches, eager
-    s/step, first call's s)."""
+def _graph_vs_eager(label, run, sb, gen, k):
+    """The first call of ``run.multi_step(k)`` on the host superbatch ``sb``
+    (K eager warm-up steps, then the capture); from the state it leaves, K
+    eager steps (``run.multi_step(k, capture=False)``, the plain version)
+    on the same superbatch against one replay: the K losses within
+    FUSED_LOSS_TOL, the update p_K − p_0 within FUSED_UPDATE_TOL (relative
+    L2 of the difference over the eager update), the DropPath masks to the
+    bit. Returns (the multi-step, the plain version, eager s/step, first
+    call's s)."""
     import torch
 
     from mvuld_tpu_torch.models import swin_v2
@@ -1737,6 +1738,7 @@ def _graph_vs_eager(label, run, sb, gen, k, dev):
         return drawn[-1]
 
     multi = run.multi_step(k)
+    plain = run.multi_step(k, capture=False)
     swin_v2.keep_mask = keep
     try:
         torch.cuda.synchronize()
@@ -1746,11 +1748,9 @@ def _graph_vs_eager(label, run, sb, gen, k, dev):
         first_s = time.perf_counter() - t0
         start = _graph_state(run, gen)
         n = len(drawn)
-        batches = [{key: torch.as_tensor(v[i], device=dev)
-                    for key, v in sb.items()} for i in range(k)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eager = [run.step(b, gen) for b in batches]
+        eager = plain(sb, gen)
         torch.cuda.synchronize()
         eager_s = (time.perf_counter() - t0) / k
         eager_masks = drawn[n:]
@@ -1760,7 +1760,7 @@ def _graph_vs_eager(label, run, sb, gen, k, dev):
         torch.cuda.synchronize()
     finally:
         swin_v2.keep_mask = inner
-    le = torch.stack([m["loss"] for m in eager]).double()
+    le = eager["loss"].double()
     lg = got["loss"].double()
     loss_rel = float(((lg - le).abs() / le.abs()).max())
     num = sum(float((p.detach().double() - e.double()).norm() ** 2)
@@ -1782,7 +1782,7 @@ def _graph_vs_eager(label, run, sb, gen, k, dev):
             and den > 0 and num <= FUSED_UPDATE_TOL * den and masks):
         raise AssertionError(f"fused_steps {label}: replay differs from the "
                              f"eager steps")
-    return multi, batches, eager_s, first_s
+    return multi, plain, eager_s, first_s
 
 
 def fused_steps_phase(dev, counters):
@@ -1791,23 +1791,28 @@ def fused_steps_phase(dev, counters):
     checkpointed, DropPath 0.2), batch SWIN_BATCH: (a) FUSED_K replayed
     steps against FUSED_K eager ``train_step``s from one saved state; (b)
     the capture's seconds, ms/step eager and by replay (median of
-    FUSED_REPLAYS replays, the superbatch on the card), images/s, peak
-    memory; (c) a profile of one replay beside one eager step; (d)
+    FUSED_REPLAYS calls each), images/s, peak memory: both take the host
+    superbatch as ``fit`` hands it over (page-locked by the Prefetcher's
+    ``pin_batch``) and copy it to the card inside the timed call, and one
+    replay takes it from pageable numpy; (c) a profile of one replay call
+    (the copy included) beside one eager step; (d)
     ``train_swin.main --opts TRAIN.FUSED_STEPS FUSED_CLI_K`` (Prefetcher,
     BEST_FETCH async) in a world-1 NCCL group (the gradients' all-reduce
     captured) on a seeded image corpus whose 6 batches leave a remainder,
     its history.json against the unfused run's; (e) a capture
-    at MODEL.DROP_RATE 0.1 and depths FUSED_DROP_DEPTHS (the checkpointed
-    stage's masks replayed from its tape). Returns the launches: the
-    counted ones, each capture's launches counted × its replays."""
+    at MODEL.DROP_RATE 0.1 and depths FUSED_DROP_DEPTHS (inside the capture
+    the checkpointed stage's recomputation takes the masks its first run
+    kept: their bytes are printed). Returns the launches: the counted
+    ones, each capture's launches counted × its replays."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from mvuld_tpu_torch.config import get_config
     from mvuld_tpu_torch.core.train_state import MultiTrainStep
+    from mvuld_tpu_torch.models import dropout
     from mvuld_tpu_torch.parallel.distributed import backend_for, free_port
-    from mvuld_tpu_torch.data.loader import ArrayDataset
+    from mvuld_tpu_torch.data.loader import ArrayDataset, pin_batch
     from mvuld_tpu_torch.train import train_swin
     from mvuld_tpu_torch.train.train_swin import build_swin_training
 
@@ -1850,36 +1855,52 @@ def fused_steps_phase(dev, counters):
             for i in range(K)]
         sb = {key: np.stack([h[key] for h in hosts]) for key in hosts[0]}
         del hosts
+        sb_pin = pin_batch(sb)       # what fit's Prefetcher hands over
         gen = torch.Generator(device=dev).manual_seed(1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # (a)
-        multi, batches, eager_s, first_s = _graph_vs_eager(
-            f"SwinV2-B 448 batch {B}", run, sb, gen, K, dev)
-        # (b) replays with the superbatch on the card
-        sb_dev = {key: torch.as_tensor(v, device=dev) for key, v in sb.items()}
-        times = []
-        for _ in range(FUSED_REPLAYS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            multi(sb_dev, gen)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        multi, plain, first_eager_s, first_s = _graph_vs_eager(
+            f"SwinV2-B 448 batch {B}", run, sb_pin, gen, K)
+
+        # (b) eager and replayed calls on the page-locked host superbatch,
+        # its copy to the card inside each call; one replay from numpy
+        def timed(step, host, n):
+            out = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(host, gen)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return out
+
+        e_times = timed(plain, sb_pin, FUSED_REPLAYS)
+        times = timed(multi, sb_pin, FUSED_REPLAYS)
+        numpy_ms = timed(multi, sb, 1)[0] / K * 1e3
+        eager_s = statistics.median(e_times) / K
         replay_ms = statistics.median(times) / K * 1e3
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"fused_steps times: batch {B}, {K} steps per call: first call "
-              f"{first_s:.2f} s ({K} eager warm-up steps and the capture, "
-              f"capture {multi.capture_s:.2f} s); eager {eager_s * 1e3:.1f} "
-              f"ms/step = {B / eager_s:.2f} images/s; replay "
+        print(f"fused_steps times: batch {B}, {K} steps per call, the host "
+              f"superbatch page-locked as fit's Prefetcher leaves it and "
+              f"copied inside each call: first call {first_s:.2f} s ({K} "
+              f"eager warm-up steps and the capture, capture "
+              f"{multi.capture_s:.2f} s); eager {eager_s * 1e3:.1f} ms/step "
+              f"= {B / eager_s:.2f} images/s (calls "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in e_times)} ms; the "
+              f"comparison's {first_eager_s * 1e3:.1f} ms/step); replay "
               f"{replay_ms:.1f} ms/step = {B / replay_ms * 1e3:.2f} images/s "
-              f"(replays {', '.join(f'{t * 1e3:.1f}' for t in times)} ms per "
-              f"{K} steps); peak memory {peak:.2f} GiB (eager and graph "
-              f"pools) [{card_line()}]", flush=True)
+              f"(calls {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); one "
+              f"replay from pageable numpy {numpy_ms:.1f} ms/step; peak "
+              f"memory {peak:.2f} GiB (eager and graph pools) "
+              f"[{card_line()}]", flush=True)
         # (c)
-        prof_graph = profile_run(f"fused_steps replay ({K} steps, batch {B})",
-                                 lambda: multi(sb_dev, gen))
+        batch0 = {key: v[0].to(dev) for key, v in sb_pin.items()}
+        prof_graph = profile_run(f"fused_steps replay call ({K} steps, "
+                                 f"batch {B}, its copy included)",
+                                 lambda: multi(sb_pin, gen))
         prof_eager = profile_run(f"fused_steps eager step (batch {B})",
-                                 lambda: run.step(batches[0], gen))
+                                 lambda: run.step(batch0, gen))
         g_idle = 1 - prof_graph["busy_ms"] / prof_graph["wall_ms"]
         e_idle = 1 - prof_eager["busy_ms"] / prof_eager["wall_ms"]
         print(f"fused_steps profile: replay wall {prof_graph['wall_ms']:.1f} "
@@ -1888,7 +1909,7 @@ def fused_steps_phase(dev, counters):
               f"{prof_eager['wall_ms']:.1f} ms, busy "
               f"{prof_eager['busy_ms']:.1f}, idle share "
               f"{max(e_idle, 0.0):.3f} [{card_line()}]", flush=True)
-        del multi, batches, sb_dev, run
+        del multi, plain, batch0, sb_pin, run
         settle()
 
         # (e) dropout in the checkpointed stage, reduced depth
@@ -1898,10 +1919,34 @@ def fused_steps_phase(dev, counters):
                                               "MODEL.DROP_RATE", 0.1]),
                                    dev, steps_per_epoch=4 * k)
         dsb = {key: v[:k] for key, v in sb.items()}
-        _graph_vs_eager(f"MODEL.DROP_RATE 0.1 depths {FUSED_DROP_DEPTHS}",
-                        drun, dsb, torch.Generator(device=dev).manual_seed(2),
-                        k, dev)
-        del drun, dsb, sb
+        rngs = []
+        stage_rng = dropout.StageRng.__init__
+
+        def kept(self, *a):
+            stage_rng(self, *a)
+            rngs.append(self)
+
+        dropout.StageRng.__init__ = kept
+        try:
+            _graph_vs_eager(f"MODEL.DROP_RATE 0.1 depths {FUSED_DROP_DEPTHS}",
+                            drun, dsb,
+                            torch.Generator(device=dev).manual_seed(2), k)
+        finally:
+            dropout.StageRng.__init__ = stage_rng
+        tapes = [r.tape for r in rngs if r.tape is not None]
+        held = sum(t.numel() * t.element_size() for tape in tapes
+                   for t in tape)
+        print(f"fused_steps MODEL.DROP_RATE 0.1: {len(rngs) - len(tapes)} "
+              f"checkpointed stage runs rewound their generator (eager), "
+              f"{len(tapes)} inside the capture kept their masks for the "
+              f"recomputation: {sum(map(len, tapes))} masks, "
+              f"{held / 2 ** 20:.1f} MiB in the graph's pool "
+              f"({held / max(len(tapes), 1) / 2 ** 20:.1f} MiB per step)",
+              flush=True)
+        if not tapes or len(tapes) == len(rngs):
+            raise AssertionError("fused_steps: the checkpointed stage's "
+                                 "eager rewind or captured tape never ran")
+        del drun, dsb, sb, rngs, tapes
         settle()
 
         # (d) the trainer CLI, fused and unfused, on seeded images

@@ -26,8 +26,12 @@ The step state lives on the device, so that a CUDA graph of the update
 count and the micro-step are device integers, the learning rate is read
 from the schedule's fp32 table (``core/schedule.lr_table``) at the clamped
 count, the bias corrections are ``torch.pow`` of fp32 betas on the count
-(optax's fp32 arithmetic), and MultiSteps' "emit every k-th call" is a
-device-side select. The eager step runs the same code.
+(optax's fp32 arithmetic), and MultiSteps' "emit every k-th call" gates
+the update's coefficients on the device: a call that does not emit runs
+the update with b1 = b2 = 1, (1 − b1) = (1 − b2) = lr = 0, which leaves
+the moments and parameters exactly as they are. The eager step runs the
+same code. Each operation is one ``torch._foreach_*`` call over a
+device's parameters (a few launches, not one per tensor).
 """
 
 from __future__ import annotations
@@ -63,11 +67,11 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
                           for t in tensors))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
-                        norm: torch.Tensor) -> List[torch.Tensor]:
-    scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                        max_norm / norm)
-    return [g * scale.to(g.dtype) for g in grads]
+def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+    """optax.clip_by_global_norm's factor: 1 below ``max_norm``, else
+    max_norm / ‖g‖."""
+    return torch.where(norm < max_norm, torch.ones_like(norm),
+                       max_norm / norm)
 
 
 class Optimizer:
@@ -107,6 +111,13 @@ class Optimizer:
         dev = self.params[0].device
         self.lrs = lr_table(schedule).to(dev)
         self.betas_t = torch.tensor(betas, dtype=torch.float32, device=dev)
+        # the update's fp32 coefficients (the values of optax's Python
+        # floats), gated on the device under MultiSteps
+        self.consts = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                       for k, v in (("b1", self.b1), ("omb1", 1 - self.b1),
+                                    ("b2", self.b2), ("omb2", 1 - self.b2),
+                                    ("mu", momentum), ("one", 1.0),
+                                    ("zero", 0.0))}
         self.count_t = torch.zeros((), dtype=torch.int64, device=dev)
         self.mini_step_t = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -125,63 +136,109 @@ class Optimizer:
         if self.count_t.device != dev:
             for key in ("lrs", "betas_t", "count_t", "mini_step_t"):
                 setattr(self, key, getattr(self, key).to(dev))
+            self.consts = {k: t.to(dev) for k, t in self.consts.items()}
+
+    def _groups(self) -> List[Tuple[torch.device, List[int]]]:
+        """The parameters' indices by device (a pipeline's stages hold
+        theirs on several): each group's lists go through one ``_foreach``
+        call per operation."""
+        by_dev: Dict[torch.device, List[int]] = {}
+        for i, p in enumerate(self.params):
+            by_dev.setdefault(p.device, []).append(i)
+        return list(by_dev.items())
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
         self._follow_params()
         grads = [g.float() for g in grads]
+        c = self.consts
+        scal = _Scalars()
+        groups = self._groups()
         emit = None                 # MultiSteps: True on every k-th call
         if self.k > 1:
             n1 = self.mini_step_t + 1
-            inv = 1.0 / n1.float()
-            for a, g in zip(self.acc, grads):
-                a.add_((g - a) * inv)
             emit = n1 == self.k
             self.mini_step_t.copy_(torch.where(emit, 0, n1))
+            scal.add(inv=1.0 / n1.float(), keep=(~emit).float())
+            for dev, idx in groups:
+                acc = [self.acc[i] for i in idx]
+                d = torch._foreach_sub([grads[i] for i in idx], acc)
+                torch._foreach_mul_(d, scal.on(dev)["inv"])
+                torch._foreach_add_(acc, d)
             grads = self.acc
         if self.clip is not None:
-            grads = clip_by_global_norm(grads, self.clip, self.norm(grads))
+            scal.add(clip=_clip_scale(self.clip, self.norm(grads)))
         lr = torch.take(self.lrs, self.count_t.clamp(max=len(self.lrs) - 1))
         self.count_t.add_(1 if emit is None else emit.long())
-        count = self.count_t.float()
-        scal = _Scalars(-lr, count, self.betas_t)
+        # the bias corrections at count ≥ 1: a MultiSteps call before the
+        # first emit runs the update with weight 0 and must not divide by
+        # 1 − β⁰ = 0
+        corr = 1 - torch.pow(self.betas_t,
+                             self.count_t.clamp(min=1).float())
 
-        def moment(t, decay, x):
-            """decay·t + x (optax's order), in place unless gated."""
-            return (t.mul_(decay).add_(x) if emit is None
-                    else t.mul(decay).add_(x))
+        def gate(on, off):
+            """``on``; under MultiSteps ``off`` on a call that does not
+            emit, which leaves the moments and parameters as they are."""
+            return on if emit is None else torch.where(emit, on, off)
 
-        def step(p, upd, *moments):
-            """p += upd; under MultiSteps, p and the moments (tensor, new
-            value) change only on an emitting call."""
-            if emit is None:
-                p.add_(upd)
-                return
-            for dst, new in ((p, p + upd),) + moments:
-                dst.copy_(torch.where(emit, new, dst))
+        scal.add(neg_lr=gate(-lr, c["zero"]), c1=corr[0], c2=corr[1])
+        if self.name == "adamw":
+            scal.add(b1=gate(c["b1"], c["one"]), omb1=gate(c["omb1"], c["zero"]),
+                     b2=gate(c["b2"], c["one"]), omb2=gate(c["omb2"], c["zero"]))
+        else:
+            scal.add(mu=gate(c["mu"], c["one"]), g=gate(c["one"], c["zero"]))
+        for dev, idx in groups:
+            self._update_group(dev, idx, grads, scal.on(dev))
+            if emit is not None:
+                torch._foreach_mul_([self.acc[i] for i in idx],
+                                    scal.on(dev)["keep"])
 
+    def _update_group(self, dev, idx: List[int], grads: List[torch.Tensor],
+                      s: Dict[str, torch.Tensor]) -> None:
+        """The clip and the inner step on one device's parameters, in
+        optax's arithmetic: m = b1·m + (1−b1)·g, v = b2·v + (1−b2)·g²,
+        p += −lr·(m/c1 / (√(v/c2) + eps) + wd·p) (AdamW); t = μ·t + g,
+        p += −lr·(g + μ·t) with g += wd·p first (SGD). The coefficients are
+        device scalars (gated under MultiSteps)."""
+        ps = [self.params[i] for i in idx]
+        gs = [grads[i] for i in idx]
+        if "clip" in s:
+            gs = torch._foreach_mul(gs, s["clip"])
+        dec = [j for j, i in enumerate(idx) if self.decay[i]]
         wd = self.weight_decay
         if self.name == "adamw":
-            for p, g, m, v, dec in zip(self.params, grads, self.mu, self.nu,
-                                       self.decay):
-                neg_lr, c1, c2 = scal.on(p.device)
-                m_new = moment(m, self.b1, g * (1 - self.b1))
-                v_new = moment(v, self.b2, g * g * (1 - self.b2))
-                u = (m_new / c1) / (torch.sqrt(v_new / c2) + self.eps)
-                if dec:
-                    u = u + wd * p
-                step(p, u * neg_lr, (m, m_new), (v, v_new))
+            ms = [self.mu[i] for i in idx]
+            vs = [self.nu[i] for i in idx]
+            torch._foreach_mul_(ms, s["b1"])
+            torch._foreach_add_(ms, torch._foreach_mul(gs, s["omb1"]))
+            sq = torch._foreach_mul(gs, gs)
+            torch._foreach_mul_(sq, s["omb2"])
+            torch._foreach_mul_(vs, s["b2"])
+            torch._foreach_add_(vs, sq)
+            del sq
+            den = torch._foreach_div(vs, s["c2"])
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            upd = torch._foreach_div(ms, s["c1"])
+            torch._foreach_div_(upd, den)
+            del den
+            if dec:
+                torch._foreach_add_([upd[j] for j in dec],
+                                    [ps[j] for j in dec], alpha=wd)
         else:
-            mu = self.momentum
-            for p, g, t, dec in zip(self.params, grads, self.mu, self.decay):
-                neg_lr = scal.on(p.device)[0]
-                if dec:
-                    g = g + wd * p
-                t_new = moment(t, mu, g)
-                step(p, (g + mu * t_new) * neg_lr, (t, t_new))
-        if emit is not None:
-            for a in self.acc:
-                a.masked_fill_(emit, 0.0)
+            ts = [self.mu[i] for i in idx]
+            if dec:
+                gs = list(gs)
+                for j, g in zip(dec, torch._foreach_add(
+                        [gs[j] for j in dec], [ps[j] for j in dec],
+                        alpha=wd)):
+                    gs[j] = g
+            torch._foreach_mul_(ts, s["mu"])
+            torch._foreach_add_(ts, torch._foreach_mul(gs, s["g"]))
+            upd = torch._foreach_mul(ts, self.momentum)
+            torch._foreach_add_(upd, gs)
+        torch._foreach_mul_(upd, s["neg_lr"])
+        torch._foreach_add_(ps, upd)
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mini_step": self.mini_step,
@@ -196,17 +253,20 @@ class Optimizer:
 
 
 class _Scalars:
-    """−lr and the bias corrections 1 − βᵗ of one update, copied once to
-    each device the parameters hold (a pipeline's stages)."""
+    """One update's device scalars by name, copied once to each device the
+    parameters hold (a pipeline's stages)."""
 
-    def __init__(self, neg_lr, count, betas):
-        c = 1 - torch.pow(betas, count)
-        self._by_dev = {neg_lr.device: (neg_lr, c[0], c[1])}
+    def __init__(self):
+        self._by_dev: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._first: Dict[str, torch.Tensor] = {}
 
-    def on(self, dev):
+    def add(self, **scalars: torch.Tensor) -> None:
+        self._first.update(scalars)
+        self._by_dev.clear()
+
+    def on(self, dev) -> Dict[str, torch.Tensor]:
         if dev not in self._by_dev:
-            first = next(iter(self._by_dev.values()))
-            self._by_dev[dev] = tuple(t.to(dev) for t in first)
+            self._by_dev[dev] = {k: t.to(dev) for k, t in self._first.items()}
         return self._by_dev[dev]
 
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvuld_tpu_torch.core.optim import Optimizer
+from mvuld_tpu_torch.models.dropout import base_generator
 
 
 Inputs = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
@@ -163,7 +164,8 @@ class MultiTrainStep:
                              "(data); a direct one takes none")
         dev = self._device()
         if dev.type != "cuda" or self.capture is False:
-            sb = {k: torch.as_tensor(v).to(dev) for k, v in superbatch.items()}
+            sb = {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                  for k, v in superbatch.items()}
             return _superbatch_steps(self.model, self.opt, sb, gen,
                                      self.num_steps, *self.args, data)
         if self.graph is None:
@@ -177,7 +179,8 @@ class MultiTrainStep:
         return {k: v.clone() for k, v in self.metrics.items()}
 
     def load(self, superbatch: Mapping) -> None:
-        """Copy a superbatch into the graph's static input buffers."""
+        """Copy a superbatch into the graph's static input buffers
+        (asynchronously from page-locked memory, ``data/loader.pin_batch``)."""
         if set(superbatch) != set(self.static):
             raise ValueError(f"superbatch keys {sorted(superbatch)} != the "
                              f"captured {sorted(self.static)}")
@@ -186,7 +189,7 @@ class MultiTrainStep:
             if v.shape != self.static[k].shape:
                 raise ValueError(f"superbatch {k!r} {tuple(v.shape)} != the "
                                  f"captured {tuple(self.static[k].shape)}")
-            self.static[k].copy_(v)
+            self.static[k].copy_(v, non_blocking=True)
 
     def capture_graph(self, superbatch: Mapping,
                       gen: Optional[torch.Generator],
@@ -218,7 +221,7 @@ class MultiTrainStep:
         ``gen`` (registered with the graph)."""
         graph = torch.cuda.CUDAGraph()
         if gen is not None:
-            graph.register_generator_state(gen)
+            graph.register_generator_state(base_generator(gen))
         with torch.cuda.graph(graph):
             self.metrics = _superbatch_steps(
                 self.model, self.opt, self.static, gen, self.num_steps,

@@ -12,7 +12,9 @@ Two iteration modes mirror the reference:
     code can drop padding (the reference gathers all logits and slices).
 
 ``Prefetcher`` runs a batch iterator in a background thread (the trainer
-harness wraps every epoch's batches in one).
+harness wraps every epoch's batches in one); ``pin_batch`` copies a host
+batch into page-locked memory there, so that the training thread's copy
+to the card is an asynchronous DMA.
 """
 
 from __future__ import annotations
@@ -85,7 +87,6 @@ def steps_per_epoch(n: int, batch_size: int) -> int:
     return n // batch_size
 
 
-
 class Prefetcher:
     """Background-thread prefetch over a batch iterator (the JAX package's
     ``Prefetcher``; the reference's DataLoader(num_workers=8)): a producer
@@ -125,3 +126,11 @@ class Prefetcher:
                     raise self._err
                 return
             yield item
+
+
+def pin_batch(batch: Dict) -> Dict:
+    """A host batch's arrays as page-locked CPU tensors (same dtypes and
+    values), for ``.to(device, non_blocking=True)``."""
+    import torch
+    return {k: torch.as_tensor(np.asarray(v)).pin_memory()
+            for k, v in batch.items()}

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mvuld_tpu_torch.models.dropout import SlotRows
 from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
 from mvuld_tpu_torch.models.roberta import (RobertaConfig, RobertaEncoder,
                                             masked_mean)
@@ -30,7 +31,11 @@ class EndToEndMVulD(nn.Module):
     lines (node_mask > 0) are stable-sorted to the front — original order
     preserved — into a [node_capacity, Tn] batch, encoded once, and
     scattered back to [B, N, H]. Lines beyond capacity get a zero embedding.
-    ``None`` encodes every slot (the parity reference path)."""
+    ``None`` encodes every slot (the parity reference path). A packed
+    line's dropout masks are its slot's rows of masks drawn over all B·N
+    slots (``models/dropout.SlotRows``), as an unpacked run draws them, so
+    they do not depend on the line's place in the pack (one rank and dp
+    ranks pack differently)."""
 
     def __init__(self, text_config: RobertaConfig, swin_config: SwinV2Config,
                  hidden: int = 512, num_classes: int = 2, num_rs_gcn: int = 8,
@@ -77,7 +82,8 @@ class EndToEndMVulD(nn.Module):
             took = valid[sel].float()
             packed = flat[sel]                                    # [P, Tn]
             pmask = (packed != pad).long()
-            pemb = (masked_mean(encoder(packed, pmask, gen), pmask)
+            pgen = None if gen is None else SlotRows(gen, B * N, sel)
+            pemb = (masked_mean(encoder(packed, pmask, pgen), pmask)
                     * took[:, None])
             node_flat = torch.zeros((B * N, pemb.shape[-1]), dtype=pemb.dtype,
                                     device=pemb.device).index_put((sel,), pemb)

@@ -16,8 +16,8 @@ output — on the kernel path the last is K4's {0,1} keep-mask of hidden's
 shape and dtype, drawn where the plain path draws its dropout mask.
 ``remat`` checkpoints each layer in training (``torch.utils.checkpoint``,
 the JAX ``RobertaEncoder(remat=True)``): a layer's activations are rebuilt
-in the backward pass, and the rebuilt layer replays the dropout masks
-its first run recorded (``models/dropout.MaskTape``). ``causal`` adds the
+in the backward pass, and the rebuilt layer draws the dropout masks its
+first run drew (``models/dropout.StageRng``). ``causal`` adds the
 decoder-only mode's lower-triangular bias (``UniXcoderLM``).
 """
 
@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvuld_tpu_torch.models.dropout import MaskTape, dropout, keep_mask
+from mvuld_tpu_torch.models.dropout import StageRng, dropout, keep_mask
 from mvuld_tpu_torch.models.swin_v2 import acc_dtype, layer_norm, linear
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln_res
 
@@ -150,14 +150,14 @@ class TransformerLayer(nn.Module):
 def checkpointed_layer(layer: nn.Module, hidden: torch.Tensor,
                        attn_bias: torch.Tensor, gen) -> torch.Tensor:
     """``layer(hidden, attn_bias, gen)`` under activation checkpointing. The
-    layer draws through a ``MaskTape``: the recomputation replays the first
+    layer draws through a ``StageRng``: the recomputation draws the first
     run's masks, and ``gen`` advances once."""
-    tape = MaskTape(gen) if gen is not None else None
-
-    def run(h, b):
-        if tape is not None:
-            tape.start()
-        return layer(h, b, tape)
+    if gen is None:
+        return checkpoint(layer, hidden, attn_bias, use_reentrant=False,
+                          preserve_rng_state=False)
+    rng = StageRng(gen)
+    return checkpoint(lambda h, b: rng.run(layer, h, b), hidden, attn_bias,
+                      use_reentrant=False, preserve_rng_state=False)
 
     return checkpoint(run, hidden, attn_bias, use_reentrant=False,
                       preserve_rng_state=False)

@@ -29,8 +29,8 @@ drawn from ``gen`` for a whole stage before the stage runs, and
 does, the patch embedding, the MLP after GELU and after fc2, and the
 attention's projection; with ``attn_drop_rate`` > 0 (no config key, as in
 JAX) the attention probabilities. Those masks come from ``gen`` too; a
-checkpointed stage draws them through a ``MaskTape`` (``models/dropout.py``)
-that records them, so its recomputation drops the same elements. The kernel
+checkpointed stage draws them through a ``StageRng`` (``models/dropout.py``),
+so its recomputation drops the same elements. The kernel
 paths follow JAX's conditions: ``drop_rate`` > 0 runs the plain MLP (not
 K3/K3b), ``attn_drop_rate`` > 0 the plain attention (not K1/K2/K5), and
 dropout on the projection alone keeps the attention kernel. Under
@@ -66,7 +66,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from mvuld_tpu_torch.models.dropout import MaskTape, dropout, keep_mask
+from mvuld_tpu_torch.models.dropout import StageRng, dropout, keep_mask
 from mvuld_tpu_torch.ops.fused_dense import gelu, mlp_ln
 from mvuld_tpu_torch.ops.window_attention import (
     flat_attention, window_attention_flat, window_attention_flat_sharded)
@@ -506,12 +506,10 @@ class BasicLayer(nn.Module):
 
 
 def _replay_stage(layer: BasicLayer, x, drops, store: dict,
-                  tape: MaskTape):
-    """A checkpointed stage with element-wise dropout: the first run draws
-    its masks through ``tape`` and records them, the recomputation replays
-    them."""
-    tape.start()
-    return layer(x, drops, store, tape)
+                  rng: StageRng):
+    """A checkpointed stage with element-wise dropout: the recomputation
+    draws the first run's masks through ``rng``."""
+    return rng.run(layer, x, drops, store)
 
 
 class SwinTransformerV2(nn.Module):
@@ -582,7 +580,7 @@ class SwinTransformerV2(nn.Module):
             first += n
             if train and i in self.remat_stages:
                 store: dict = {}
-                # the stage draws from no generator but the tape, so the
+                # the stage draws from no generator but ``egen``, so the
                 # checkpoint keeps no generator state
                 if egen is None:
                     x = torch.utils.checkpoint.checkpoint(
@@ -591,7 +589,7 @@ class SwinTransformerV2(nn.Module):
                 else:
                     x = torch.utils.checkpoint.checkpoint(
                         _replay_stage, layer, x, drops, store,
-                        MaskTape(egen), use_reentrant=False,
+                        StageRng(egen), use_reentrant=False,
                         preserve_rng_state=False)
             else:
                 x = layer(x, drops, None, egen)

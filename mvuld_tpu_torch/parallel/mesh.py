@@ -200,11 +200,10 @@ def sync_batch_norm(mesh: Mesh, module: nn.Module) -> nn.Module:
     return module
 
 
-def step_generator(mesh: Optional[Mesh], device, seed: int
-                   ) -> torch.Generator:
+def step_generator(mesh: Optional[Mesh], device, seed: int):
     """The training step's generator: seeded ``seed`` on every rank; under
-    dp it draws each mask over the global batch and keeps this rank's
-    rows (``models/dropout.rank_generator``). The mp ranks of a dp block
+    dp a ``models/dropout.DPGenerator``, which draws each mask over the
+    global batch and keeps this rank's rows. The mp ranks of a dp block
     draw alike (they compute the same rows)."""
     from mvuld_tpu_torch.models.dropout import rank_generator
     if mesh is None:

@@ -13,8 +13,10 @@ DEVICE_EVAL) a split's columns already live on the device and its host
 batches carry only row indices ("idx"), gathered on the device.
 
 Every epoch's host batches come through a ``Prefetcher`` thread, which
-runs ``batch_hook`` and stacks superbatches while the device trains; the
-copies to the device are made on the training thread. With
+runs ``batch_hook``, stacks superbatches and, for the card, copies each
+batch into page-locked memory (``data/loader.pin_batch``) while the device
+trains; the training thread only issues the asynchronous copies to the
+device. With
 ``multi_step`` (``core/train_state.make_multi_train_step``) and
 ``fused_steps`` K > 1, K host batches are stacked into a [K, B, ...]
 superbatch and trained in one call (a CUDA graph replay on the card); the
@@ -51,7 +53,8 @@ from mvuld_tpu_torch.core.train_state import (EarlyStopper, Inputs,
                                               eval_step, model_inputs,
                                               train_step)
 from mvuld_tpu_torch.data.loader import (ArrayDataset, Prefetcher,
-                                         eval_batches, train_batches)
+                                         eval_batches, pin_batch,
+                                         train_batches)
 
 
 def to_device(batch: Dict[str, np.ndarray], device,
@@ -65,8 +68,8 @@ def to_device(batch: Dict[str, np.ndarray], device,
         if "label" in batch and "label" not in out:
             out["label"] = torch.as_tensor(batch["label"], device=device)
         return out
-    return {k: torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items()}
+    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+            .to(device, non_blocking=True) for k, v in batch.items()}
 
 
 def run_eval(model, ds: ArrayDataset, batch_size: int, device,
@@ -218,12 +221,18 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         for batch in pending_batches:     # the epoch's remainder
             yield False, shard(batch), it, batch_size
 
+    def place(item):
+        """The Prefetcher's last host step: the batch page-locked."""
+        if torch.device(device).type != "cuda":
+            return item
+        return (item[0], pin_batch(item[1])) + item[2:]
+
     eval_dd = eval_device_data or {}
     for epoch in range(start_epoch, cfg.TRAIN.EPOCHS):
         t_epoch = time.time()
         loss_meter, speed_meter = AverageMeter(), WindowRate()
         for is_multi, b, it, n_done in Prefetcher(host_stream(epoch),
-                                                  depth=2):
+                                                  place, depth=2):
             if is_multi:
                 metrics = (multi_step({"idx": b["idx"]}, gen, device_data)
                            if device_data is not None

@@ -85,13 +85,14 @@ class SwinTraining:
         return train_step(self.model, self.opt, batch, gen,
                           self.label_smoothing, image_inputs, mesh=self.mesh)
 
-    def multi_step(self, num_steps: int):
-        """``num_steps`` steps per call on a [K, B, ...] superbatch."""
+    def multi_step(self, num_steps: int, capture: Optional[bool] = None):
+        """``num_steps`` steps per call on a [K, B, ...] superbatch
+        (``capture=False``: eager steps on the card too)."""
         from mvuld_tpu_torch.core.train_state import (image_inputs,
                                                       make_multi_train_step)
         return make_multi_train_step(self.model, self.opt, num_steps,
                                      self.label_smoothing, image_inputs,
-                                     mesh=self.mesh)
+                                     mesh=self.mesh, capture=capture)
 
 
 def build_swin_training(cfg, device, steps_per_epoch: int = 1,

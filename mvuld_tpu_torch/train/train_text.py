@@ -135,6 +135,7 @@ def pipelined_classifier(config, num_classes: int, stages: int,
     dropout keys come from one seed drawn from the step's generator."""
     import torch
 
+    from mvuld_tpu_torch.models.dropout import base_generator
     from mvuld_tpu_torch.models.roberta import masked_mean
     from mvuld_tpu_torch.models.swin_v2 import linear
     from mvuld_tpu_torch.models.unixcoder import UniXcoderClassifier
@@ -149,7 +150,8 @@ def pipelined_classifier(config, num_classes: int, stages: int,
         def forward(self, source_ids, train=False, gen=None):
             ids = source_ids.long()
             mask = (ids != config.pad_token_id).long()
-            seed = (int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+            seed = (int(torch.randint(0, 2 ** 62, (1,),
+                                      generator=base_generator(gen),
                                       device=gen.device).item())
                     if train and gen is not None else None)
             tokens = roberta_pipeline_forward(

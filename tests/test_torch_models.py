@@ -237,6 +237,37 @@ def test_e2e_matches_jax(capacity):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+def test_e2e_packed_lines_draw_their_slots_masks():
+    """Training with dropout (the text tower's 0.1) and DropPath 0.2: the
+    valid lines packed into fewer rows than there are line slots give the
+    logits of every slot encoded, because a packed line's dropout masks
+    are its slot's rows of the masks drawn over all slots
+    (``models/dropout.SlotRows``); fp32 within 1e-5."""
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+
+    cfg = get_config(SimpleNamespace(
+        cfg=None, opts=E2E_OPTS + ["MODEL.DROP_PATH_RATE", "0.2"],
+        output="unused"))
+    inp = {k: torch.as_tensor(v) for k, v in _e2e_inputs(4, cfg).items()}
+    valid = int(inp["node_mask"].sum())
+    slots = inp["node_mask"].numel()
+    assert valid < slots
+    out = []
+    for capacity in (None, valid):
+        m = build_e2e_model(cfg, 50, node_capacity=capacity)[0]
+        init_jax_like(m, torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(5)
+        out.append(m(inp["func_ids"].long(), inp["node_ids"].long(),
+                     inp["image"], inp["pos"], inp["adj"] > 0,
+                     inp["node_mask"], train=True, gen=gen).detach())
+    np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_converter_raises_on_unused_and_unset():
     from mvuld_tpu_torch.models.fusion_zoo import MultiDefectAblation
 

@@ -307,6 +307,13 @@ E2E_DROP = E2E_OPTS + ["MODEL.DROP_PATH_RATE", "0.2",
                        "TRAIN.REMAT_STAGES", "[1]"]
 
 
+# the line-packing capacities of world 1 (8 rows, 48 line slots) and of a
+# rank (4 rows, 24 slots): below the slots, so both pack, and at least the
+# valid lines (35 of the batch, 17 and 18 of the ranks' halves), so no line
+# is dropped and both encode the same lines
+E2E_CAPACITY = (40, 20)
+
+
 def _e2e_cfg():
     from types import SimpleNamespace
 
@@ -357,8 +364,9 @@ def world2(tmp_path_factory):
         (functools.partial(workers.zoo_model, ZOO_SIZES), zoo_batch, "zoo"),
         (functools.partial(workers.swin_model, TP_SWIN, flat), swin_batch,
          "image"),
-        (functools.partial(workers.e2e_model, E2E_DROP), e2e_batch, "e2e",
-         3),
+        (functools.partial(workers.e2e_model, E2E_DROP, E2E_CAPACITY[0]),
+         e2e_batch, "e2e", 3,
+         functools.partial(workers.e2e_model, E2E_DROP, E2E_CAPACITY[1])),
         (xs, ys), [(kw, p, moe_x, True) for kw, p, _, _ in moe],
         (argv_test, argv_train), timeout=WORLD_TIMEOUT)
     return dict(res=res, moe=moe, text_one=one, ys=ys, run=run)
@@ -413,9 +421,12 @@ def test_dp_step_equals_one_rank(world2, which):
 
 def test_dp_step_with_dropout_equals_one_rank(world2):
     """The tiny e2e model with dropout and DropPath on (a checkpointed
-    SwinV2 stage and checkpointed text layers among them): each rank draws
-    the global batch's masks and keeps its rows, so the world-2 step
-    equals the world-1 step within the bounds of the rate-0 steps. The
+    SwinV2 stage and checkpointed text layers among them) and its code
+    lines packed (E2E_CAPACITY: world 1 and each rank pack them into
+    different rows): each rank draws the global batch's masks and keeps
+    its rows, the packed lines' masks those of their line slots, so the
+    world-2 step equals the world-1 step within the bounds of the rate-0
+    steps. The
     fusion head's batch-statistics BatchNorm after the image projection
     makes the gradient of SwinV2's final LayerNorm, which feeds the pooled
     embedding, vanish in exact arithmetic (the bias's sums to zero over

@@ -245,16 +245,17 @@ def swin_model(cfg_kw, flat):
     return m
 
 
-def e2e_model(opts):
-    """A tiny ``EndToEndMVulD`` (plain layers, fp32, every line slot
-    encoded) with seed-0 JAX-like weights, its dropout rates the config's."""
+def e2e_model(opts, node_capacity=None):
+    """A tiny ``EndToEndMVulD`` (plain layers, fp32; its valid lines packed
+    into ``node_capacity`` rows, every line slot encoded for None) with
+    seed-0 JAX-like weights, its dropout rates the config's."""
     from types import SimpleNamespace
 
     from mvuld_tpu_torch.config import get_config
     from mvuld_tpu_torch.models.convert import init_jax_like
     from mvuld_tpu_torch.train.train_e2e import build_e2e_model
     cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
-    m = build_e2e_model(cfg, 50, node_capacity=None)[0]
+    m = build_e2e_model(cfg, 50, node_capacity=node_capacity)[0]
     init_jax_like(m, torch.Generator().manual_seed(0))
     return m
 
@@ -263,12 +264,14 @@ def _zoo_inputs(batch):
     return {k: v for k, v in batch.items() if k != "label"}
 
 
-def _dp_parity(mesh, build, batch, inputs_name, seed=None):
+def _dp_parity(mesh, build, batch, inputs_name, seed=None, build_dp=None):
     """One step at world 1 (whole batch, no mesh) against the data-parallel
     step (this rank's rows, synced BatchNorm): metrics, gradients, the
     state dict after the step (parameters and BatchNorm statistics). With
     ``seed`` both steps draw their masks: world 1 from a plain generator,
-    the ranks from their step generators."""
+    the ranks from their step generators. ``build_dp`` builds the ranks'
+    model when it differs from world 1's (a packing capacity for half the
+    rows)."""
     from mvuld_tpu_torch.core.train_state import image_inputs, model_inputs
     from mvuld_tpu_torch.models.dropout import rank_generator
     from mvuld_tpu_torch.parallel.mesh import (replicate, shard_batch,
@@ -281,7 +284,7 @@ def _dp_parity(mesh, build, batch, inputs_name, seed=None):
     gens = ((None, None) if seed is None else
             (rank_generator("cpu", seed), step_generator(mesh, "cpu", seed)))
     one, g1, sd1 = _step(build(), batch, inputs, gen=gens[0])
-    model = sync_batch_norm(mesh, replicate(mesh, build()))
+    model = sync_batch_norm(mesh, replicate(mesh, (build_dp or build)()))
     dp, g2, sd2 = _step(model, shard_batch(mesh, batch), inputs, mesh,
                         gen=gens[1])
     return {"one": one, "dp": dp, "grads": (g1, g2), "state": (sd1, sd2)}
