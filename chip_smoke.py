@@ -57,7 +57,16 @@ Phases, in order; any failure exits non-zero:
      group (the Prefetcher, BEST_FETCH async, a remainder of single steps)
      against the unfused run; a capture with dropout in the checkpointed
      stage at reduced depth; the kernels counted as captured launches ×
-     replays;
+     replays; then the same graphs on the BatchNorm models at
+     ``bench.py``'s two cells (``fused_models``): the production fusion
+     head at batch 256 × 8 steps (direct, and indexed over resident
+     columns) and the e2e model at batch 16 × 4 steps with 512 packed line
+     rows through K1-K4b, each replay against its eager steps from one
+     saved state (losses, update, BatchNorm running statistics, every
+     keep-mask to the bit), ms/step eager and by replay, functions/s, peak
+     memory, a profiled replay beside an eager step, launches captured ×
+     replays; and the packed lines' slot-layout mask draws (F20) timed
+     alone against draws over the packed rows;
   7. the block microbenchmark (``tools/blockbench.py``): its five variants
      of the stage-3 MLP half, fwd_bwd at batch 64, one JSON line each, the
      K6/K6b launches counted in v3's run;
@@ -186,6 +195,16 @@ FUSED_CLI_BATCH = 16
 FUSED_CLI_SPLITS = (6 * FUSED_CLI_BATCH, 32, 32)   # 6 batches: 4 + 2 single
 FUSED_DROP_K = 4         # the dropout capture (reduced depth)
 FUSED_DROP_DEPTHS = [2, 2, 2, 2]
+FUSED_STATS_TOL = 1e-5   # BatchNorm running statistics, replay vs eager, rel L2
+# the fused_models phase: bench.py's fusion and e2e cells through
+# make_multi_train_step (its _fusion_bench and _e2e_bench)
+FM_FUSION_B, FM_FUSION_K = 256, 8
+FM_E2E_B, FM_E2E_K = 16, 4
+FM_FUSION_LR, FM_E2E_LR = 1e-4, 1e-5   # bench.py's constant rates
+FM_SMOOTHING = 0.1
+FM_VALID = (5, 41)       # valid lines per function: U(5, 40) of 100 slots
+FM_IDS = 1000            # token ids drawn from [3, FM_IDS)
+F20_ITERS = 10           # timed steps of the packed lines' mask draws
 SCORE_BYTES = 2 ** 32    # a plain attention version's fp32 scores per chunk
 KEEP = 0.9              # RoBERTa dropout 0.1: K4/K4b's keep probability
 TRAIN_STEPS = 3          # timed steps per path, after one warm-up step
@@ -410,6 +429,15 @@ SWIN_OPTS = MODEL_OPTS[:16] + [
     "TRAIN.WEIGHT_DECAY", 1e-8, "TRAIN.BASE_LR", 2e-5,
     "TRAIN.WARMUP_LR", 2e-8, "TRAIN.MIN_LR", 2e-7, "SEED", 0]
 SWIN_BLOCKS = 24                # K1 launches per forward
+# the production fusion head at its published widths
+# (configs/fusion_multi_defect_new_gcn.yaml), batch as bench.py trains it
+FUSION_OPTS = ["MODEL.MULTI.ARCH", "multi_defect_new_gcn",
+               "MODEL.MULTI.HIDDEN", 512, "MODEL.MULTI.GAT_HEADS", 4,
+               "MODEL.MULTI.NUM_HIDDEN_FC", 8, "MODEL.MULTI.NUM_RS_GCN", 8,
+               "MODEL.NUM_CLASSES", 2, "MODEL.LABEL_SMOOTHING", FM_SMOOTHING,
+               "DATA.GTYPE", "all", "DATA.MAX_NODES", 100,
+               "DATA.BATCH_SIZE", FM_FUSION_B, "TRAIN.WEIGHT_DECAY", 0.005,
+               "TRAIN.CLIP_GRAD", 5.0, "SEED", 12345]
 TRAIN_OPTS = ["DATA.BATCH_SIZE", BATCH, "TRAIN.USE_CHECKPOINT", True,
               "TRAIN.REMAT_STAGES", [2], "TRAIN.TEXT_REMAT", "off",
               "TRAIN.EPOCHS", 1, "TRAIN.BEST_SAVE", "params", "SAVE_FREQ", 0,
@@ -1696,93 +1724,242 @@ def swin_phase(dev, counters):
 
 
 def _graph_state(run, gen):
-    """The training state a replay reads: parameters, the optimizer's
-    moments and counters, the step generator."""
+    """The training state a replay reads: parameters, the module buffers
+    (BatchNorm's running statistics), the optimizer's moments and
+    counters, the step generator."""
     opt = run.opt
     return ([p.detach().clone() for p in opt.params],
             [t.clone() for t in opt.mu + opt.nu + opt.acc],
-            (opt.count_t.clone(), opt.mini_step_t.clone()), gen.get_state())
+            (opt.count_t.clone(), opt.mini_step_t.clone()), gen.get_state(),
+            [b.clone() for b in run.model.buffers()])
 
 
 def _graph_restore(run, gen, state):
     import torch
-    params, moments, (count, mini), rng = state
+    params, moments, (count, mini), rng, buffers = state
     opt = run.opt
     with torch.no_grad():
-        for t, v in zip(opt.params + opt.mu + opt.nu + opt.acc,
-                        params + moments):
+        for t, v in zip(opt.params + opt.mu + opt.nu + opt.acc
+                        + list(run.model.buffers()),
+                        params + moments + buffers):
             t.copy_(v)
     opt.count_t.copy_(count)
     opt.mini_step_t.copy_(mini)
     gen.set_state(rng)
 
 
-def _graph_vs_eager(label, run, sb, gen, k):
+class _KeepMasks:
+    """Records every keep-mask the models draw (dropout, DropPath, K4's
+    keep-mask, the packed lines' ``SlotRows`` rows) as the caller gets it:
+    ``models.dropout.keep_mask`` and the names ``roberta`` and ``swin_v2``
+    import; a draw nested in another (a checkpointed stage's rewind) is
+    recorded once."""
+
+    def __enter__(self):
+        from mvuld_tpu_torch.models import dropout, roberta, swin_v2
+        self.mods, self.inner = (dropout, roberta, swin_v2), dropout.keep_mask
+        self.drawn, depth = [], [0]
+
+        def keep(*a, **kw):
+            depth[0] += 1
+            try:
+                out = self.inner(*a, **kw)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                self.drawn.append(out)
+            return out
+
+        for m in self.mods:
+            m.keep_mask = keep
+        return self.drawn
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.keep_mask = self.inner
+
+
+def _rel_update(now, want, ref) -> tuple:
+    """(‖now − want‖, ‖want − ref‖) over lists of tensors, in fp64."""
+    num = sum(float((a.double() - b.double()).norm() ** 2)
+              for a, b in zip(now, want)) ** 0.5
+    den = sum(float((b.double() - c.double()).norm() ** 2)
+              for b, c in zip(want, ref)) ** 0.5
+    return num, den
+
+
+def _graph_vs_eager(label, run, sb, gen, k, data=None):
     """The first call of ``run.multi_step(k)`` on the host superbatch ``sb``
     (K eager warm-up steps, then the capture); from the state it leaves, K
     eager steps (``run.multi_step(k, capture=False)``, the plain version)
     on the same superbatch against one replay: the K losses within
     FUSED_LOSS_TOL, the update p_K − p_0 within FUSED_UPDATE_TOL (relative
-    L2 of the difference over the eager update), the DropPath masks to the
-    bit. Returns (the multi-step, the plain version, eager s/step, first
-    call's s)."""
+    L2 of the difference over the eager update), the BatchNorm running
+    statistics within FUSED_STATS_TOL (relative L2 over their eager
+    change), every keep-mask to the bit. ``data``: the device-resident
+    columns of an indexed multi-step. Returns (the multi-step, the plain
+    version, eager s/step, first call's s)."""
     import torch
-
-    from mvuld_tpu_torch.models import swin_v2
-
-    drawn = []
-    inner = swin_v2.keep_mask
-
-    def keep(*a):
-        drawn.append(inner(*a))
-        return drawn[-1]
 
     multi = run.multi_step(k)
     plain = run.multi_step(k, capture=False)
-    swin_v2.keep_mask = keep
-    try:
+    with _KeepMasks() as drawn:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        multi(sb, gen)
+        multi(sb, gen, data)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
+        captured = drawn[len(drawn) // 2:]   # the capture's (the warm-up's
+        del drawn[:]                         # went before)
         start = _graph_state(run, gen)
-        n = len(drawn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eager = plain(sb, gen)
+        eager = plain(sb, gen, data)
         torch.cuda.synchronize()
         eager_s = (time.perf_counter() - t0) / k
-        eager_masks = drawn[n:]
-        p_eager = [p.detach().clone() for p in run.opt.params]
+        eager_masks = list(drawn)
+        after = _graph_state(run, gen)
         _graph_restore(run, gen, start)
-        got = multi(sb, gen)
+        got = multi(sb, gen, data)
         torch.cuda.synchronize()
-    finally:
-        swin_v2.keep_mask = inner
     le = eager["loss"].double()
     lg = got["loss"].double()
     loss_rel = float(((lg - le).abs() / le.abs()).max())
-    num = sum(float((p.detach().double() - e.double()).norm() ** 2)
-              for p, e in zip(run.opt.params, p_eager)) ** 0.5
-    den = sum(float((e.double() - s.double()).norm() ** 2)
-              for e, s in zip(p_eager, start[0])) ** 0.5
-    captured = drawn[n // 2:n]
+    num, den = _rel_update([p.detach() for p in run.opt.params], after[0],
+                           start[0])
+    names = [n for n, _ in run.model.named_buffers()]
+    stats = [i for i, n in enumerate(names)
+             if n.endswith(("running_mean", "running_var"))]
+    bufs = list(run.model.buffers())
+    s_num, s_den = _rel_update([bufs[i] for i in stats],
+                               [after[4][i] for i in stats],
+                               [start[4][i] for i in stats])
     masks = (len(captured) == len(eager_masks) > 0
              and all(torch.equal(a, b) for a, b in zip(captured,
                                                        eager_masks)))
-    print(f"fused_steps {label}: {k} replayed steps against {k} eager from "
-          f"one state: losses {[round(float(x), 5) for x in lg]}, max rel "
+    stats_line = (f"running statistics of {len(stats) // 2} BatchNorms rel "
+                  f"L2 {s_num / max(s_den, 1e-30):.3e} (tol "
+                  f"{FUSED_STATS_TOL}, |change| {s_den:.4e}); " if stats
+                  else "")
+    print(f"fused {label}: {k} replayed steps against {k} eager from one "
+          f"state: losses {[round(float(x), 5) for x in lg]}, max rel "
           f"{loss_rel:.3e} (tol {FUSED_LOSS_TOL}); update rel L2 "
           f"{num / max(den, 1e-30):.3e} (tol {FUSED_UPDATE_TOL}, |update| "
-          f"{den:.4e}); DropPath masks {len(eager_masks)} equal to the bit: "
-          f"{masks}; capture {multi.capture_s:.2f} s [{card_line()}]",
-          flush=True)
+          f"{den:.4e}); {stats_line}keep-masks {len(eager_masks)} equal to "
+          f"the bit: {masks}; capture {multi.capture_s:.2f} s "
+          f"[{card_line()}]", flush=True)
     if not (math.isfinite(loss_rel) and loss_rel <= FUSED_LOSS_TOL
-            and den > 0 and num <= FUSED_UPDATE_TOL * den and masks):
-        raise AssertionError(f"fused_steps {label}: replay differs from the "
+            and den > 0 and num <= FUSED_UPDATE_TOL * den and masks
+            and (not stats or (s_den > 0
+                               and s_num <= FUSED_STATS_TOL * s_den))):
+        raise AssertionError(f"fused {label}: replay differs from the "
                              f"eager steps")
     return multi, plain, eager_s, first_s
+
+
+class _GraphLaunches:
+    """Counts the kernels a CUDA graph launches: until ``close``, each
+    ``MultiTrainStep.record`` notes the wrappers' counts it captured;
+    ``settle`` adds each finished graph's launches (a capture launched
+    nothing, each replay all: captured × (replays − 1) on top of the
+    counters) and drops the graphs with their private memory pools."""
+
+    def __init__(self, counters):
+        from mvuld_tpu_torch.core.train_state import MultiTrainStep
+        self.counters, self.captures = counters, []
+        self.extra = dict.fromkeys(_counts(counters), 0)
+        self.cls, self.record = MultiTrainStep, MultiTrainStep.record
+
+        def counted_record(step, gen, data):
+            before = _counts(counters)
+            graph = self.record(step, gen, data)
+            after = _counts(counters)
+            self.captures.append(
+                (step, {k: after[k] - before[k] for k in after}))
+            return graph
+
+        MultiTrainStep.record = counted_record
+
+    def close(self) -> None:
+        self.cls.record = self.record
+
+    def captured(self, step) -> dict:
+        """The launches ``step``'s graph captured, by kernel."""
+        return next(cap for m, cap in self.captures if m is step)
+
+    def settle(self) -> None:
+        import torch
+        for m, cap in self.captures:
+            for name, n in cap.items():
+                self.extra[name] += n * (m.replays - 1)
+        self.captures.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def counts(self) -> dict:
+        counts = _counts(self.counters)
+        for name, n in self.extra.items():
+            counts[name] += n
+        return counts
+
+
+def _fused_times(label, multi, plain, host, gen, k, B, unit, first_s,
+                 first_eager_s, data=None, pageable=None) -> float:
+    """Eager and replayed calls (FUSED_REPLAYS each, their median) on the
+    page-locked host superbatch ``host`` (its copy to the card inside each
+    call), one replay from the pageable ``pageable`` where given; prints
+    ms/step, ``unit``/s and the peak memory since the last reset. Returns
+    the replay's ms/step."""
+    import torch
+
+    def timed(step, sb, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(sb, gen, data)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    e_times = timed(plain, host, FUSED_REPLAYS)
+    times = timed(multi, host, FUSED_REPLAYS)
+    numpy_line = ""
+    if pageable is not None:
+        numpy_line = (f"; one replay from pageable numpy "
+                      f"{timed(multi, pageable, 1)[0] / k * 1e3:.1f} ms/step")
+    eager_s = statistics.median(e_times) / k
+    replay_ms = statistics.median(times) / k * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"fused {label} times: batch {B}, {k} steps per call, the host "
+          f"superbatch page-locked as fit's Prefetcher leaves it and copied "
+          f"inside each call: first call {first_s:.2f} s ({k} eager warm-up "
+          f"steps and the capture, capture {multi.capture_s:.2f} s); eager "
+          f"{eager_s * 1e3:.1f} ms/step = {B / eager_s:.2f} {unit}/s (calls "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in e_times)} ms; the "
+          f"comparison's {first_eager_s * 1e3:.1f} ms/step); replay "
+          f"{replay_ms:.1f} ms/step = {B / replay_ms * 1e3:.2f} {unit}/s "
+          f"(calls {', '.join(f'{t * 1e3:.1f}' for t in times)} ms)"
+          f"{numpy_line}; peak memory {peak:.2f} GiB (eager and graph pools) "
+          f"[{card_line()}]", flush=True)
+    return replay_ms
+
+
+def _fused_profile(label, multi, host, gen, k, B, eager_step) -> None:
+    """A profile of one replay call (its copy included) beside one eager
+    step (``eager_step()``)."""
+    prof_graph = profile_run(f"fused {label} replay call ({k} steps, "
+                             f"batch {B}, its copy included)",
+                             lambda: multi(host, gen))
+    prof_eager = profile_run(f"fused {label} eager step (batch {B})",
+                             eager_step)
+    g_idle = 1 - prof_graph["busy_ms"] / prof_graph["wall_ms"]
+    e_idle = 1 - prof_eager["busy_ms"] / prof_eager["wall_ms"]
+    print(f"fused {label} profile: replay wall {prof_graph['wall_ms']:.1f} "
+          f"ms per {k} steps, busy {prof_graph['busy_ms']:.1f}, idle share "
+          f"{max(g_idle, 0.0):.3f}; eager step wall "
+          f"{prof_eager['wall_ms']:.1f} ms, busy {prof_eager['busy_ms']:.1f}, "
+          f"idle share {max(e_idle, 0.0):.3f} [{card_line()}]", flush=True)
 
 
 def fused_steps_phase(dev, counters):
@@ -1809,7 +1986,6 @@ def fused_steps_phase(dev, counters):
     import torch.distributed as dist
 
     from mvuld_tpu_torch.config import get_config
-    from mvuld_tpu_torch.core.train_state import MultiTrainStep
     from mvuld_tpu_torch.models import dropout
     from mvuld_tpu_torch.parallel.distributed import backend_for, free_port
     from mvuld_tpu_torch.data.loader import ArrayDataset, pin_batch
@@ -1821,29 +1997,9 @@ def fused_steps_phase(dev, counters):
             cfg=None, opts=SWIN_OPTS + ["DATA.BATCH_SIZE", batch, *extra],
             output=tempfile.gettempdir()))
 
-    captures, extra = [], dict.fromkeys(_counts(counters), 0)
-    record = MultiTrainStep.record
-
-    def counted_record(self, gen, data):
-        before = _counts(counters)
-        graph = record(self, gen, data)
-        after = _counts(counters)
-        captures.append((self, {k: after[k] - before[k] for k in after}))
-        return graph
-
-    def settle():
-        """Count the finished graphs' launches (a capture launched nothing,
-        each replay all) and drop them, with their private memory pools."""
-        for m, cap in captures:
-            for name, n in cap.items():
-                extra[name] += n * (m.replays - 1)
-        captures.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-
     t_phase = time.time()
     _reset(counters)
-    MultiTrainStep.record = counted_record
+    graphs = _GraphLaunches(counters)
     work = tempfile.mkdtemp(prefix="mvuld_fused_")
     try:
         K, B = FUSED_K, SWIN_BATCH
@@ -1859,58 +2015,18 @@ def fused_steps_phase(dev, counters):
         gen = torch.Generator(device=dev).manual_seed(1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        label = f"SwinV2-B 448 batch {B}"
         # (a)
         multi, plain, first_eager_s, first_s = _graph_vs_eager(
-            f"SwinV2-B 448 batch {B}", run, sb_pin, gen, K)
-
-        # (b) eager and replayed calls on the page-locked host superbatch,
-        # its copy to the card inside each call; one replay from numpy
-        def timed(step, host, n):
-            out = []
-            for _ in range(n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                step(host, gen)
-                torch.cuda.synchronize()
-                out.append(time.perf_counter() - t0)
-            return out
-
-        e_times = timed(plain, sb_pin, FUSED_REPLAYS)
-        times = timed(multi, sb_pin, FUSED_REPLAYS)
-        numpy_ms = timed(multi, sb, 1)[0] / K * 1e3
-        eager_s = statistics.median(e_times) / K
-        replay_ms = statistics.median(times) / K * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"fused_steps times: batch {B}, {K} steps per call, the host "
-              f"superbatch page-locked as fit's Prefetcher leaves it and "
-              f"copied inside each call: first call {first_s:.2f} s ({K} "
-              f"eager warm-up steps and the capture, capture "
-              f"{multi.capture_s:.2f} s); eager {eager_s * 1e3:.1f} ms/step "
-              f"= {B / eager_s:.2f} images/s (calls "
-              f"{', '.join(f'{t * 1e3:.1f}' for t in e_times)} ms; the "
-              f"comparison's {first_eager_s * 1e3:.1f} ms/step); replay "
-              f"{replay_ms:.1f} ms/step = {B / replay_ms * 1e3:.2f} images/s "
-              f"(calls {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); one "
-              f"replay from pageable numpy {numpy_ms:.1f} ms/step; peak "
-              f"memory {peak:.2f} GiB (eager and graph pools) "
-              f"[{card_line()}]", flush=True)
-        # (c)
+            label, run, sb_pin, gen, K)
+        # (b), (c)
+        _fused_times(label, multi, plain, sb_pin, gen, K, B, "images",
+                     first_s, first_eager_s, pageable=sb)
         batch0 = {key: v[0].to(dev) for key, v in sb_pin.items()}
-        prof_graph = profile_run(f"fused_steps replay call ({K} steps, "
-                                 f"batch {B}, its copy included)",
-                                 lambda: multi(sb_pin, gen))
-        prof_eager = profile_run(f"fused_steps eager step (batch {B})",
-                                 lambda: run.step(batch0, gen))
-        g_idle = 1 - prof_graph["busy_ms"] / prof_graph["wall_ms"]
-        e_idle = 1 - prof_eager["busy_ms"] / prof_eager["wall_ms"]
-        print(f"fused_steps profile: replay wall {prof_graph['wall_ms']:.1f} "
-              f"ms per {K} steps, busy {prof_graph['busy_ms']:.1f}, idle "
-              f"share {max(g_idle, 0.0):.3f}; eager step wall "
-              f"{prof_eager['wall_ms']:.1f} ms, busy "
-              f"{prof_eager['busy_ms']:.1f}, idle share "
-              f"{max(e_idle, 0.0):.3f} [{card_line()}]", flush=True)
+        _fused_profile(label, multi, sb_pin, gen, K, B,
+                       lambda: run.step(batch0, gen))
         del multi, plain, batch0, sb_pin, run
-        settle()
+        graphs.settle()
 
         # (e) dropout in the checkpointed stage, reduced depth
         k = FUSED_DROP_K
@@ -1947,7 +2063,7 @@ def fused_steps_phase(dev, counters):
             raise AssertionError("fused_steps: the checkpointed stage's "
                                  "eager rewind or captured tape never ran")
         del drun, dsb, sb, rngs, tapes
-        settle()
+        graphs.settle()
 
         # (d) the trainer CLI, fused and unfused, on seeded images
         def split(n, seed):
@@ -2004,7 +2120,7 @@ def fused_steps_phase(dev, counters):
             train_swin.corpus_datasets = corpus
         shape = lambda h: ([sorted(e) for e in h["history"]],  # noqa: E731
                            sorted(h), sorted(h["test_metrics"] or {}))
-        replays = [m.replays for m, _ in captures]
+        replays = [m.replays for m, _ in graphs.captures]
         got = hist[FUSED_CLI_K]
         print(f"fused_steps cli: history.json keys {shape(got)[1]}, "
               f"{len(got['history'])} epochs, equal in shape to the unfused "
@@ -2014,13 +2130,11 @@ def fused_steps_phase(dev, counters):
                 or not replays or replays[0] < 1):
             raise AssertionError("fused_steps cli: the fused run's history "
                                  "differs in shape or no graph replayed")
-        settle()
+        graphs.settle()
     finally:
-        MultiTrainStep.record = record
+        graphs.close()
         shutil.rmtree(work, ignore_errors=True)
-    counts = _counts(counters)
-    for name, n in extra.items():
-        counts[name] += n
+    counts = graphs.counts()
     print(f"fused_steps launches (replays × captured, plus the eager "
           f"steps): { {k: v for k, v in counts.items() if v} }; phase "
           f"{time.time() - t_phase:.1f} s", flush=True)
@@ -2028,6 +2142,218 @@ def fused_steps_phase(dev, counters):
             "mlp_ln_bwd")
     if not all(counts[name] for name in need):
         raise AssertionError(f"fused_steps: a kernel of the path never ran: "
+                             f"{counts}")
+    return counts
+
+
+def _e2e_superbatch(cfg, k: int, B: int, seed: int):
+    """``bench.py``'s e2e superbatch ([k, B, ...], its ``_e2e_bench``):
+    FM_VALID valid lines of DATA.MAX_NODES slots (pad id 1 and mask 0
+    beyond), token ids in [3, FM_IDS) filling every function and line
+    token, normal bf16 images, uniform boxes, the identity adjacency,
+    labels 0/1; page-locked (the image as a bf16 tensor)."""
+    import numpy as np
+    import torch
+
+    from mvuld_tpu_torch.data.loader import pin_batch
+
+    rng = np.random.RandomState(seed)
+    M, T, Tn, S = (cfg.DATA.MAX_NODES, cfg.DATA.FUNC_TOKENS,
+                   cfg.DATA.NODE_TOKENS, cfg.DATA.IMG_SIZE)
+    nvalid = rng.randint(*FM_VALID, (k, B))
+    node_mask = (np.arange(M)[None, None] < nvalid[..., None]).astype(
+        np.float32)
+    node_ids = rng.randint(3, FM_IDS, (k, B, M, Tn)).astype(np.int32)
+    node_ids[node_mask == 0] = 1
+    sb = pin_batch({
+        "func_ids": rng.randint(3, FM_IDS, (k, B, T)).astype(np.int32),
+        "node_ids": node_ids, "pos": rng.rand(k, B, M, 4).astype(np.float32),
+        "adj": np.tile(np.eye(M, dtype=np.uint8), (k, B, 1, 1)),
+        "node_mask": node_mask,
+        "label": rng.randint(0, 2, (k, B)).astype(np.int32)})
+    image = np.random.default_rng(seed).standard_normal((k, B, S, S, 3),
+                                                        dtype=np.float32)
+    sb["image"] = torch.from_numpy(image).to(torch.bfloat16).pin_memory()
+    return sb
+
+
+def _fusion_superbatch(k: int, B: int, M: int, bits: int, seed: int):
+    """``bench.py``'s fusion superbatch ([k, B, ...], its
+    ``_fusion_bench``): normal image, function and node embeddings (1024,
+    768, 768 wide), uniform boxes, the identity adjacency (as a bitmask of
+    the kept edge types), every node valid, labels 0/1; page-locked."""
+    import numpy as np
+
+    from mvuld_tpu_torch.data.loader import pin_batch
+
+    rng = np.random.default_rng(seed)
+    normal = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    return pin_batch({
+        "img_emb": normal(k, B, 1024), "text_emb": normal(k, B, 768),
+        "node_emb": normal(k, B, M, 768),
+        "pos": rng.random((k, B, M, 4), dtype=np.float32),
+        "adj": np.tile((np.eye(M) * bits).astype(np.uint8), (k, B, 1, 1)),
+        "node_mask": np.ones((k, B, M), np.float32),
+        "label": rng.integers(0, 2, (k, B)).astype(np.int32)})
+
+
+def _training(model, opt, inputs, indexed=False):
+    """A ``multi_step(k, capture)`` factory beside the model and optimizer,
+    as ``_graph_vs_eager`` takes it."""
+    from mvuld_tpu_torch.core.train_state import make_multi_train_step
+    return SimpleNamespace(
+        model=model, opt=opt,
+        multi_step=lambda k, capture=None: make_multi_train_step(
+            model, opt, k, FM_SMOOTHING, inputs, indexed=indexed,
+            capture=capture))
+
+
+def _f20_draws(dev, gen, node_mask, P: int, cfg, rate: float) -> None:
+    """F20 alone: the packed lines' keep-mask draws of one e2e step (the
+    embeddings' dropout, then per layer the attention probabilities', the
+    attention output's and K4's keep-mask) drawn over all B·N line slots
+    with their rows gathered (``SlotRows``, as the model draws them) against
+    drawn over the P packed rows, CUDA events, F20_ITERS steps each."""
+    import torch
+
+    from mvuld_tpu_torch.models.dropout import SlotRows, keep_mask
+
+    u = cfg.MODEL.UNIXCODER
+    Tn, H, heads = cfg.DATA.NODE_TOKENS, u.HIDDEN, u.HEADS
+    valid = node_mask.reshape(-1) > 0
+    sel = torch.argsort((~valid).to(torch.int32), stable=True)[:P]
+    shapes = [(P, Tn, H)] + [(P, heads, Tn, Tn), (P, Tn, H),
+                             (P, Tn, H)] * u.LAYERS
+
+    def draws(g):
+        for s in shapes:
+            keep_mask(s, rate, g, dev)
+
+    slot_ms = time_ms(lambda: draws(SlotRows(gen, valid.numel(), sel)),
+                      F20_ITERS)
+    packed_ms = time_ms(lambda: draws(gen), F20_ITERS)
+    n = sum(math.prod(s) for s in shapes)
+    print(f"fused e2e F20: the packed lines' keep-masks of one step "
+          f"({len(shapes)} draws, {n / 1e6:.1f} M elements kept) drawn over "
+          f"all {valid.numel()} line slots and gathered {slot_ms:.3f} ms, "
+          f"drawn over the {P} packed rows {packed_ms:.3f} ms: F20 costs "
+          f"{slot_ms - packed_ms:.3f} ms per step [{card_line()}]",
+          flush=True)
+
+
+def fused_models_phase(dev, counters):
+    """``make_multi_train_step`` as a CUDA graph on the BatchNorm models,
+    at ``bench.py``'s two cells: the production fusion head (FUSION_OPTS:
+    ``configs/fusion_multi_defect_new_gcn.yaml``'s widths) at batch
+    FM_FUSION_B × FM_FUSION_K steps on ``bench.py``'s inputs (direct, and
+    indexed over device-resident columns as ``train_fusion`` feeds it), and
+    the e2e model (MODEL_OPTS + TRAIN_OPTS: bf16, both fused MLPs, Swin
+    stage 2 checkpointed, no text remat, text dropout 0.1) at batch
+    FM_E2E_B × FM_E2E_K steps with NODE_CAPACITY packed line rows through
+    K1, K2, K3, K3b, K4, K4b. Per model: (a) the replay against the eager
+    steps from one saved state (``_graph_vs_eager``: losses, update,
+    BatchNorm running statistics, every keep-mask); (b) the capture's
+    seconds, ms/step eager and by replay, functions/s, peak memory; (c) a
+    profiled replay call beside one eager step; (d) each kernel's launches
+    captured × replays. Then F20's mask draws alone at the e2e shapes.
+    Returns the launches: the counted ones, each capture's launches
+    counted × its replays."""
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.core.train_state import model_inputs, train_step
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.fusion_zoo import build_fusion_model
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+    from mvuld_tpu_torch.train.train_fusion import edge_bits, fusion_inputs
+
+    def config(opts):
+        return get_config(SimpleNamespace(cfg=None, opts=opts,
+                                          output=tempfile.gettempdir()))
+
+    def cell(label, run, sb, gen, k, B, data=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        multi, plain, first_eager_s, first_s = _graph_vs_eager(
+            label, run, sb, gen, k, data)
+        _fused_times(label, multi, plain, sb, gen, k, B, "functions",
+                     first_s, first_eager_s, data)
+        return multi
+
+    def launches(label, multi):
+        cap = {n: c for n, c in graphs.captured(multi).items() if c}
+        print(f"fused {label} launches (captured × replays): "
+              f"{ {n: f'{c} × {multi.replays}' for n, c in cap.items()} }",
+              flush=True)
+
+    t_phase = time.time()
+    _reset(counters)
+    graphs = _GraphLaunches(counters)
+    try:
+        # the fusion head: bench.py's fusion cell
+        cfg = config(FUSION_OPTS)
+        k, B = FM_FUSION_K, FM_FUSION_B
+        model = build_fusion_model(cfg, "multi_defect_new_gcn")
+        init_jax_like(model, torch.Generator().manual_seed(cfg.SEED))
+        model.to(dev)
+        opt = build_optimizer(cfg, lambda count: FM_FUSION_LR, model)
+        bits = edge_bits(cfg.DATA.GTYPE)
+        inputs = fusion_inputs(bits)
+        sb = _fusion_superbatch(k, B, cfg.DATA.MAX_NODES, bits, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        label = f"fusion head batch {B}"
+        multi = cell(label, _training(model, opt, inputs), sb, gen, k, B)
+        batch0 = {key: v[0].to(dev) for key, v in sb.items()}
+        _fused_profile(label, multi, sb, gen, k, B,
+                       lambda: train_step(model, opt, batch0, gen,
+                                          FM_SMOOTHING, inputs))
+        launches(label, multi)
+        # indexed: the superbatch's rows resident, index superbatches
+        data = {key: v.reshape(k * B, *v.shape[2:]).to(dev)
+                for key, v in sb.items()}
+        idx = {"idx": torch.randperm(k * B, generator=torch.Generator()
+                                     .manual_seed(2)).int().reshape(k, B)
+               .pin_memory()}
+        _graph_vs_eager(f"fusion head batch {B} indexed",
+                        _training(model, opt, inputs, indexed=True), idx,
+                        gen, k, data)
+        del multi, model, opt, sb, batch0, data
+        graphs.settle()
+
+        # the e2e model: bench.py's e2e cell
+        cfg = config(MODEL_OPTS + TRAIN_OPTS)
+        k, B = FM_E2E_K, FM_E2E_B
+        model = build_e2e_model(cfg, VOCAB, node_capacity=NODE_CAPACITY,
+                                use_pallas=True, use_pallas_mlp=True,
+                                roberta_pallas_mlp=True)[0]
+        init_jax_like(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = build_optimizer(cfg, lambda count: FM_E2E_LR, model)
+        sb = _e2e_superbatch(cfg, k, B, seed=2)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        label = f"e2e batch {B}"
+        multi = cell(label, _training(model, opt, model_inputs), sb, gen, k,
+                     B)
+        batch0 = {key: v[0].to(dev) for key, v in sb.items()}
+        _fused_profile(label, multi, sb, gen, k, B,
+                       lambda: train_step(model, opt, batch0, gen,
+                                          FM_SMOOTHING))
+        launches(label, multi)
+        _f20_draws(dev, gen, batch0["node_mask"], NODE_CAPACITY, cfg,
+                   model.text_encoder.config.dropout_rate)
+        del multi, model, opt, sb, batch0
+        graphs.settle()
+    finally:
+        graphs.close()
+    counts = graphs.counts()
+    print(f"fused_models launches (replays × captured, plus the eager "
+          f"steps): { {k: v for k, v in counts.items() if v} }; phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    need = ("window_attention_flat", "window_attention_flat_bwd", "mlp_ln",
+            "mlp_ln_bwd", "mlp_ln_res", "mlp_ln_res_bwd")
+    if not all(counts[name] for name in need):
+        raise AssertionError(f"fused_models: a kernel of the path never ran: "
                              f"{counts}")
     return counts
 
@@ -4303,6 +4629,7 @@ def main() -> int:
                       lambda: train_phase(dev, e2e, work),
                       lambda: swin_phase(dev, counters),
                       lambda: fused_steps_phase(dev, counters),
+                      lambda: fused_models_phase(dev, counters),
                       lambda: blockbench_phase(dev, counters),
                       lambda: ops_phase(dev, layouts),
                       lambda: swin_family_phase(dev, e2e),

@@ -16,7 +16,10 @@ counted as real steps), then records K steps reading static input
 buffers; every later call copies its superbatch into those buffers and
 replays the graph. The step generator is registered with the graph, so a
 replay draws the masks the eager steps would; the optimizer's state lives
-on the device (``core/optim.py``). A capture that fails raises: nothing
+on the device (``core/optim.py``), and BatchNorm's running statistics are
+module buffers updated in place (``models/graph_nets.batch_norm``), so the
+graph carries them from step to step and call to call as the JAX scan
+carries ``batch_stats``. A capture that fails raises: nothing
 falls back to eager steps on the card. On the CPU it is K ``train_step``
 calls.
 """

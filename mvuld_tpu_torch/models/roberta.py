@@ -159,9 +159,6 @@ def checkpointed_layer(layer: nn.Module, hidden: torch.Tensor,
     return checkpoint(lambda h, b: rng.run(layer, h, b), hidden, attn_bias,
                       use_reentrant=False, preserve_rng_state=False)
 
-    return checkpoint(run, hidden, attn_bias, use_reentrant=False,
-                      preserve_rng_state=False)
-
 
 class Embeddings(nn.Module):
     def __init__(self, config: RobertaConfig):

@@ -15,8 +15,10 @@ bit), K6/K6b (dense with its epilogue, bf16 and fp32, at the GEMM core's
 tile edges, blockbench's shapes and a 3072-wide LayerNorm; a backward that
 repeats to the bit), and ``make_multi_train_step``'s CUDA graph: K replayed steps of a
 tiny SwinV2 through K1/K2/K3/K3b (DropPath and, in one case, dropout in
-a checkpointed stage) against K eager steps from the same state, and its
-refusal under a gloo group. Tolerances: fp32
+a checkpointed stage), of a tiny fusion head (BatchNorm statistics,
+dropout; direct and indexed) and of a tiny e2e model (packed lines, K1-K4b,
+dropout 0.1, the text layers checkpointed or not) against K eager steps
+from the same state, and its refusal under a gloo group. Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
 and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
 at the largest value (both round one fp32 result to bf16).
@@ -24,6 +26,7 @@ at the largest value (both round one fp32 result to bf16).
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -1048,38 +1051,17 @@ def _tiny_swin_training(dev, drop_rate):
     return build_swin_training(cfg, dev, steps_per_epoch=8)
 
 
-def _train_state(run, gen):
-    opt = run.opt
-    return ([p.detach().clone() for p in opt.params],
-            [t.clone() for t in opt.mu + opt.nu],
-            opt.count_t.clone(), gen.get_state())
-
-
-def _restore(run, gen, state):
-    opt = run.opt
-    params, moments, count, rng = state
-    with torch.no_grad():
-        for p, v in zip(opt.params, params):
-            p.copy_(v)
-        for t, v in zip(opt.mu + opt.nu, moments):
-            t.copy_(v)
-    opt.count_t.copy_(count)
-    gen.set_state(rng)
-
-
 @pytest.mark.parametrize("drop_rate", [0.0, 0.1], ids=["droppath",
                                                       "dropout_remat"])
 def test_multi_step_graph_replay_equals_eager_steps(dev, drop_rate):
-    """One replay of the captured K = 3 steps from a saved state (the
-    parameters, AdamW's moments, the device count and the generator) equals
-    3 eager steps from it: the DropPath masks to the bit, the losses within
-    fp32 relative 1e-6 and the parameter update within relative L2 1e-5
-    (the same kernels in the same order; a library backward that sums with
+    """One replay of the captured K = 3 steps of a tiny SwinV2 from a saved
+    state equals 3 eager steps from it (``_replay_equals_eager``: the
+    DropPath and dropout masks to the bit, the losses within fp32 relative
+    1e-6 and the parameter update within relative L2 1e-5; the same
+    kernels in the same order, where a library backward that sums with
     atomics may move last bits). K1 and K2 run, and at rate 0 K3 and K3b
     (dropout takes the MLP off the fused kernel, as in JAX)."""
-    import numpy as np
-
-    from mvuld_tpu_torch.models import swin_v2
+    from mvuld_tpu_torch.core.train_state import image_inputs
     from mvuld_tpu_torch.ops import fused_dense as fd
     from mvuld_tpu_torch.ops import window_attention as wa
 
@@ -1088,52 +1070,16 @@ def test_multi_step_graph_replay_equals_eager_steps(dev, drop_rate):
     rng = np.random.RandomState(0)
     sb = {"image": rng.randn(k, 4, 32, 32, 3).astype(np.float32),
           "label": rng.randint(0, 2, (k, 4)).astype(np.int32)}
-    gen = torch.Generator(device=dev).manual_seed(1)
-    step = run.multi_step(k)
-    kernels = [wa.window_attention_flat, wa.window_attention_flat_bwd,
-               fd.mlp_ln, fd.mlp_ln_bwd]
-    drawn = []
-    inner = swin_v2.keep_mask
-
-    def keep(*a):
-        drawn.append(inner(*a))
-        return drawn[-1]
-
-    swin_v2.keep_mask = keep
-    try:
-        start_counts = [f.launches for f in kernels]
-        step(sb, gen)                       # eager warm-up, then capture
-        before = [f.launches for f in kernels]
-        ran = [b - a > 0 for a, b in zip(start_counts, before)]
-        assert step.graph is not None
-        assert ran == [True, True] + [drop_rate == 0.0] * 2, ran
-        start = _train_state(run, gen)
-        n = len(drawn)
-        eager = [run.step({key: torch.as_tensor(v[i], device=dev)
-                           for key, v in sb.items()}, gen)
-                 for i in range(k)]
-        eager_masks = drawn[n:]
-        eager_params = [p.detach().clone() for p in run.opt.params]
-        _restore(run, gen, start)
-        before = [f.launches for f in kernels]
-        got = step(sb, gen)
-    finally:
-        swin_v2.keep_mask = inner
-    assert [f.launches for f in kernels] == before     # a replay is silent
-    assert step.replays == 1
-    torch.testing.assert_close(got["loss"],
-                               torch.stack([m["loss"] for m in eager]),
-                               rtol=1e-6, atol=0)
-    captured = drawn[n // 2:n]               # the masks the capture drew
-    assert len(captured) == len(eager_masks) > 0
-    for a, b in zip(captured, eager_masks):
-        assert torch.equal(a, b)
-    num = sum(float((p.detach() - e).float().norm() ** 2)
-              for p, e in zip(run.opt.params, eager_params)) ** 0.5
-    den = sum(float((e - s).float().norm() ** 2)
-              for e, s in zip(eager_params, start[0])) ** 0.5
-    assert den > 0 and num <= 1e-5 * den, (num, den)
-    assert run.opt.count == 2 * k
+    mlp = [fd.mlp_ln, fd.mlp_ln_bwd]
+    before = [f.launches for f in mlp]
+    _replay_equals_eager(
+        run.model, run.opt, image_inputs, sb,
+        torch.Generator(device=dev).manual_seed(1),
+        kernels=[wa.window_attention_flat, wa.window_attention_flat_bwd]
+        + (mlp if drop_rate == 0.0 else []),
+        label_smoothing=run.label_smoothing)
+    if drop_rate:
+        assert [f.launches for f in mlp] == before
 
 
 def test_multi_step_refuses_a_gloo_group_on_the_card(dev):
@@ -1158,3 +1104,225 @@ def test_multi_step_refuses_a_gloo_group_on_the_card(dev):
         assert run.opt.count == 0
     finally:
         dist.destroy_process_group()
+
+
+def _full_state(model, opt, gen):
+    """What a replay reads: the parameters, the module buffers (BatchNorm's
+    running statistics), AdamW's moments and counters, the generator."""
+    return ([p.detach().clone() for p in opt.params],
+            [b.clone() for b in model.buffers()],
+            [t.clone() for t in opt.mu + opt.nu + opt.acc],
+            (opt.count_t.clone(), opt.mini_step_t.clone()), gen.get_state())
+
+
+def _full_restore(model, opt, gen, state):
+    params, buffers, moments, (count, mini), rng = state
+    with torch.no_grad():
+        for t, v in zip(opt.params + list(model.buffers())
+                        + opt.mu + opt.nu + opt.acc,
+                        params + buffers + moments):
+            t.copy_(v)
+    opt.count_t.copy_(count)
+    opt.mini_step_t.copy_(mini)
+    gen.set_state(rng)
+
+
+class _Masks:
+    """Every keep-mask the models draw (dropout, DropPath, K4's), as
+    returned to the caller: ``models.dropout.keep_mask`` and the names
+    ``roberta`` and ``swin_v2`` import, a draw nested in another (a
+    checkpointed layer's rewind) recorded once."""
+
+    def __enter__(self):
+        from mvuld_tpu_torch.models import dropout, roberta, swin_v2
+        self.mods, self.inner = (dropout, roberta, swin_v2), dropout.keep_mask
+        self.drawn, depth = [], [0]
+
+        def keep(*a, **kw):
+            depth[0] += 1
+            try:
+                out = self.inner(*a, **kw)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                self.drawn.append(out)
+            return out
+
+        for m in self.mods:
+            m.keep_mask = keep
+        return self.drawn
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.keep_mask = self.inner
+
+
+def _replay_equals_eager(model, opt, inputs, sb, gen, kernels=(), data=None,
+                         label_smoothing=0.1):
+    """``make_multi_train_step`` over ``sb`` ([K, B, ...] host arrays):
+    the first call (K eager steps, then the capture), then from the state
+    it leaves one replay against K eager steps (``capture=False``): the
+    losses within fp32 relative 1e-6, the update and the BatchNorm running
+    statistics (where the model has them) within relative L2 1e-5, every
+    keep-mask to the bit. ``kernels``: wrappers that must launch in the
+    capture and not in the replay."""
+    from mvuld_tpu_torch.core.train_state import make_multi_train_step
+
+    k = len(next(iter(sb.values())))
+    indexed = data is not None
+    step = make_multi_train_step(model, opt, k, label_smoothing, inputs,
+                                 indexed=indexed)
+    plain = make_multi_train_step(model, opt, k, label_smoothing, inputs,
+                                  indexed=indexed, capture=False)
+    with _Masks() as drawn:
+        before = [f.launches for f in kernels]
+        step(sb, gen, data)
+        assert step.graph is not None
+        assert all(f.launches > b for f, b in zip(kernels, before)), kernels
+        captured = drawn[len(drawn) // 2:]
+        del drawn[:]
+        start = _full_state(model, opt, gen)
+        eager = plain(sb, gen, data)
+        eager_masks = list(drawn)
+        after = _full_state(model, opt, gen)
+        _full_restore(model, opt, gen, start)
+        before = [f.launches for f in kernels]
+        got = step(sb, gen, data)
+    assert [f.launches for f in kernels] == before     # a replay is silent
+    assert step.replays == 1
+    torch.testing.assert_close(got["loss"], eager["loss"], rtol=1e-6, atol=0)
+    assert len(captured) == len(eager_masks) > 0
+    for a, b in zip(captured, eager_masks):
+        assert torch.equal(a, b)
+
+    def rel(now, want, ref):
+        num = sum(float((a.double() - b.double()).norm() ** 2)
+                  for a, b in zip(now, want)) ** 0.5
+        den = sum(float((b.double() - c.double()).norm() ** 2)
+                  for b, c in zip(want, ref)) ** 0.5
+        assert den > 0
+        return num / den
+
+    assert rel([p.detach() for p in opt.params], after[0], start[0]) <= 1e-5
+    names = [n for n, _ in model.named_buffers()]
+    stats = [i for i, n in enumerate(names) if n.endswith(("running_mean",
+                                                           "running_var"))]
+    bufs = list(model.buffers())
+    if stats:
+        assert rel([bufs[i] for i in stats], [after[1][i] for i in stats],
+                   [start[1][i] for i in stats]) <= 1e-5
+    assert opt.count == 2 * k
+    return bool(stats)
+
+
+def _tiny_fusion_rows(n, rng):
+    N, D, I = 12, 24, 40
+    node_mask = np.zeros((n, N), np.float32)
+    for b in range(n):
+        node_mask[b, : rng.randint(2, N + 1)] = 1.0
+    valid = (node_mask[:, :, None] > 0) & (node_mask[:, None, :] > 0)
+    adj = rng.randint(0, 16, (n, N, N)).astype(np.uint8) * valid
+    adj[:, np.arange(N), np.arange(N)] |= np.uint8(15)
+    return {"img_emb": rng.randn(n, I).astype(np.float32),
+            "text_emb": rng.randn(n, D).astype(np.float32),
+            "node_emb": rng.randn(n, N, D).astype(np.float32)
+            * node_mask[..., None],
+            "pos": rng.rand(n, N, 4).astype(np.float32) * node_mask[..., None],
+            "adj": adj.astype(np.uint8), "node_mask": node_mask,
+            "label": rng.randint(0, 2, n).astype(np.int32)}
+
+
+@pytest.mark.parametrize("indexed", [False, True], ids=["direct", "indexed"])
+def test_multi_step_graph_fusion_head_equals_eager_steps(dev, indexed):
+    """A captured K = 2 replay of a tiny ``multi_defect_new_gcn`` (dropout
+    0.2, BatchNorm statistics from each batch) equals 2 eager steps from
+    one saved state; ``indexed``: device-resident columns and index
+    superbatches, as ``train_fusion`` feeds the head. It runs no kernel:
+    the check is the capture and the statistics."""
+    from mvuld_tpu_torch.config import default_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.models.fusion_zoo import build_fusion_model
+    from mvuld_tpu_torch.train.train_fusion import fusion_inputs
+
+    model = build_fusion_model(None, "multi_defect_new_gcn", hidden=48,
+                               img_dim=40, text_dim=24, num_rs_gcn=2,
+                               num_hidden=2, max_nodes=12)
+    init_jax_like(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    opt = build_optimizer(default_config(), lambda count: 1e-3, model)
+    k, b = 2, 4
+    rows = _tiny_fusion_rows(4 * k * b, np.random.RandomState(0))
+    if indexed:
+        data = {key: torch.as_tensor(v, device=dev) for key, v in
+                rows.items()}
+        sb = {"idx": np.random.RandomState(1).permutation(4 * k * b)[
+            :k * b].astype(np.int32).reshape(k, b)}
+    else:
+        data = None
+        sb = {key: v[:k * b].reshape(k, b, *v.shape[1:])
+              for key, v in rows.items()}
+    assert _replay_equals_eager(model, opt, fusion_inputs(0b0101), sb,
+                                torch.Generator(device=dev).manual_seed(1),
+                                data=data)
+
+
+@pytest.mark.parametrize("text_remat", ["off", "on"])
+def test_multi_step_graph_e2e_equals_eager_steps(dev, text_remat):
+    """A captured K = 2 replay of a tiny e2e model in bf16 (K1/K2 and
+    K3/K3b in SwinV2 with its first stage checkpointed, K4/K4b in the text
+    encoder, the lines packed into 12 of 24 slots and drawing their masks
+    over the slots, text dropout 0.1, DropPath 0.2, the fusion head's
+    dropout and BatchNorms) equals 2 eager steps from one saved state;
+    with ``text_remat`` on, the checkpointed text layers keep their masks
+    inside the capture."""
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import build_optimizer
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.ops import window_attention as wa
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+
+    opts = ["DATA.IMG_SIZE", 32, "MODEL.SWINV2.EMBED_DIM", 64,
+            "MODEL.SWINV2.DEPTHS", [2, 2], "MODEL.SWINV2.NUM_HEADS", [2, 4],
+            "MODEL.SWINV2.WINDOW_SIZE", 4,
+            "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", [0, 0],
+            "MODEL.DROP_PATH_RATE", 0.2, "MODEL.UNIXCODER.LAYERS", 2,
+            "MODEL.UNIXCODER.HIDDEN", 64, "MODEL.UNIXCODER.HEADS", 2,
+            "MODEL.UNIXCODER.INTERMEDIATE", 256, "DATA.FUNC_TOKENS", 24,
+            "DATA.NODE_TOKENS", 8, "DATA.MAX_NODES", 6,
+            "MODEL.MULTI.HIDDEN", 64, "MODEL.MULTI.NUM_RS_GCN", 1,
+            "MODEL.MULTI.NUM_HIDDEN_FC", 1, "PARALLEL.DTYPE", "bfloat16",
+            "TRAIN.FUSED_MLP", True, "TRAIN.USE_CHECKPOINT", True,
+            "TRAIN.REMAT_STAGES", [0], "TRAIN.TEXT_REMAT", text_remat]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    model = build_e2e_model(cfg, 64, node_capacity=12, use_pallas=True,
+                            use_pallas_mlp=True, roberta_pallas_mlp=True)[0]
+    assert model.text_encoder.config.dropout_rate == 0.1
+    init_jax_like(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    opt = build_optimizer(cfg, lambda count: 1e-3, model)
+    k, b, M, T, Tn = 2, 4, 6, 24, 8
+    rng = np.random.RandomState(2)
+    node_mask = (np.arange(M)[None, None] < rng.randint(2, M + 1, (k, b))[
+        ..., None]).astype(np.float32)
+    node_ids = rng.randint(3, 64, (k, b, M, Tn)).astype(np.int32)
+    node_ids[..., 6:] = 1
+    node_ids[node_mask == 0] = 1
+    func_ids = rng.randint(3, 64, (k, b, T)).astype(np.int32)
+    func_ids[..., T // 2:] = 1
+    adj = np.tile(np.eye(M, dtype=np.uint8), (k, b, 1, 1))
+    sb = {"func_ids": func_ids, "node_ids": node_ids,
+          "image": rng.randn(k, b, 32, 32, 3).astype(np.float32),
+          "pos": rng.rand(k, b, M, 4).astype(np.float32), "adj": adj,
+          "node_mask": node_mask,
+          "label": rng.randint(0, 2, (k, b)).astype(np.int32)}
+    assert (node_mask.sum((1, 2)) > 12).any()      # some lines overflow
+    from mvuld_tpu_torch.core.train_state import model_inputs
+    assert _replay_equals_eager(
+        model, opt, model_inputs, sb,
+        torch.Generator(device=dev).manual_seed(3),
+        kernels=(wa.window_attention_flat, wa.window_attention_flat_bwd,
+                 fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd))
