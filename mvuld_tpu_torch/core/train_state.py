@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvuld_tpu_torch.core.optim import Optimizer
+from mvuld_tpu_torch.core.tracing import span
 from mvuld_tpu_torch.models.dropout import base_generator
 
 
@@ -91,25 +92,30 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
     grad_norm (before clipping) and acc as device scalars, so the caller
     decides when to synchronise. ``mesh`` (``parallel/mesh.py``): the batch
     is this rank's block of the global batch; the gradients are averaged
-    over dp before the clip, and loss and acc are the global batch's."""
-    out = model(**inputs(batch), train=True, gen=gen)
-    logits = _logits(out)
-    loss = cross_entropy(logits, batch["label"], label_smoothing,
-                         batch.get("soft_label"))
-    if aux_loss:
-        loss = loss + out[1]
-    grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(opt.params, grads)]
-    acc = (logits.argmax(-1) == batch["label"]).float().mean()
-    loss = loss.detach()
-    if mesh is not None:
-        from mvuld_tpu_torch.parallel.mesh import (mean_over_dp,
-                                                   reduce_gradients)
-        grads = reduce_gradients(mesh, grads)
-        loss, acc = mean_over_dp(mesh, loss), mean_over_dp(mesh, acc)
-    norm = opt.norm(grads)
-    opt.update(grads)
+    over dp before the clip, and loss and acc are the global batch's.
+    Spans (``core/tracing.py``): ``step.forward``, ``step.backward`` (the
+    dp reduction included), ``step.optimizer``."""
+    with span("step.forward"):
+        out = model(**inputs(batch), train=True, gen=gen)
+        logits = _logits(out)
+        loss = cross_entropy(logits, batch["label"], label_smoothing,
+                             batch.get("soft_label"))
+        if aux_loss:
+            loss = loss + out[1]
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(opt.params, grads)]
+        acc = (logits.argmax(-1) == batch["label"]).float().mean()
+        loss = loss.detach()
+        if mesh is not None:
+            from mvuld_tpu_torch.parallel.mesh import (mean_over_dp,
+                                                       reduce_gradients)
+            grads = reduce_gradients(mesh, grads)
+            loss, acc = mean_over_dp(mesh, loss), mean_over_dp(mesh, acc)
+    with span("step.optimizer"):
+        norm = opt.norm(grads)
+        opt.update(grads)
     return {"loss": loss, "grad_norm": norm, "acc": acc}
 
 
@@ -183,16 +189,19 @@ class MultiTrainStep:
 
     def load(self, superbatch: Mapping) -> None:
         """Copy a superbatch into the graph's static input buffers
-        (asynchronously from page-locked memory, ``data/loader.pin_batch``)."""
-        if set(superbatch) != set(self.static):
-            raise ValueError(f"superbatch keys {sorted(superbatch)} != the "
-                             f"captured {sorted(self.static)}")
-        for k, v in superbatch.items():
-            v = torch.as_tensor(v)
-            if v.shape != self.static[k].shape:
-                raise ValueError(f"superbatch {k!r} {tuple(v.shape)} != the "
-                                 f"captured {tuple(self.static[k].shape)}")
-            self.static[k].copy_(v, non_blocking=True)
+        (asynchronously from page-locked memory, ``data/loader.pin_batch``).
+        Span ``step.input`` (``core/tracing.py``)."""
+        with span("step.input"):
+            if set(superbatch) != set(self.static):
+                raise ValueError(f"superbatch keys {sorted(superbatch)} != "
+                                 f"the captured {sorted(self.static)}")
+            for k, v in superbatch.items():
+                v = torch.as_tensor(v)
+                if v.shape != self.static[k].shape:
+                    raise ValueError(
+                        f"superbatch {k!r} {tuple(v.shape)} != the "
+                        f"captured {tuple(self.static[k].shape)}")
+                self.static[k].copy_(v, non_blocking=True)
 
     def capture_graph(self, superbatch: Mapping,
                       gen: Optional[torch.Generator],

@@ -24,6 +24,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from mvuld_tpu_torch.core.tracing import span
+
 
 class ArrayDataset:
     """A dataset backed by a dict of equal-length sequences / arrays, with an
@@ -93,7 +95,10 @@ class Prefetcher:
     thread pulls from ``it``, applies ``place_fn`` and keeps up to
     ``depth`` items queued, so host input work (decode, augmentation,
     superbatch stacking) overlaps the device's steps. ``produced`` counts
-    the items made; an exception in the producer reaches the consumer."""
+    the items made; an exception in the producer reaches the consumer.
+    Spans (``core/tracing.py``): ``feed.make`` in the producer around
+    pulling and placing each item (not the put into a full queue),
+    ``feed.wait`` in the consumer around each get."""
 
     _SENTINEL = object()
 
@@ -107,9 +112,16 @@ class Prefetcher:
 
         def run():
             try:
-                for item in it:
-                    self._q.put(place_fn(item) if place_fn else item)
+                src = iter(it)
+                while True:
+                    with span("feed.make"):
+                        item = next(src)
+                        if place_fn:
+                            item = place_fn(item)
+                    self._q.put(item)
                     self.produced += 1
+            except StopIteration:
+                pass
             except BaseException as e:   # noqa: BLE001 — to the consumer
                 self._err = e
             finally:
@@ -120,7 +132,8 @@ class Prefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("feed.wait"):
+                item = self._q.get()
             if item is self._SENTINEL:
                 if self._err is not None:
                     raise self._err

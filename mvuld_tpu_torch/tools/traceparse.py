@@ -15,7 +15,10 @@ and by category (``category``: the port's CUDA kernels by pass, library
 GEMMs, softmax/norm/reduce, elementwise, other), divides by ``--steps``
 so totals read as ms per step, and reports the idle share of the traced
 window (1 − the union of the device intervals over the span from the
-trace's first event to its last). ``--category`` keeps one category's
+trace's first event to its last). The idle time is also given by program
+span: each gap between device intervals goes to the innermost ``mvuld.*``
+span (``core/tracing.py``) that covers its middle on a thread that
+launched kernels, or to "(no span)". ``--category`` keeps one category's
 kernels in the table; ``--json`` writes the summary.
 
 ``profile_run`` is the profiling helper of ``chip_smoke.py``: one call of
@@ -28,6 +31,7 @@ for both.
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import json
 import os
@@ -142,21 +146,51 @@ def load_trace(path: str) -> Dict:
     return trace if isinstance(trace, dict) else {"traceEvents": trace}
 
 
-def _union_us(spans: List[tuple]) -> float:
-    busy, end = 0.0, float("-inf")
+def _union(spans: List[tuple]) -> List[List[float]]:
+    out: List[List[float]] = []
     for a, b in sorted(spans):
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
-    return busy
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+NO_SPAN = "(no span)"
+
+
+def idle_by_span(events: List[Dict], merged: List[List[float]]
+                 ) -> Dict[str, float]:
+    """µs of the gaps between the merged device intervals by the innermost
+    ``mvuld.*`` host event that covers each gap's middle on a thread that
+    launched kernels (spans nest, so the latest-starting cover), else
+    ``NO_SPAN``."""
+    launchers = {(e.get("pid"), e.get("tid")) for e in events
+                 if e.get("cat") in LAUNCH_CATEGORIES}
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                    e["name"]) for e in events
+                   if e.get("cat") not in DEVICE_CATEGORIES
+                   and e.get("name", "").startswith("mvuld.")
+                   and (e.get("pid"), e.get("tid")) in launchers)
+    starts = [a for a, _, _ in spans]
+    out: Dict[str, float] = {}
+    for (_, b0), (a1, _) in zip(merged, merged[1:]):
+        mid, label = (b0 + a1) / 2, NO_SPAN
+        for j in range(bisect.bisect_right(starts, mid) - 1, -1, -1):
+            if spans[j][1] >= mid:
+                label = spans[j][2]
+                break
+        out[label] = out.get(label, 0.0) + (a1 - b0)
+    return out
 
 
 def summarize(trace: Dict, steps: int = 1, only: Optional[str] = None,
               top: int = 30) -> Dict:
     """The device events of a Chrome trace: total ms per step, the traced
-    window, the idle share, ms per step by category and the ``top``
-    kernels by time (of category ``only`` when given)."""
+    window, the idle share, ms per step by category, the ``top`` kernels
+    by time (of category ``only`` when given) and the idle ms per step by
+    program span."""
     events = [e for e in trace.get("traceEvents", [])
               if isinstance(e, dict) and e.get("ph") == "X"
               and "ts" in e]
@@ -175,9 +209,10 @@ def summarize(trace: Dict, steps: int = 1, only: Optional[str] = None,
     t1 = max((float(e["ts"]) + float(e.get("dur", 0.0)) for e in events),
              default=0.0)
     window_us = max(t1 - t0, 1e-9)
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-             for e in device]
-    busy_us = _union_us(spans)
+    merged = _union([(float(e["ts"]), float(e["ts"]) +
+                      float(e.get("dur", 0.0))) for e in device])
+    busy_us = sum(b - a for a, b in merged)
+    idle = idle_by_span(events, merged)
     cats: Dict[str, float] = {}
     for name, (us, _) in by_name.items():
         cats[category(name)] = cats.get(category(name), 0.0) + us
@@ -191,7 +226,9 @@ def summarize(trace: Dict, steps: int = 1, only: Optional[str] = None,
             "events": len(device), "steps": K,
             "by_category": {k: v / 1e3 / K for k, v in
                             sorted(cats.items(), key=lambda kv: -kv[1])},
-            "top": rows[:top]}
+            "top": rows[:top],
+            "idle_by_span": {k: v / 1e3 / K for k, v in
+                             sorted(idle.items(), key=lambda kv: -kv[1])}}
 
 
 def main(argv=None) -> Dict:
@@ -219,6 +256,9 @@ def main(argv=None) -> Dict:
     for r in s["top"]:
         print(f"{r['name'][:60]:60s} {r['category'][:24]:24s} "
               f"{r['ms']:9.3f} {r['count']:6d}")
+    print(f"\n{'idle by program span':48s} {'ms/step':>9s}")
+    for k, v in s["idle_by_span"].items():
+        print(f"  {k:46s} {v:9.3f}")
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:

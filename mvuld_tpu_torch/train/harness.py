@@ -49,6 +49,7 @@ from mvuld_tpu_torch.core.checkpoint import (restore, resume_ladder,
                                              save_checkpoint)
 from mvuld_tpu_torch.core.logger import AverageMeter, WindowRate, create_logger
 from mvuld_tpu_torch.core.metrics import format_metrics, get_metrics_logits
+from mvuld_tpu_torch.core.tracing import span
 from mvuld_tpu_torch.core.train_state import (EarlyStopper, Inputs,
                                               eval_step, model_inputs,
                                               train_step)
@@ -61,15 +62,17 @@ def to_device(batch: Dict[str, np.ndarray], device,
               device_data: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, torch.Tensor]:
     """Host batch → device tensors; an index batch gathers its rows from
-    ``device_data``."""
-    if device_data is not None:
-        idx = torch.as_tensor(batch["idx"], device=device).long()
-        out = {k: v[idx] for k, v in device_data.items()}
-        if "label" in batch and "label" not in out:
-            out["label"] = torch.as_tensor(batch["label"], device=device)
-        return out
-    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
-            .to(device, non_blocking=True) for k, v in batch.items()}
+    ``device_data``. Span ``step.input`` (``core/tracing.py``)."""
+    with span("step.input"):
+        if device_data is not None:
+            idx = torch.as_tensor(batch["idx"], device=device).long()
+            out = {k: v[idx] for k, v in device_data.items()}
+            if "label" in batch and "label" not in out:
+                out["label"] = torch.as_tensor(batch["label"], device=device)
+            return out
+        return {k: (v if torch.is_tensor(v)
+                    else torch.as_tensor(np.asarray(v)))
+                .to(device, non_blocking=True) for k, v in batch.items()}
 
 
 def run_eval(model, ds: ArrayDataset, batch_size: int, device,

@@ -169,8 +169,12 @@ def serve(model, arrs: Dict[str, np.ndarray], batch_size: int, device
           ) -> np.ndarray:
     """P(vul) for every row of ``arrs``: chunks of ``batch_size`` rows, the
     tail chunk padded (with copies of its first row) up to its power-of-two
-    bucket, one eval forward each. ``model`` must already be on ``device``."""
+    bucket, one eval forward each. ``model`` must already be on ``device``.
+    Spans per chunk (``core/tracing.py``): ``serve.input`` (slicing,
+    padding, the copies), ``serve.forward``, ``serve.fetch``."""
     import torch
+
+    from mvuld_tpu_torch.core.tracing import span
 
     B = max(batch_size, 1)
     n = arrs["func_ids"].shape[0]
@@ -179,19 +183,24 @@ def serve(model, arrs: Dict[str, np.ndarray], batch_size: int, device
         for lo in range(0, n, B):
             k = min(B, n - lo)
             bucket = _bucket(k, B)
-            chunk = {}
-            for key, v in arrs.items():
-                c = v[lo:lo + k]
-                if k < bucket:     # pad the tail chunk up to its bucket shape
-                    c = np.concatenate([c, np.repeat(c[:1], bucket - k, 0)], 0)
-                chunk[key] = torch.as_tensor(c).to(device)
-            logits = model(chunk["func_ids"].long(), chunk["node_ids"].long(),
-                           chunk["image"], chunk["pos"], chunk["adj"] > 0,
-                           chunk["node_mask"])
-            # P(vul): softmax prob of class 1, the reference's decision rule
-            # (mvuld/main_bigvul.py:447)
-            p = torch.softmax(logits.float(), dim=-1)[:, 1]
-            probs[lo:lo + k] = p[:k].cpu().numpy()
+            with span("serve.input"):
+                chunk = {}
+                for key, v in arrs.items():
+                    c = v[lo:lo + k]
+                    if k < bucket:   # pad the tail chunk to its bucket shape
+                        c = np.concatenate([c, np.repeat(c[:1], bucket - k,
+                                                         0)], 0)
+                    chunk[key] = torch.as_tensor(c).to(device)
+            with span("serve.forward"):
+                logits = model(chunk["func_ids"].long(),
+                               chunk["node_ids"].long(), chunk["image"],
+                               chunk["pos"], chunk["adj"] > 0,
+                               chunk["node_mask"])
+                # P(vul): softmax prob of class 1, the reference's decision
+                # rule (mvuld/main_bigvul.py:447)
+                p = torch.softmax(logits.float(), dim=-1)[:, 1]
+            with span("serve.fetch"):
+                probs[lo:lo + k] = p[:k].cpu().numpy()
     return probs
 
 

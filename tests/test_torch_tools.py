@@ -18,7 +18,8 @@ traceparse,hardprobe,fontbench}.py``, ``data/zip_folder.py``).
   a port ``train_fusion`` run): the same table.
 - ``traceparse`` (its input is the port's own, so no JAX): a Chrome trace
   with known ``kernel`` events gives their sums, categories and idle
-  share exactly; a real CPU profiler trace parses.
+  share exactly, and its idle gaps by program span; a real CPU profiler
+  trace parses.
 - ``hardprobe.probe_at_scale`` at n 120: the same accuracy, F1 and counts.
 - ``fontbench.eval_face`` on one bundled face: the same reads.
 Tolerance: exact (host code on the same inputs).
@@ -314,6 +315,51 @@ def test_traceparse_known_events(tmp_path, capsys):
     with open(out) as f:
         assert json.load(f)["device_ms"] == pytest.approx(0.050)
     assert "device time: 0.050 ms/step" in capsys.readouterr().out
+
+
+def test_traceparse_idle_by_program_span(tmp_path, capsys):
+    """Gaps between device intervals go to the innermost ``mvuld.*`` span
+    over their middle on the launching thread; a span on another thread
+    (the device's copy of an annotation too), another name, or no span:
+    "(no span)"."""
+    from mvuld_tpu_torch.tools import traceparse as tp
+
+    def host(name, ts, dur, cat="cpu_op", tid=1):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "pid": 1, "tid": tid}
+
+    events = [
+        host("cudaLaunchKernel", 1.0, 1.0, "cuda_runtime"),
+        host("mvuld.step.backward", 0.0, 100.0),
+        host("mvuld.step.optimizer", 100.0, 60.0),
+        host("mvuld.step.input", 30.0, 10.0),          # nested: innermost
+        host("other.annotation", 55.0, 20.0, "user_annotation"),
+        host("mvuld.feed.make", 160.0, 100.0, tid=2),  # not a launcher
+        host("mvuld.step.optimizer", 150.0, 60.0, "gpu_user_annotation",
+             tid=7),
+        _kernel("k", 10.0, 20.0), _kernel("k", 25.0, 5.0),   # [10, 30]
+        _kernel("k", 50.0, 10.0),     # gap 30-50, middle 40: step.input
+        _kernel("k", 80.0, 10.0),     # gap 60-80: step.backward
+        _kernel("k", 120.0, 20.0),    # gap 90-120, middle 105: optimizer
+        _kernel("k", 200.0, 10.0),    # gap 140-200, middle 170: no span
+    ]
+    s = tp.summarize({"traceEvents": events}, steps=2)
+    assert s["idle_by_span"] == pytest.approx({
+        "mvuld.step.input": 0.010, "mvuld.step.backward": 0.010,
+        "mvuld.step.optimizer": 0.015, "(no span)": 0.030})
+    assert list(s["idle_by_span"])[0] == "(no span)"
+    assert s["busy_ms"] == pytest.approx(0.070)
+    path = str(tmp_path / "t.json")
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    out = str(tmp_path / "s.json")
+    tp.main([path, "--steps", "2", "--json", out])
+    with open(out) as f:
+        assert json.load(f)["idle_by_span"]["mvuld.step.optimizer"] == \
+            pytest.approx(0.015)
+    printed = capsys.readouterr().out
+    assert "idle by program span" in printed
+    assert "mvuld.step.input" in printed
 
 
 def test_traceparse_categories_and_cpu_trace(tmp_path):
