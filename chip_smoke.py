@@ -591,7 +591,9 @@ def check_attention(dev, gen, rows, shapes, path):
         k2_plain = lambda: chunks(  # noqa: E731
             lambda w: window_attention_flat_bwd_plain(
                 qkv[w], bias, ls, out[w], r[w], g[w], shift, nW1, nW1), 2)
+        fused = window_attention_flat_bwd.fused_launches
         got = window_attention_flat_bwd(*bargs)
+        fused = window_attention_flat_bwd.fused_launches - fused
         want = k2_plain()
         torch.cuda.synchronize()
         errs = [float((a.float() - b.float()).abs().max())
@@ -599,6 +601,9 @@ def check_attention(dev, gen, rows, shapes, path):
         tols = [bf16_tol(want[0].float()),
                 1e-4 * float(want[1].abs().max()),
                 1e-3 * float(want[2].abs().max())]
+        # K2's fused key-outer pass (dq, dk and dv at once) or its dq and
+        # dk/dv passes: fused_launches counts the first
+        print(f"K2 {shape}: fused_launches +{fused} in 1 launch", flush=True)
         ms = time_ms(lambda: window_attention_flat_bwd(*bargs), 3)
         plain_ms = time_ms(k2_plain, 2)
         del want

@@ -284,15 +284,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // The fp32 value pair at (row, column d, d + 1) of an operand staged as
-// PARTS term tiles: the sum of its terms.
-template <int PARTS>
-__device__ __forceinline__ float2 staged_pair(const __nv_bfloat16* tile, int stride,
+// PARTS term tiles `stride` apart, rows LD apart (a shared-memory tile; LD
+// HD for the staged operands in device memory): the sum of its terms.
+template <int PARTS, int LD = LDB, typename ST = int>
+__device__ __forceinline__ float2 staged_pair(const __nv_bfloat16* tile, ST stride,
                                               int row, int d) {
   float2 v = make_float2(0.f, 0.f);
 #pragma unroll
   for (int p = PARTS - 1; p >= 0; --p) {
     const uint32_t u =
-        *reinterpret_cast<const uint32_t*>(tile + p * stride + row * LDB + d);
+        *reinterpret_cast<const uint32_t*>(tile + p * stride + row * LD + d);
     v.x += low_f(u);
     v.y += high_f(u);
   }

@@ -60,7 +60,20 @@
 //     statistics (lr2 and t = sum(dp * p)), dq over the keys, dk/dv over
 //     the queries, dbias and dscale over the windows; dq and dk/dv are two
 //     kernels because the second product of one needs the block the other
-//     holds transposed (the dk/dv pass forms s^T).
+//     holds transposed (the dk/dv pass forms s^T). K2 merges them where a
+//     window side's blocks fit in one thread-block cluster (N <= 1024, all
+//     of SwinV2's windows): `attn_bwd_fused` forms s^T and dp^T of each
+//     block once (the dk/dv pass's work: 24 + 4 MMAs for s and dp, 8 for
+//     p.g, 12 for ds.q^, one exp and one bias read per logit), stages ds^T
+//     as bf16 terms in shared memory and adds ds.k^ (12 more MMAs) for the
+//     block's keys; the blocks' dq shares are added through distributed
+//     shared memory in block order, so dq needs no atomics and no scratch.
+//     60 MMAs a 16 x 16 block where the two passes took 88, and half the
+//     exps, bias reads and operand loads. On the H100 at SwinV2-B's shapes
+//     it takes 0.85-0.89 of the two passes' time (PERF.md): its main loop
+//     alone runs as fast as the dk/dv pass, and the dq product, the
+//     cluster's placement and its per-tile barrier with the owner's sum add
+//     about 0.6 of that.
 //   - a block owns 16 W rows of a window and head, W warps of 16 rows, the
 //     ceil(N / 16) strips spread evenly over the fewest blocks of at most
 //     8 warps: N = 784 is 7 blocks of 7 warps, N = 196 two of 7 (13
@@ -507,7 +520,7 @@ __global__ void __launch_bounds__(32 * MAXW, 2) attn_fwd_flat(FwdP<TO> A, Geo G)
 
 // --------------------------------------------------------------- backward
 //
-// Five kernels. `prep_operands` writes q^, k^ (three terms), v and g (one
+// Six kernels. `prep_operands` writes q^, k^ (three terms), v and g (one
 // or two). `attn_bwd_rows` serves three of them: a block owns 16 W "own"
 // rows of one window and head (W warps, 16 rows each: queries for
 // ROWSTATS, ROWSUMS and DQ, keys for DKV), keeps their A fragments in
@@ -515,7 +528,8 @@ __global__ void __launch_bounds__(32 * MAXW, 2) attn_fwd_flat(FwdP<TO> A, Geo G)
 // 16 at a time: s and dp of a 16 x 16 block on the tensor cores, the
 // logits and p, ds in registers, and the second products straight from
 // those registers. `attn_bwd_sums` owns a 16 W x TJ tile of one head and
-// walks a range of windows.
+// walks a range of windows. K2 runs `attn_bwd_fused` in place of the DQ
+// and DKV passes wherever its clusters fit (below).
 
 // K2's row terms from the forward: its output o (out's layout and type),
 // its reciprocal row sums r [Bn, H, N] and the fixed shifts m [H]; null
@@ -891,6 +905,346 @@ __global__ void __launch_bounds__(32 * MAXW, 2) attn_bwd_rows(P A, Geo G) {
   }
 }
 
+// ------------------------------------------- K2's fused key-outer pass
+//
+// dq, dk and dv from one formation of each logit block (K2 only, where
+// plan_rows gives at most MAXC blocks a window side). A block owns 16 W key
+// rows of one window and head, as DKV does, and walks the query tiles TQ
+// rows at a time: per 16-query step each warp forms s^T and dp^T of its 16
+// keys once, derives p^T and ds^T from the query rows' lr2 and t, adds p^T.g
+// into dv and ds^T.q^ into dk^, and writes ds^T (its hi and lo terms) to a
+// shared tile. Once a tile is done the block's warps multiply that tile,
+// read as ds through `ldmatrix.trans`, by the block's k^ (units of 16
+// queries x 16 columns, the keys in order): the block's share of dq^. The
+// blocks of one window and head are launched as one thread-block cluster;
+// the tile's owner (tile t % blocks) adds every block's share in block
+// order through distributed shared memory and runs DQ's epilogue (dq and
+// rowq). No atomics and no scratch in device memory: two runs give the same
+// bits. The cluster's barrier is split: a block arrives once its share of
+// tile t is written and waits (then the owner adds) after it has formed
+// tile t + 1, so the barrier's latency hides behind a tile's work; the
+// owner reads its q^ for the epilogue before it waits.
+
+constexpr int MAXC = 8;         // blocks of a cluster at most (the portable limit)
+constexpr int TQ = 48;          // query rows per tile of the fused pass
+constexpr int LDS = TQ + 8;     // bf16 per row of its ds^T tile: 112 bytes, so
+                                // the rows of an ldmatrix fall in distinct banks
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster's barrier in two halves: arrive releases this thread's
+// writes; wait returns once every thread of the cluster has arrived, and
+// acquires theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+// the float4 at `p` of this block's shared memory as block `rank` of the
+// cluster holds it
+__device__ __forceinline__ float4 load_cluster(const float* p, unsigned rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(ra)
+               : "memory");
+  return v;
+}
+
+// PV, PG: the terms of v and g. Grid (blocks, H, Bn) in clusters of
+// (blocks, 1, 1), 32 W threads.
+template <int PV, int PG, typename TO>
+__global__ void __launch_bounds__(32 * MAXW, 2) attn_bwd_fused(FlatBwdP<TO> A, Geo G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int W = blockDim.x >> 5, R = 16 * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, own0 = blockIdx.x * R;
+  const unsigned rank = cluster_rank(), blocks = gridDim.x;
+  const int N = G.N, N16 = (N + 15) & ~15;
+  const int so = R * LDB, st = TQ * LDB;
+  constexpr int OTH = (PX + PG) * TQ * LDB;        // one query tile: q^, then g
+  __nv_bfloat16* ownX = reinterpret_cast<__nv_bfloat16*>(smem);   // k^, every term
+  __nv_bfloat16* ownY = ownX + PX * so;            // v
+  __nv_bfloat16* oth = ownY + PV * so;             // [2][OTH]
+  __nv_bfloat16* dsT = oth + 2 * OTH;              // [hi, lo][R][LDS]: the tile's ds^T
+  // [2][TQ / 16][4][32] float4: the block's dq^ of a tile, each thread's
+  // fragment of a 16-row strip as four float4 (16 x 8 tiles) lane by lane
+  float* part = reinterpret_cast<float*>(dsT + 2 * R * LDS);
+  float* oth_lr = part + 2 * TQ * HD;              // [2][TQ]
+  float* oth_tt = oth_lr + 2 * TQ;                 // [2][TQ]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(oth_tt + 2 * TQ);
+
+  const bool split = !G.round_ops, p_split = !G.round_p;
+  const bool synth = G.shift > 0;
+  const int nx = split ? PX : 1, nyo = split ? PV : 1, nyt = split ? PG : 1;
+  const float sc = A.scale[h];
+  const size_t row0 = ((size_t)b * G.H + h) * N;
+  const Staged& S = A.S;
+  const __nv_bfloat16* qx = S.q + row0 * HD;
+  const __nv_bfloat16* gy = S.g + row0 * HD;
+
+  auto fetch_tile = [&](int t) {
+    const int o0 = t * TQ, rows = min(TQ, N16 - o0);
+    __nv_bfloat16* buf = oth + (t & 1) * OTH;
+    copy_rows_async<PX>(qx, S.stride, nx, o0, rows, N, buf, st);
+    copy_rows_async<PG>(gy, S.stride, nyt, o0, rows, N, buf + PX * st, st);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const bool in = o0 + i < N;
+      const size_t at_i = row0 + (in ? o0 + i : 0);
+      cp_async4(oth_lr + (t & 1) * TQ + i, A.lr + at_i, in);
+      cp_async4(oth_tt + (t & 1) * TQ + i, A.tt + at_i, in);
+    }
+  };
+
+  // every term of the own k^: the epilogue rebuilds k^ from them
+  copy_rows_async<PX>(S.k + row0 * HD, S.stride, PX, own0, R, N, ownX, so);
+  copy_rows_async<PV>(S.v + row0 * HD, S.stride, nyo, own0, R, N, ownY, so);
+  fetch_tile(0);
+  cp_async_commit();
+  stage_flags(G, synth, N16, flags);
+
+  const Logits LG{A.bias + (size_t)h * N * N, nullptr, flags, sc, N,
+                  window_bands(G, synth, b)};
+  const int keys = min(W, (N16 - own0) / 16);    // strips of keys below N16
+  const bool active = warp < keys;                // else a strip of padding
+  const int ra = own0 + 16 * warp + g8, rb = ra + 8;
+  uint32_t ax[PX][2][4], ay[PV][2][4];
+  int fa = 0, fb = 0;
+  float add_next[2][4];
+  if (active) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) LG.addends<true>(ra, rb, 8 * nt + 2 * t4, add_next[nt]);
+  }
+  float dv[4][4], dk[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[a][e] = dk[a][e] = 0.f;
+
+  // The owner of query tile t: block t % blocks, a warp a 16-row strip.
+  auto owns = [&](int t) {
+    return (unsigned)t % blocks == rank && 16 * warp < min(TQ, N16 - t * TQ);
+  };
+  // q^ (its terms summed) at an owner thread's fragment of tile t: rows
+  // 16 warp + g and + 8, columns 8 nt + 2 t4 and + 1; read before the
+  // cluster's barrier, so that its latency hides behind the wait
+  auto own_q = [&](int t, float2 (&xv)[2][4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        xv[r][nt] = staged_pair<PX, HD>(qx + (size_t)t * TQ * HD, S.stride,
+                                        16 * warp + g8 + 8 * r, 8 * nt + 2 * t4);
+  };
+  // dq of query tile t, on its owner: the cluster's shares added in block
+  // order (two blocks' shares in flight at a time), then DQ's epilogue
+  // (store_normalised's rsqrt-norm backward, and rowq) with own_q's q^
+  auto finish_dq = [&](int t, const float2 (&xv)[2][4]) {
+    if (!owns(t)) return;
+    const float* mine = part + (t & 1) * TQ * HD + (4 * warp * 32 + lane) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    unsigned r = 0;
+    for (; r + 1 < blocks; r += 2) {
+      float4 v[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[q][j] = load_cluster(mine + j * 128, r + q);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] += v[q][j].x; acc[j][1] += v[q][j].y;
+          acc[j][2] += v[q][j].z; acc[j][3] += v[q][j].w;
+        }
+    }
+    for (; r < blocks; ++r) {
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = load_cluster(mine + j * 128, r);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j][0] += v[j].x; acc[j][1] += v[j].y;
+        acc[j][2] += v[j].z; acc[j][3] += v[j].w;
+      }
+    }
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int i = t * TQ + 16 * warp + g8 + 8 * r2;
+      float dot = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        dot += xv[r2][nt].x * (acc[nt][2 * r2] * sc) +
+               xv[r2][nt].y * (acc[nt][2 * r2 + 1] * sc);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if (i >= N) continue;
+      const float n = S.qn[row0 + i];
+      TO* out = A.dq + at(G.in, b, h, i);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store2(out + 8 * nt + 2 * t4, (acc[nt][2 * r2] * sc - xv[r2][nt].x * dot) * n,
+               (acc[nt][2 * r2 + 1] * sc - xv[r2][nt].y * dot) * n);
+      if (t4 == 0) A.rowq[row0 + i] = dot / sc;
+    }
+  };
+
+  const int ntiles = (N16 + TQ - 1) / TQ;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) fetch_tile(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile t (and the own rows) have landed
+    __syncthreads();
+    if (t == 0 && active) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p) load_a(ax[p], ownX + p * so, 16 * warp);
+#pragma unroll
+      for (int p = 0; p < PV; ++p) load_a(ay[p], ownY + p * so, 16 * warp);
+      fa = flags[ra];
+      fb = flags[rb];
+    }
+    const int o0 = t * TQ, rows = min(TQ, N16 - o0);
+    const __nv_bfloat16* othX = oth + (t & 1) * OTH;
+    const __nv_bfloat16* othY = othX + PX * st;
+    const float* tlr = oth_lr + (t & 1) * TQ;
+    const float* ttt = oth_tt + (t & 1) * TQ;
+
+    for (int sub = 0; active && sub < rows; sub += 16) {
+      float s[2][4], dp[2][4], x[2][4], add[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add[nt][e] = add_next[nt][e];
+        // the next 16 columns' addends, in flight during this block's MMAs
+        LG.addends<true>(ra, rb, o0 + sub + 16 + 8 * nt + 2 * t4, add_next[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        mma_terms_nk<PX, PX>(s[nt], ax, othX, st, sub + 8 * nt, split);
+        mma_terms_nk<PV, PG>(dp[nt], ay, othY, st, sub + 8 * nt, split);
+      }
+      const bool edge = o0 + sub + 16 > N;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        LG.logits(o0 + sub + 8 * nt + 2 * t4, fa, fb, s[nt], add[nt], x[nt], edge);
+
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = sub + 8 * nt + 2 * t4;
+        const float2 lc = *reinterpret_cast<const float2*>(tlr + c);
+        const float2 tc = *reinterpret_cast<const float2*>(ttt + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[nt][e] = LG.p(x[nt][e], (e & 1) ? lc.y : lc.x);
+          ds[nt][e] = p[nt][e] * (dp[nt][e] - ((e & 1) ? tc.y : tc.x));
+        }
+        // keys past N add nothing to dq
+        if (ra >= N) ds[nt][0] = ds[nt][1] = 0.f;
+        if (rb >= N) ds[nt][2] = ds[nt][3] = 0.f;
+      }
+      uint32_t hi[4], lo[4];
+      acc_to_a(p, hi, lo);
+      mma_terms_kn<PG>(dv, hi, lo, othY, st, sub, p_split, split);
+      acc_to_a(ds, hi, lo);
+      mma_terms_kn<2>(dk, hi, lo, othX, st, sub, split, split);
+      // ds^T's terms for the tile's dq product: (key g, queries 2t..), (key
+      // g + 8, ..), (key g, queries 8 + 2t..), (key g + 8, ..)
+      __nv_bfloat16* d = dsT + (16 * warp + g8) * LDS + sub + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (e & 1) * 8 * LDS + (e >> 1) * 8;
+        *reinterpret_cast<uint32_t*>(d + off) = hi[e];
+        if (split) *reinterpret_cast<uint32_t*>(d + R * LDS + off) = lo[e];
+      }
+    }
+
+    if (t > 0) {
+      float2 xv[2][4];
+      if (owns(t - 1)) own_q(t - 1, xv);
+      cluster_wait();                 // every block's share of tile t - 1 is written
+      finish_dq(t - 1, xv);
+    }
+    __syncthreads();                  // the tile's ds^T is complete
+    // the block's share of dq^ for tile t: units of 16 queries x 16
+    // columns, each a sum over the block's keys in order (hi.k0, then lo.k0
+    // + hi.k1 on a second chain, as DQ's terms)
+    float4* share = reinterpret_cast<float4*>(part + (t & 1) * TQ * HD);
+    for (int u = warp; u < rows / 8; u += W) {
+      const int sq = u >> 1, dh = u & 1;
+      float c[2][4], c2[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] = c2[n][e] = 0.f;
+      for (int kk = 0; kk < keys; ++kk) {
+        uint32_t hi[4], lo[4], bk[4];
+        // A fragments of ds (queries x keys) from the ds^T rows
+        const __nv_bfloat16* a = dsT + (16 * kk + (lane & 7) + (lane >> 4) * 8) * LDS +
+                                 16 * sq + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(hi, a);
+        load_b_kn(bk, ownX, 16 * kk, 16 * dh);
+        mma16816(c[0], hi, bk[0], bk[1]);
+        mma16816(c[1], hi, bk[2], bk[3]);
+        if (split) {
+          ldsm_x4_t(lo, a + R * LDS);
+          mma16816(c2[0], lo, bk[0], bk[1]);
+          mma16816(c2[1], lo, bk[2], bk[3]);
+          load_b_kn(bk, ownX + so, 16 * kk, 16 * dh);
+          mma16816(c2[0], hi, bk[0], bk[1]);
+          mma16816(c2[1], hi, bk[2], bk[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        share[(4 * sq + 2 * dh + n) * 32 + lane] =
+            make_float4(c[n][0] + c2[n][0], c[n][1] + c2[n][1], c[n][2] + c2[n][2],
+                        c[n][3] + c2[n][3]);
+    }
+    cluster_arrive();                 // this block's share of tile t is written
+    __syncthreads();                  // tile t and the ds^T tile are consumed
+  }
+  {
+    float2 xv[2][4];
+    if (owns(ntiles - 1)) own_q(ntiles - 1, xv);
+    cluster_wait();
+    finish_dq(ntiles - 1, xv);
+  }
+  cluster_arrive();                   // no block leaves while its shares may be read
+  cluster_wait();
+  if (!active) return;
+
+  float dots[2];
+  store_normalised<TO>(dk, sc, ownX, so, 16 * warp + g8,
+                       ra < N ? S.kn[row0 + ra] : 0.f, rb < N ? S.kn[row0 + rb] : 0.f,
+                       ra < N ? A.dk + at(G.in, b, h, ra) : nullptr,
+                       rb < N ? A.dk + at(G.in, b, h, rb) : nullptr, dots);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = r == 0 ? ra : rb;
+    if (j >= N) continue;
+    TO* out = A.dv + at(G.in, b, h, j);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      store2(out + 8 * nt + 2 * t4, dv[nt][2 * r], dv[nt][2 * r + 1]);
+  }
+}
+
 // dbias and dscale: the block owns query rows 16 W * blockIdx.y.. and key
 // columns TJ * blockIdx.x.. of head blockIdx.z / nchunk and adds ds over
 // the windows of chunk blockIdx.z % nchunk (`per` windows each) in window
@@ -1146,10 +1500,18 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
   auto sums_smem = [&](int r) {
     return (size_t)2 * ((PX + PG) * r + (PX + PV) * TJ) * LDB * 2 + MAXW * 4 + N16;
   };
+  // K2's fused pass where a window side's blocks fit in one cluster
+  const bool fused = ROWS == FORWARD_ROWS && P.tiles <= MAXC;
+  auto fused_smem = [&](int r) {
+    return (size_t)((PX + PV) * r * LDB + 2 * (PX + PG) * TQ * LDB + 2 * r * LDS) * 2 +
+           (size_t)2 * TQ * HD * 4 + (size_t)4 * TQ * 4 + N16;
+  };
   cudaError_t err = cudaSuccess;
   if constexpr (ROWS != FORWARD_ROWS)
     err = allow_smem(attn_bwd_rows<PV, PG, TO, ROW_PASS, false, Par>,
                      rows_smem(PG, PV, 16 * MAXW));
+  else
+    err = allow_smem(attn_bwd_fused<PV, PG, TO>, fused_smem(16 * MAXW));
   if (err != cudaSuccess ||
       (err = allow_smem(attn_bwd_rows<PV, PG, TO, DQ, ROWQ, Par>,
                         rows_smem(PG, PV, 16 * MAXW))) != cudaSuccess ||
@@ -1189,12 +1551,33 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
         <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  attn_bwd_rows<PV, PG, TO, DQ, ROWQ, Par>
-      <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_rows<PV, PG, TO, DKV, false, Par>
-      <<<grid, threads, rows_smem(PV, PG, R), stream>>>(B, G);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (fused) {
+    if constexpr (ROWS == FORWARD_ROWS) {
+      // one cluster per window and head: its blocks add their dq shares
+      // through each other's shared memory
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = P.tiles;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = grid;
+      cfg.blockDim = dim3(threads);
+      cfg.dynamicSmemBytes = fused_smem(R);
+      cfg.stream = stream;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if ((err = cudaLaunchKernelEx(&cfg, attn_bwd_fused<PV, PG, TO>, B, G)) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+  } else {
+    attn_bwd_rows<PV, PG, TO, DQ, ROWQ, Par>
+        <<<grid, threads, rows_smem(PG, PV, R), stream>>>(B, G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    attn_bwd_rows<PV, PG, TO, DKV, false, Par>
+        <<<grid, threads, rows_smem(PV, PG, R), stream>>>(B, G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   float* dbias = static_cast<float*>(A.dbias);
   float* part_db = static_cast<float*>(A.part_db);
   float* part_ds = static_cast<float*>(A.part_ds);

@@ -24,7 +24,8 @@ JAX package's v2 backward ``pallas_window_attention_flat_bwd2``) and
 ``pallas_window_attention_flat_bwd``) run CUDA kernels for CUDA tensors —
 the tensor-core passes of ``csrc/window_attention.cu`` that K7-K8b run
 too: K1 one fixed-shift pass (its arithmetic ``_flat_fwd_split``), K2 and
-K5 the backward passes (``_flat_bwd_split``) — and the plain versions for
+K5 the backward passes (``_flat_bwd_split``; K2 forms dq, dk and dv in one
+fused pass where ``_k2_fused`` holds) — and the plain versions for
 CPU tensors; they never fall back from one to the other. ``flat_attention``
 is the training entry. Its backward generation follows ``MVULD_ATTN_BWD``
 as in the JAX package: v2 (the default) runs K1 with its reciprocal row
@@ -430,6 +431,16 @@ def _flat_bwd_kernels(what, qkv, bias, logit_scale, o, r, g, shift, nWh, nWw,
     return err, (dqkv, dbias, dscale)
 
 
+def _k2_fused(N: int) -> bool:
+    """Whether K2 forms dq, dk and dv in its fused key-outer pass, as
+    ``launch_bwd`` of ``csrc/window_attention.cu`` decides: the blocks of a
+    window side (``plan_rows``: ceil(ceil(N / 16) / 8)) fit in one
+    thread-block cluster of at most 8, N ≤ 1024; above that its separate
+    dq and dk/dv passes."""
+    strips = -(-N // 16)
+    return -(-strips // 8) <= 8
+
+
 def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
                               shift: int = 0, nWh: int = 1, nWw: int = 1,
                               mxu_bf16: bool = False):
@@ -439,8 +450,10 @@ def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
 
     CUDA tensors run the tensor-core passes of ``csrc/window_attention.cu``
     (operands split into bf16 terms with the row terms from ``o`` and
-    ``r``, then dq, dk/dv, dbias + dscale; ``_flat_bwd_split`` is their
-    arithmetic); CPU tensors run ``window_attention_flat_bwd_plain``."""
+    ``r``, then dq, dk and dv in one fused pass where ``_k2_fused`` holds,
+    counted by ``fused_launches``, else a dq and a dk/dv pass, then dbias +
+    dscale; ``_flat_bwd_split`` is their arithmetic); CPU tensors run
+    ``window_attention_flat_bwd_plain``."""
     Bn, N, C, H, ws = _geometry(qkv, bias, logit_scale, shift, nWh, nWw)
     if tuple(o.shape) != (Bn, N, C) or tuple(g.shape) != (Bn, N, C) \
             or tuple(r.shape) != (Bn, H, N):
@@ -454,6 +467,8 @@ def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,
                                    logit_scale, o, r, g, shift, nWh, nWw,
                                    mxu_bf16)
     window_attention_flat_bwd.launches += 1
+    if _k2_fused(qkv.shape[1]):
+        window_attention_flat_bwd.fused_launches += 1
     _build.check(err, "window_attention_flat_bwd")
     return grads
 
@@ -485,6 +500,7 @@ def window_attention_flat_bwd_v1(qkv, bias, logit_scale, g, shift: int = 0,
 
 window_attention_flat.launches = 0
 window_attention_flat_bwd.launches = 0
+window_attention_flat_bwd.fused_launches = 0
 window_attention_flat_bwd_v1.launches = 0
 
 

@@ -1,7 +1,7 @@
 """Same-card A/B of the kernels' times between source trees.
 
   python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...]
-      [--phase mlp dense attention layouts] [--sass window_attention ...]
+      [--phase mlp dense attention layouts k2] [--sass window_attention ...]
       [--sass-dir DIR]
 
 For each TREE in the order given (parent, change, change, parent, say),
@@ -18,6 +18,14 @@ its plain version, then timed on CUDA events):
              batch-64 fine-tune's (``check_attention``)
   layouts    K7, K7b, K8 and K8b at every stage's bucket-16 shape
              (``check_layouts``)
+  k2         K2 pass by pass at the bucket-16 (batch-16 training step)
+             and batch-64 fine-tune shapes: the device ms of each of its
+             kernels (``prep_operands``, the dq and dk/dv passes or the
+             fused pass, ``attn_bwd_sums``, ``sum_partials``) per launch,
+             mean of K2_REPS launches under ``torch.profiler``, as rows of
+             kernel ``K2:<pass>``; and each shape's
+             ``window_attention_flat_bwd.fused_launches`` per launch
+             ("absent" in a tree without the counter)
 
 and prints one line per kernel shape, one line per kernel and path with
 the sum over its shapes of launches × ms (per bucket-16 forward, training
@@ -41,7 +49,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import hashlib, json, os, re, subprocess, sys
+import hashlib, json, math, os, re, subprocess, sys
 import torch
 import chip_smoke as cs
 from mvuld_tpu_torch.ops import _build
@@ -90,6 +98,50 @@ if "attention" in phases:
     cs.check_attention(dev, gen, rows, cs.SWIN_K1_SHAPES, "swin")
 if "layouts" in phases:
     cs.check_layouts(dev, gen, rows)
+if "k2" in phases:
+    from torch.profiler import ProfilerActivity, profile
+    from mvuld_tpu_torch.ops import window_attention as wa
+    K2_REPS = 3
+    bwd = wa.window_attention_flat_bwd
+    for path, shapes in (("e2e", cs.K1_SHAPES), ("swin", cs.SWIN_K1_SHAPES)):
+        for stage, Bn, N, C, H, shift, nW1, per_fwd in shapes:
+            qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=gen
+                              ).to(torch.bfloat16)
+            bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev,
+                                                  generator=gen))
+            ls = math.log(10.0) + 0.1 * torch.randn(H, device=dev,
+                                                    generator=gen)
+            o, r = wa.window_attention_flat(qkv, bias, ls, shift, nW1, nW1,
+                                            return_rowsum=True)
+            g = torch.randn(o.shape, device=dev, generator=gen
+                            ).to(torch.bfloat16)
+            run = lambda: bwd(qkv, bias, ls, o, r, g, shift, nW1, nW1)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            fused = getattr(bwd, "fused_launches", None)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(K2_REPS):
+                    run()
+                torch.cuda.synchronize()
+            if fused is not None:
+                fused = (bwd.fused_launches - fused) / K2_REPS
+            passes = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    name = e.name.replace("(anonymous namespace)::", "")
+                    name = name.split("(")[0].strip()
+                    passes[name] = (passes.get(name, 0.0)
+                                    + e.time_range.elapsed_us() / 1e3 / K2_REPS)
+            shape = (f"stage{stage} Bn={Bn} N={N} C={C} H={H} "
+                     f"shift={shift}")
+            print(f"AB_K2 [{path}] {shape}: fused_launches per launch "
+                  f"{'absent' if fused is None else fused}", flush=True)
+            for name, ms in passes.items():
+                rows.append(dict(kernel=f"K2:{name}", shape=shape, path=path,
+                                 per_fwd=per_fwd, ms=ms, plain_ms=0.0,
+                                 err=0.0, tol=0.0, ok=True))
+            del qkv, bias, o, r, g
+            torch.cuda.empty_cache()
 out = [dict(kernel=r["kernel"], shape=r["shape"], path=r["path"],
             per_fwd=r["per_fwd"], ms=r["ms"], plain_ms=r["plain_ms"],
             ok=bool(r.get("ok", r["err"] <= (r["tol"] or 0.0))))
@@ -106,7 +158,7 @@ def run_tree(tree: str, phases, sass, dump_to="") -> list:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     for line in proc.stdout.splitlines():
-        if line.startswith("AB_SASS "):
+        if line.startswith(("AB_SASS ", "AB_K2 ")):
             print(f"{tree}: {line}", flush=True)
     for line in proc.stdout.splitlines():
         if line.startswith("AB_ROWS "):
@@ -118,7 +170,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="source trees, in run order")
     ap.add_argument("--phase", nargs="+", default=["mlp", "dense"],
-                    choices=["mlp", "dense", "attention", "layouts"])
+                    choices=["mlp", "dense", "attention", "layouts", "k2"])
     ap.add_argument("--sass", nargs="*", default=[],
                     help="libraries (csrc/<name>.cu) to digest")
     ap.add_argument("--sass-dir", default="",

@@ -6,7 +6,8 @@ which the GPU machine need not have):
   python -m pytest --noconftest tests/test_torch_cuda.py -q
 Kernels: K1, K2, K5 (flat attention; K2 and K5 also at the model's
 windows, twice to the bit, on misaligned views, on an underflowing row and
-with ``mxu_bf16``; K2 from K1's outputs), K7/K7b (map layout), K8/K8b
+with ``mxu_bf16``; K2's fused pass at N 784 with 4, 8 and 16 heads, 196
+and 64; K2 from K1's outputs), K7/K7b (map layout), K8/K8b
 (head layout with a mask operand; the three forwards K1, K7, K8 also at
 the model's windows, twice to the bit, on misaligned views, with
 ``mxu_bf16``, K1 on an underflowing row), K3/K3b, K4/K4b (MLP + LayerNorm: bf16 and fp32 x, the model's
@@ -764,10 +765,14 @@ def test_flat_backward_kernels_at_the_model_windows(dev, ws, shifted, dtype,
     counter = (wa.window_attention_flat_bwd_v1 if kind == "k5"
                else wa.window_attention_flat_bwd)
     before = counter.launches
+    fused = wa.window_attention_flat_bwd.fused_launches
     got = _flat_grads(kind, qkv, bias, ls, gout, geom)
     want = _flat_grads(kind, qkv, bias, ls, gout, geom, plain=True)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
+    # K2 runs its fused pass at every SwinV2 window; K5 never does
+    assert wa.window_attention_flat_bwd.fused_launches \
+        == fused + (kind == "k2")
     assert got[0].dtype == dtype and got[0].shape == qkv.shape
     got, want = _split_dqkv(got), _split_dqkv(want)
     for a, b, t in zip(got, want, _grad_tols(want, dtype)):
@@ -779,16 +784,56 @@ def test_flat_backward_kernels_at_the_model_windows(dev, ws, shifted, dtype,
         assert max(_rel_l2(a, b) for a, b in zip(got, k2)) <= lim
 
 
-@pytest.mark.parametrize("kind", ["k2", "k5"])
-def test_flat_backward_repeats_to_the_bit(dev, kind):
+@pytest.mark.parametrize("kind,ws", [("k2", 14), ("k5", 14), ("k2", 28)],
+                         ids=["k2", "k5", "k2_ws28"])
+def test_flat_backward_repeats_to_the_bit(dev, kind, ws):
     """No atomics: two runs give the same bits (the windows summed into
-    dbias in chunks, then in a fixed order)."""
-    qkv, bias, ls, gout = _flat_inputs(dev, 31, 16, 14, 2, torch.bfloat16)
-    first = _flat_grads(kind, qkv, bias, ls, gout, (7, 2, 2))
-    again = _flat_grads(kind, qkv, bias, ls, gout, (7, 2, 2))
+    dbias in chunks, then in a fixed order; K2's dq shares added over a
+    cluster of blocks in block order, seven blocks at ws 28)."""
+    qkv, bias, ls, gout = _flat_inputs(dev, 31, 16, ws, 2, torch.bfloat16)
+    geom = (ws // 2, 2, 2)
+    first = _flat_grads(kind, qkv, bias, ls, gout, geom)
+    again = _flat_grads(kind, qkv, bias, ls, gout, geom)
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# K2's fused key-outer pass (the blocks of a window side as one cluster)
+# at the model's windows and head counts: N = 784 with SwinV2-B's heads of
+# stages 1-3 (a cluster of seven blocks), N = 196 (two), N = 64 (one),
+# unshifted and shifted, bf16 and fp32, with split operands at the
+# backward's tolerances and with ``mxu_bf16`` at those of the mxu_bf16
+# test below.
+FUSED_GEOMS = [(28, 4), (28, 8), (28, 16), (14, 2), (8, 2)]
+
+
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["split", "mxu_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True], ids=["shift0", "shifted"])
+@pytest.mark.parametrize("ws,H", FUSED_GEOMS,
+                         ids=["ws28_h4", "ws28_h8", "ws28_h16", "ws14_h2",
+                              "ws8_h2"])
+def test_flat_backward_fused_pass_at_the_model_windows(dev, ws, H, shifted,
+                                                       dtype, mxu_bf16):
+    from mvuld_tpu_torch.ops import window_attention as wa
+    geom = (ws // 2, 2, 2) if shifted else (0, 1, 1)
+    qkv, bias, ls, gout = _flat_inputs(dev, 36, 8, ws, H, dtype)
+    fn = wa.window_attention_flat_bwd
+    assert wa._k2_fused(ws * ws)
+    before = (fn.launches, fn.fused_launches)
+    got = _flat_grads("k2", qkv, bias, ls, gout, geom, mxu_bf16)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.fused_launches) == (before[0] + 1, before[1] + 1)
+    want = _split_dqkv(_flat_grads("k2", qkv, bias, ls, gout, geom, mxu_bf16,
+                                   plain=True))
+    got = _split_dqkv(got)
+    big = lambda t: float(t.float().abs().max())  # noqa: E731
+    tols = ([r * big(w) for r, w in zip([2.0 ** -6] * 3 + [1e-3, 1e-2], want)]
+            if mxu_bf16 else _grad_tols(want, dtype))
+    for a, b, t in zip(got, want, tols):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= t
 
 
 @pytest.mark.parametrize("kind", ["k2", "k5"])
@@ -1006,15 +1051,17 @@ def test_flat_forward_underflowing_row(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flat_backward_from_the_forward_kernel(dev, dtype):
-    """K2 from the new K1's output and row sums: within the backward's
-    tolerances of the plain backward fed the same (o, r); against the plain
-    backward fed the plain forward's (o, r) within those tolerances in fp32
-    and within relative L2 2e-2 in bf16, where a bf16 o may sit one rounding
-    step from the plain forward's and t = rowsum(g·o) moves with it."""
+@pytest.mark.parametrize("ws,H", [(14, 2), (28, 4)], ids=["ws14", "ws28_h4"])
+def test_flat_backward_from_the_forward_kernel(dev, ws, H, dtype):
+    """K2 (its fused pass) from the new K1's output and row sums: within
+    the backward's tolerances of the plain backward fed the same (o, r);
+    against the plain backward fed the plain forward's (o, r) within those
+    tolerances in fp32 and within relative L2 2e-2 in bf16, where a bf16 o
+    may sit one rounding step from the plain forward's and t = rowsum(g·o)
+    moves with it."""
     from mvuld_tpu_torch.ops import window_attention as wa
-    qkv, bias, ls, gout = _flat_inputs(dev, 46, 8, 14, 2, dtype)
-    geom = (7, 2, 2)
+    qkv, bias, ls, gout = _flat_inputs(dev, 46, 8, ws, H, dtype)
+    geom = (ws // 2, 2, 2)
     o, r = wa.window_attention_flat(qkv, bias, ls, *geom, return_rowsum=True)
     got = _split_dqkv(wa.window_attention_flat_bwd(qkv, bias, ls, o, r, gout,
                                                    *geom))
