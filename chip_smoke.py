@@ -331,7 +331,9 @@ SWIN_MLP_B = ["MODEL.TYPE", "swin_mlp", "DATA.IMG_SIZE", 224,
 # 32gpu_22k.yaml (MoE in the odd blocks of stage 3 and block 1 of stage 4,
 # top-1, capacity factor 1.25). One deviation: the file spreads 8 experts
 # over 32 GPUs (a negative NUM_LOCAL_EXPERTS, which build_model reads
-# as one expert); here all 8 experts sit on the one card
+# as one expert); here all 8 experts sit on the one card. The routing is
+# the JAX package's (token order, the GShard loss): the phases compare
+# against a gate without noise and shard the experts, which BPR refuses
 SWIN_MOE_S = ["MODEL.TYPE", "swin_moe", "DATA.IMG_SIZE", 192,
               "MODEL.SWIN_MOE.EMBED_DIM", 96,
               "MODEL.SWIN_MOE.DEPTHS", [2, 2, 18, 2],
@@ -341,7 +343,9 @@ SWIN_MOE_S = ["MODEL.TYPE", "swin_moe", "DATA.IMG_SIZE", 192,
               [[-1], [-1], [1, 3, 5, 7, 9, 11, 13, 15, 17], [1]],
               "MODEL.SWIN_MOE.NUM_LOCAL_EXPERTS", 8,
               "MODEL.SWIN_MOE.TOP_VALUE", 1,
-              "MODEL.SWIN_MOE.CAPACITY_FACTOR", 1.25]
+              "MODEL.SWIN_MOE.CAPACITY_FACTOR", 1.25,
+              "MODEL.SWIN_MOE.USE_BPR", False,
+              "MODEL.SWIN_MOE.IS_GSHARD_LOSS", True]
 # the causal phase: UniXcoderLM at UniXcoder-base width (MODEL.UNIXCODER:
 # 12 layers, H 768, 12 heads, FFN 3072, vocab 51416, 1026 positions),
 # seed-0 weights, bf16: logits of CAUSAL_BATCH × CAUSAL_TOKENS tokens (tails

@@ -383,7 +383,8 @@ def init_jax_like(model: nn.Module, generator: torch.Generator) -> None:
             lecun(mod.w1, mod.w1.shape[0] * mod.w1.shape[1])
             lecun(mod.w2, mod.w2.shape[0] * mod.w2.shape[1])
             mod.b1.zero_()
-            mod.b2.zero_()
+            if mod.b2 is not None:
+                mod.b2.zero_()
         elif (isinstance(mod, SwinBackboneV1)
               and mod.absolute_pos_embed is not None):
             trunc_normal(mod.absolute_pos_embed, 0.02)

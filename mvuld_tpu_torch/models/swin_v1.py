@@ -142,7 +142,8 @@ class WindowAttentionV1(nn.Module):
 class SwinBlockV1(nn.Module):
     """Pre-norm shifted-window block. ``mlp_layer(hidden, out, drop)``
     builds the FFN in place of ``MlpBlock`` (the MoE variant); its forward
-    takes (y, dtype, gen) and may return (y, aux)."""
+    takes (y, dtype, gen) and may return (y, aux). ``fc2_bias`` False:
+    ``MlpBlock``'s fc2 without a bias (Swin-MoE's MLP_FC2_BIAS)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
@@ -151,7 +152,8 @@ class SwinBlockV1(nn.Module):
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32,
                  mlp_layer: Optional[Callable[[int, int, float],
-                                              nn.Module]] = None):
+                                              nn.Module]] = None,
+                 fc2_bias: bool = True):
         super().__init__()
         self.input_resolution, self.dtype = input_resolution, dtype
         self.window_size, self.shift_size = block_window(
@@ -165,6 +167,8 @@ class SwinBlockV1(nn.Module):
         hidden = int(dim * mlp_ratio)
         self.mlp = (MlpBlock(dim, hidden, dim, drop) if mlp_layer is None
                     else mlp_layer(hidden, dim, drop))
+        if mlp_layer is None and not fc2_bias:
+            self.mlp.fc2 = nn.Linear(hidden, dim, bias=False)
         mask = shifted_window_mask(*input_resolution, self.window_size,
                                    self.shift_size)
         self.register_buffer(

@@ -46,24 +46,31 @@ from mvuld_tpu_torch.models.swin_v2 import (LN_EPS, MlpBlock,
 class SwinTransformerMoE(SwinBackboneV1):
     """SwinV1 backbone with a ``MoEFFN`` in the blocks of ``moe_blocks``
     (one tuple of block indices per stage); forward returns
-    (logits or features, aux) with aux the sum over the MoE blocks."""
+    (logits or features, aux) with aux the sum over the MoE blocks.
+    ``bpr``, ``gshard_loss``, ``fc2_bias`` (the experts' and the dense
+    blocks' fc2) and ``moe_drop`` (the experts' dropout) as
+    ``models/moe.MoEFFN`` takes them."""
 
     def __init__(self, config: SwinV1Config,
                  moe_blocks: Sequence[Sequence[int]] = ((-1,),) * 4,
                  num_experts: int = 4, top_k: int = 1,
                  capacity_factor: float = 1.25, gate_noise: float = 1.0,
-                 aux_weight: float = 0.01):
+                 aux_weight: float = 0.01, bpr: bool = False,
+                 gshard_loss: bool = True, fc2_bias: bool = True,
+                 moe_drop: float = 0.0):
         c = config
         sets = [set(b) for b in moe_blocks]
         moe = make_moe_mlp_layer(num_experts, top_k, capacity_factor,
-                                 gate_noise, aux_weight)
+                                 gate_noise, aux_weight, bpr, gshard_loss,
+                                 fc2_bias, moe_drop)
 
         def block(dim, res, heads, shift, dp, i, j):
             use_moe = i < len(sets) and j in sets[i]
             return SwinBlockV1(dim, res, heads, c.window_size, shift,
                                c.mlp_ratio, c.qkv_bias, c.qk_scale,
                                c.drop_rate, c.attn_drop_rate, dp, c.dtype,
-                               mlp_layer=moe if use_moe else None)
+                               mlp_layer=moe if use_moe else None,
+                               fc2_bias=fc2_bias)
 
         super().__init__(config, block, ape=False)
 
@@ -173,7 +180,9 @@ def _build_swin_moe(cfg, **kw):
         base, moe_blocks=tuple(tuple(b) for b in m.MOE_BLOCKS),
         num_experts=max(m.NUM_LOCAL_EXPERTS, 1), top_k=m.TOP_VALUE,
         capacity_factor=m.CAPACITY_FACTOR, gate_noise=m.GATE_NOISE,
-        aux_weight=m.AUX_LOSS_WEIGHT, **kw)
+        aux_weight=m.AUX_LOSS_WEIGHT, bpr=m.USE_BPR,
+        gshard_loss=m.IS_GSHARD_LOSS, fc2_bias=m.MLP_FC2_BIAS,
+        moe_drop=m.MOE_DROP, **kw)
 
 
 @MODELS.register("swin_mlp")

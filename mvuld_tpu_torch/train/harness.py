@@ -143,7 +143,8 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
         patience: Optional[int] = None,
         label_smoothing: Optional[float] = None,
         inputs: Inputs = model_inputs, mesh=None,
-        multi_step: Optional[Callable] = None, fused_steps: int = 1) -> Dict:
+        multi_step: Optional[Callable] = None, fused_steps: int = 1,
+        aux_loss: bool = False) -> Dict:
     """Run the training loop; returns {best_f1, best_epoch, history,
     test_metrics}. ``eval_device_data``: {"val": cols, "test": cols}.
     ``batch_hook(batch, epoch, it)`` rewrites each host train batch before
@@ -152,7 +153,9 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
     MODEL.LABEL_SMOOTHING; ``inputs`` maps a device batch onto the model's
     inputs (``core/train_state.py``); ``mesh``: data parallelism over its
     dp ranks; ``multi_step`` with ``fused_steps`` > 1: K steps per call
-    (module docstring)."""
+    (module docstring); ``aux_loss``: the model returns (logits, aux) and
+    the single steps add aux to the loss (``multi_step`` is built with its
+    own)."""
     if device_data is not None and batch_hook is not None:
         raise ValueError("device_data mode ships index batches; batch_hook "
                          "(host-side augmentation) cannot apply — disable "
@@ -244,7 +247,8 @@ def fit(*, cfg, model, opt, train_ds: ArrayDataset, val_ds: ArrayDataset,
             else:
                 metrics = train_step(model, opt,
                                      to_device(b, device, device_data), gen,
-                                     label_smoothing, inputs, mesh=mesh)
+                                     label_smoothing, inputs, aux_loss,
+                                     mesh=mesh)
                 step_loss = metrics["loss"]
             speed_meter.add(n_done)
             if it % cfg.PRINT_FREQ < (fused_steps if use_fused else 1):

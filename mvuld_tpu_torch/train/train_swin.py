@@ -1,5 +1,7 @@
 """SwinV2 fine-tune on rendered code-graph images — the main.py equivalent
-(counterpart of ``mvuld_tpu/train/train_swin.py``).
+(counterpart of ``mvuld_tpu/train/train_swin.py``). MODEL.TYPE swin,
+swin_mlp or swin_moe trains that image model instead (Swin-MoE with its
+aux loss), on its plain layers.
 
 Replicates the reference's image-encoder fine-tune path (mvuld/main.py
 :55-514): manifest datasets, timm-style train augmentation + mixup/cutmix
@@ -72,18 +74,21 @@ def build_image_datasets(cfg, df, img_dir, pos_dir, logger):
 class SwinTraining:
     """The fine-tune's model, optimizer and step. ``batch_hook`` turns a
     host batch {"image", "label"} into the step's (mixup/cutmix images and
-    "soft_label"); ``step`` trains on a device batch."""
+    "soft_label"); ``step`` trains on a device batch; ``aux_loss``: the
+    model returns (logits, aux) and aux joins the loss (Swin-MoE)."""
 
     model: object
     opt: object
     label_smoothing: float
     batch_hook: Callable[[Dict, int, int], Dict]
     mesh: object = None
+    aux_loss: bool = False
 
     def step(self, batch, gen):
         from mvuld_tpu_torch.core.train_state import image_inputs, train_step
         return train_step(self.model, self.opt, batch, gen,
-                          self.label_smoothing, image_inputs, mesh=self.mesh)
+                          self.label_smoothing, image_inputs, self.aux_loss,
+                          mesh=self.mesh)
 
     def multi_step(self, num_steps: int, capture: Optional[bool] = None):
         """``num_steps`` steps per call on a [K, B, ...] superbatch
@@ -92,22 +97,27 @@ class SwinTraining:
                                                       make_multi_train_step)
         return make_multi_train_step(self.model, self.opt, num_steps,
                                      self.label_smoothing, image_inputs,
-                                     mesh=self.mesh, capture=capture)
+                                     self.aux_loss, mesh=self.mesh,
+                                     capture=capture)
 
 
 def build_swin_training(cfg, device, steps_per_epoch: int = 1,
                         pretrained: Optional[str] = None,
                         kernels: Optional[bool] = None,
                         mesh=None) -> SwinTraining:
-    """SwinTransformerV2 with its head, initialised with the JAX
-    initialisers from ``cfg.SEED`` or loaded from ``pretrained``; AdamW
-    with the config's schedule; mixup soft targets from a generator seeded
-    ``cfg.SEED + 1`` (label smoothing folded into them, else applied in the
-    loss). ``kernels`` (by default on CUDA) runs the attention kernels and,
-    with TRAIN.FUSED_MLP, the fused MLP; off, the plain layers.
+    """The image model MODEL.TYPE names (SwinTransformerV2 for swinv2,
+    else ``models/swin_variants.build_model``) with its head, initialised
+    with the JAX initialisers from ``cfg.SEED`` or, for swinv2, loaded from
+    ``pretrained``; AdamW with the config's schedule; mixup soft targets
+    from a generator seeded ``cfg.SEED + 1`` (label smoothing folded into
+    them, else applied in the loss). ``kernels`` (by default on CUDA) runs
+    the attention kernels and, with TRAIN.FUSED_MLP, the fused MLP; off,
+    the plain layers.
     TRAIN.USE_CHECKPOINT with TRAIN.REMAT_STAGES (empty: every stage) picks
-    the checkpointed stages. ``mesh``: the parameters broadcast from rank
-    0 and the step data-parallel."""
+    SwinV2's checkpointed stages; the other types run the plain layers
+    (no kernel, no checkpointing) and Swin-MoE's step adds its aux loss.
+    ``mesh``: the parameters broadcast from rank 0 and the step
+    data-parallel."""
     import torch
 
     from mvuld_tpu_torch.core.optim import build_optimizer
@@ -117,16 +127,25 @@ def build_swin_training(cfg, device, steps_per_epoch: int = 1,
     from mvuld_tpu_torch.models.swin_convert import load_pretrained_swinv2
     from mvuld_tpu_torch.models.swin_v2 import (SwinTransformerV2,
                                                 SwinV2Config)
+    from mvuld_tpu_torch.models.swin_variants import build_model
 
-    sc = SwinV2Config.from_cfg(cfg)
-    if kernels is None:
-        kernels = device.type == "cuda"
-    remat = ((tuple(cfg.TRAIN.REMAT_STAGES) or tuple(range(len(sc.depths))))
-             if cfg.TRAIN.USE_CHECKPOINT else ())
-    model = SwinTransformerV2(sc, use_pallas=kernels,
-                              use_pallas_mlp=kernels and cfg.TRAIN.FUSED_MLP,
-                              remat_stages=remat,
-                              num_classes=cfg.MODEL.NUM_CLASSES)
+    mtype = cfg.MODEL.TYPE
+    if mtype in ("swinv2", "swin2"):
+        sc = SwinV2Config.from_cfg(cfg)
+        if kernels is None:
+            kernels = device.type == "cuda"
+        remat = ((tuple(cfg.TRAIN.REMAT_STAGES)
+                  or tuple(range(len(sc.depths))))
+                 if cfg.TRAIN.USE_CHECKPOINT else ())
+        model = SwinTransformerV2(
+            sc, use_pallas=kernels,
+            use_pallas_mlp=kernels and cfg.TRAIN.FUSED_MLP,
+            remat_stages=remat, num_classes=cfg.MODEL.NUM_CLASSES)
+    elif pretrained:
+        raise ValueError(f"--pretrained converts SwinV2 checkpoints; "
+                         f"MODEL.TYPE is {mtype!r}")
+    else:
+        model = build_model(cfg)
     convert.init_jax_like(model, torch.Generator().manual_seed(cfg.SEED))
     if pretrained:
         load_pretrained_swinv2(model, pretrained)
@@ -154,7 +173,8 @@ def build_swin_training(cfg, device, steps_per_epoch: int = 1,
     # mixup folds LABEL_SMOOTHING into the soft targets; without mixup the
     # reference falls back to LabelSmoothingCrossEntropy (main.py:136-142)
     smoothing = 0.0 if use_mix else cfg.MODEL.LABEL_SMOOTHING
-    return SwinTraining(model, opt, smoothing, batch_hook, mesh)
+    return SwinTraining(model, opt, smoothing, batch_hook, mesh,
+                        aux_loss=mtype == "swin_moe")
 
 
 def throughput(model, cfg, device, warmup: int = 50, iters: int = 30
@@ -267,7 +287,7 @@ def main(argv=None) -> dict:
                  logger=logger, batch_hook=run.batch_hook, patience=10,
                  label_smoothing=run.label_smoothing, inputs=image_inputs,
                  mesh=mesh, multi_step=run.multi_step(k) if k > 1 else None,
-                 fused_steps=k)
+                 fused_steps=k, aux_loss=run.aux_loss)
     result["model"] = run.model       # the best-F1 state, as ``fit`` left it
     return result
 

@@ -19,7 +19,8 @@ tiny SwinV2 through K1/K2/K3/K3b (DropPath and, in one case, dropout in
 a checkpointed stage), of a tiny fusion head (BatchNorm statistics,
 dropout; direct and indexed) and of a tiny e2e model (packed lines, K1-K4b,
 dropout 0.1, the text layers checkpointed or not) against K eager steps
-from the same state, and its refusal under a gloo group. Tolerances: fp32
+from the same state, of a tiny Swin-MoE (BPR, gate noise, MOE_DROP) to the
+bit, and its refusal under a gloo group. Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
 and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
 at the largest value (both round one fp32 result to bf16).
@@ -1373,3 +1374,68 @@ def test_multi_step_graph_e2e_equals_eager_steps(dev, text_remat):
         torch.Generator(device=dev).manual_seed(3),
         kernels=(wa.window_attention_flat, wa.window_attention_flat_bwd,
                  fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd))
+
+
+def test_multi_step_graph_swin_moe_replay_equals_eager_to_the_bit(dev):
+    """A captured K = 8 replay of a tiny Swin-MoE as its yaml configures
+    the routing (4 experts, BPR, the load-importance loss, gate noise 1.0,
+    MOE_DROP 0.1, no fc2 bias; DropPath 0.1; bf16), built by
+    ``train_swin.build_swin_training``, equals 8 eager steps from one saved
+    state to the bit: the losses, every parameter, Adam's moments and the
+    routing counters. The capture is the check that no host
+    synchronisation sits in the step (BPR's sort, the slots, the counters,
+    the aux loss): one would raise inside it. Deterministic algorithms are
+    on (the bias table's and the convolution's gradients sum without
+    atomics), so that any difference is the capture's."""
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.models.moe import routing_counters
+    from mvuld_tpu_torch.train.train_swin import build_swin_training
+
+    opts = ["MODEL.TYPE", "swin_moe", "DATA.IMG_SIZE", 64,
+            "MODEL.SWIN_MOE.EMBED_DIM", 32, "MODEL.SWIN_MOE.DEPTHS", [2, 2, 2],
+            "MODEL.SWIN_MOE.NUM_HEADS", [2, 4, 4],
+            "MODEL.SWIN_MOE.WINDOW_SIZE", 4,
+            "MODEL.SWIN_MOE.MOE_BLOCKS", [[1], [-1], [0, 1]],
+            "MODEL.SWIN_MOE.NUM_LOCAL_EXPERTS", 4,
+            "MODEL.SWIN_MOE.CAPACITY_FACTOR", 1.0,
+            "MODEL.SWIN_MOE.USE_BPR", True,
+            "MODEL.SWIN_MOE.IS_GSHARD_LOSS", False,
+            "MODEL.SWIN_MOE.GATE_NOISE", 1.0, "MODEL.SWIN_MOE.MOE_DROP", 0.1,
+            "MODEL.SWIN_MOE.MLP_FC2_BIAS", False,
+            "MODEL.DROP_PATH_RATE", 0.1, "MODEL.NUM_CLASSES", 2,
+            "PARALLEL.DTYPE", "bfloat16", "AUG.MIXUP", 0.0, "AUG.CUTMIX", 0.0,
+            "TRAIN.FUSED_STEPS", 8, "DATA.BATCH_SIZE", 4, "SEED", 0]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        run = build_swin_training(cfg, dev, steps_per_epoch=8)
+        model, opt = run.model, run.opt
+        k = 8
+        rng = np.random.RandomState(0)
+        sb = {"image": rng.randn(k, 4, 64, 64, 3).astype(np.float32),
+              "label": rng.randint(0, 2, (k, 4)).astype(np.int32)}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        step, plain = run.multi_step(k), run.multi_step(k, capture=False)
+        step(sb, gen)
+        assert step.graph is not None
+        start = _full_state(model, opt, gen)
+        eager = plain(sb, gen)
+        after = _full_state(model, opt, gen)
+        counts = routing_counters(model)
+        _full_restore(model, opt, gen, start)
+        got = step(sb, gen)
+        now = _full_state(model, opt, gen)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn
+    assert step.replays == 1 and opt.count == 2 * k
+    assert torch.equal(got["loss"], eager["loss"])
+    assert 0 < counts["kept"] < counts["routed"]
+    assert routing_counters(model) == counts
+    for a, b in zip(now[0] + now[1] + now[2], after[0] + after[1] + after[2]):
+        assert torch.equal(a, b)
+    assert not torch.equal(now[0][0], start[0][0])

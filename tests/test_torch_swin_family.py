@@ -61,6 +61,9 @@ def _cfg(mtype, package):
     m.MOE_BLOCKS = [[1], [-1], [0, 1]]
     m.NUM_LOCAL_EXPERTS = 4
     m.GATE_NOISE = 0.0
+    # what the JAX package computes: token-order slots, the GShard loss
+    m.USE_BPR = False
+    m.IS_GSHARD_LOSS = True
     return cfg
 
 
