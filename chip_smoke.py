@@ -24,7 +24,12 @@ Phases, in order; any failure exits non-zero:
      one K4b launch at the ``lines`` shape by pass; and the
      head-layout K8/K8b (mask operand) and map-layout K7/K7b (mask
      synthesised, fp32 outputs) at the bucket-16 geometry of every stage,
-     plus one fp32 case and K7/K7b with bf16 product operands;
+     plus one fp32 case and K7/K7b with bf16 product operands; clip +
+     AdamW (``fused_adamw``, ``sumsq``) over the parameter lists of the
+     three training configurations, ``fused_adamw`` against the
+     ``_foreach`` chain (to the bit for one clip factor) and ``sumsq``
+     against an fp64 sum, timed beside the two norm loops and the chain
+     they replace (``optimizer_phase``);
   3. serve 37 seeded requests at full width (SwinV2-Base-448 window 28,
      UniXcoder-base, the multi_defect_new_gcn head) through the kernels,
      counting each kernel's launches, then again through the plain layers,
@@ -219,6 +224,14 @@ DENSE_SHAPES = [("fc1_gelu", 64 * 784, 512, 2048, "gelu", False),
 # … and at a row count that no tile divides (path "ragged")
 DENSE_RAGGED = [("fc2_ln_ragged", 50000, 2048, 512, "none", True)]
 VEC_TOL = 1e-3           # K6b's fp32 column sums, relative L2
+# clip + AdamW over the training configurations' parameter lists
+OPTIM_CONFIGS = (("moe", "swin_moe_base_192_e32"), ("e2e", "mvuld_e2e_base448"),
+                 ("swin", "swinv2_base_448"))
+OPTIM_REPS = 5
+OPTIM_LR = 5e-6
+ADAMW_BYTES = 28         # a parameter: p, g, m, v in, p, m, v out
+SUMSQ_BYTES = 4          # a parameter: g
+SUMSQ_TOL = 2e-6         # sumsq's norm against fp64, relative
 
 # the staged path: functions cached and trained on (train / val / test),
 # encoder batch, fusion batch and epochs
@@ -1225,6 +1238,157 @@ def check_dense(dev, gen, rows, fp32=False):
         del x, dy, got, want, dz, dz_p
 
 
+def _optim_model(name: str):
+    """A benchmark configuration's model (``benchmark/configs/<name>.json``)
+    on the meta device: its parameters' names, shapes and decay mask,
+    and the configuration's optimizer block."""
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.core.optim import decay_mask
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmark", "configs", f"{name}.json")) as f:
+        spec = json.load(f)
+    cfg = get_config(SimpleNamespace(cfg=None, opts=spec["opts"],
+                                     output="unused"))
+    with torch.device("meta"):
+        if "text" in spec:
+            from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+            model = build_e2e_model(cfg, spec["data"]["vocab"],
+                                    node_capacity=NODE_CAPACITY,
+                                    use_pallas=True, roberta_pallas_mlp=True,
+                                    use_pallas_mlp=True)[0]
+        else:
+            from mvuld_tpu_torch.models.swin_variants import build_model
+            model = build_model(cfg)
+    named = list(model.named_parameters())
+    dec = decay_mask(model)
+    return ([n for n, _ in named], [tuple(p.shape) for _, p in named],
+            [dec[n] for n, _ in named], spec["optimizer"])
+
+
+def check_optimizer(label: str, opt) -> None:
+    """Print the optimizer's counters after a training shape's steps; an
+    AdamW optimizer on the card ran every update through ``fused_adamw``
+    (none through the ``_foreach`` calls)."""
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+
+    print(f"optimizer {label}: fused_adamw.launches "
+          f"{fa.fused_adamw.launches}, sumsq.launches {fa.sumsq.launches}, "
+          f"updates: fused {opt.fused_updates}, _foreach "
+          f"{opt.foreach_updates}", flush=True)
+    if opt.name == "adamw" and opt.params[0].is_cuda and (
+            opt.foreach_updates or not opt.fused_updates):
+        raise AssertionError(f"optimizer {label}: AdamW on the card took "
+                             f"the _foreach path")
+
+
+def optimizer_phase(dev, rows):
+    """Clip + AdamW over the parameter lists of the three training
+    configurations (``OPTIM_CONFIGS``: random fp32 parameters and
+    gradients of the published shapes, the configurations' decay masks,
+    weight decay and clip): one ``Optimizer.update`` through the kernels
+    (counters printed; no ``_foreach`` update); ``fused_adamw`` against the
+    ``_foreach`` chain for one clip factor (p, m, v to the bit: the row's
+    error, tolerance 0); ``sumsq`` against an fp64 sum (its row: within
+    SUMSQ_TOL relative), the fp32 norm loop printed beside; then the times
+    on CUDA events of each kernel, of a whole ``update``, and of the path
+    they replace on the same lists (the two norm loops of ``train_step``
+    and the clip, and the chain), and the transient memory of both paths.
+    Bounds: ADAMW_BYTES and SUMSQ_BYTES a parameter at the card's
+    bandwidth."""
+    import torch
+
+    from mvuld_tpu_torch.core.optim import Optimizer, _clip_scale, global_norm
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+
+    for path, name in OPTIM_CONFIGS:
+        names, shapes, decay, spec = _optim_model(name)
+        g = torch.Generator(device=dev).manual_seed(7)
+        ps = [0.02 * torch.randn(s, device=dev, generator=g) for s in shapes]
+        gs = [1e-3 * torch.randn(s, device=dev, generator=g) for s in shapes]
+        P = sum(p.numel() for p in ps)
+        wd, clip = spec["weight_decay"], spec["clip"]
+        opt = Optimizer(list(zip(names, ps)), dict(zip(names, decay)),
+                        lambda count: OPTIM_LR, betas=tuple(spec["betas"]),
+                        eps=spec["eps"], weight_decay=wd, clip=clip)
+        norm = opt.update(gs)
+        torch.cuda.synchronize()
+        check_optimizer(f"{path} ({len(ps)} tensors, {P} parameters)", opt)
+        # one clip factor, both paths from the state the update left
+        plan = opt._plans.get(dev)      # None on the CPU: the plain path
+        s = {"clip": _clip_scale(clip, norm), "neg_lr":
+             torch.full((), -OPTIM_LR, device=dev), "c1": 1 - opt.betas_t[0],
+             "c2": 1 - opt.betas_t[1], **{k: opt.consts[k] for k in
+                                          ("b1", "omb1", "b2", "omb2")}}
+        ref = [[t.clone() for t in ts] for ts in (ps, opt.mu, opt.nu)]
+        fa.fused_adamw(ps, gs, opt.mu, opt.nu, decay, s, opt.eps, wd, plan)
+        fa.adamw_plain(ref[0], gs, ref[1], ref[2], decay, s, opt.eps, wd)
+        err = max(float((a - b).abs().max()) for got, want in
+                  zip((ps, opt.mu, opt.nu), ref) for a, b in zip(got, want))
+        unequal = sum(not torch.equal(a, b) for got, want in
+                      zip((ps, opt.mu, opt.nu), ref)
+                      for a, b in zip(got, want))
+        del ref
+        exact = sum(float((t.double() ** 2).sum()) for t in gs) ** 0.5
+        fused_norm = float(torch.sqrt(fa.sumsq(gs, plan)))
+        loop_norm = float(global_norm(gs))
+        norm_err, norm_tol = abs(fused_norm - exact), SUMSQ_TOL * exact
+        print(f"optim {path}: fused_adamw vs the _foreach chain, one clip "
+              f"factor: {unequal} of {3 * len(ps)} tensors differ, max abs "
+              f"err {err:.3e}; norm rel err against fp64: sumsq "
+              f"{norm_err / exact:.2e} (tol {SUMSQ_TOL:.0e}), the fp32 loop "
+              f"{abs(loop_norm - exact) / exact:.2e}", flush=True)
+
+        def transient(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+        ms_norm = time_ms(lambda: fa.sumsq(gs, plan), OPTIM_REPS)
+        ms_adamw = time_ms(lambda: fa.fused_adamw(
+            ps, gs, opt.mu, opt.nu, decay, s, opt.eps, wd, plan), OPTIM_REPS)
+        ms_update = time_ms(lambda: opt.update(gs), OPTIM_REPS)
+        mem = transient(lambda: opt.update(gs))
+        # the replaced path on the same lists: train_step's duplicate norm
+        # loops, then the chain (on the optimizer's own moments)
+        chain = lambda: fa.adamw_plain(  # noqa: E731
+            ps, gs, opt.mu, opt.nu, decay, s, opt.eps, wd)
+        plain_norms = time_ms(lambda: (global_norm(gs), global_norm(gs)),
+                              OPTIM_REPS)
+        plain_chain = time_ms(chain, OPTIM_REPS)
+        old_mem = transient(lambda: (global_norm(gs), global_norm(gs),
+                                     chain()))
+        b_norm = SUMSQ_BYTES * P / HBM_BYTES_S * 1e3
+        b_adamw = ADAMW_BYTES * P / HBM_BYTES_S * 1e3
+        print(f"optim {path}: kernels {ms_norm + ms_adamw:.3f} ms (sumsq "
+              f"{ms_norm:.3f}, fused_adamw {ms_adamw:.3f}), update "
+              f"{ms_update:.3f} ms, transient {mem:.3f} GiB; replaced: "
+              f"{plain_norms + plain_chain:.3f} ms (two norm loops "
+              f"{plain_norms:.3f}, the chain {plain_chain:.3f}), transient "
+              f"{old_mem:.3f} GiB; bound {b_norm + b_adamw:.3f} ms "
+              f"({SUMSQ_BYTES + ADAMW_BYTES} B × {P} parameters); updates "
+              f"fused {opt.fused_updates} / _foreach {opt.foreach_updates} "
+              f"[{card_line()}]", flush=True)
+        shape = f"{name}: {len(ps)} tensors, {P} parameters"
+        rows.append(dict(kernel="fused_adamw", path=f"optim {path}",
+                         shape=shape, per_fwd=1, err=err, tol=0.0,
+                         ok=unequal == 0, ms=ms_adamw, plain_ms=plain_chain,
+                         lib_ms=None, t_bytes=b_adamw, t_ops=0.0))
+        rows.append(dict(kernel="sumsq", path=f"optim {path}", shape=shape,
+                         per_fwd=1, err=norm_err, tol=norm_tol,
+                         ok=norm_err <= norm_tol, ms=ms_norm,
+                         plain_ms=plain_norms / 2, lib_ms=None,
+                         t_bytes=b_norm, t_ops=0.0))
+        del ps, gs, opt, plan, s
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def requests(cfg, n: int, seed: int = 0):
     """``n`` featurised request rows in ``build_request``'s layout, from a
     numpy seed: UniXcoder framing ([<s>, <encoder-only>, </s>] … </s>, pad
@@ -1522,6 +1686,7 @@ def train_phase(dev, counters, trace_dir=None):
         vals = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
         if not np.isfinite(vals).all():
             raise AssertionError(f"{label}: non-finite loss/grad_norm {vals}")
+        check_optimizer(f"train {label}", opt)
         ms = statistics.median(times[1:]) * 1e3
         print(f"train {label}: batch {n}, {TRAIN_STEPS} steps after a "
               f"warm-up, median {ms:.1f} ms/step = {n / ms * 1e3:.2f} "
@@ -1640,6 +1805,7 @@ def swin_phase(dev, counters):
                           ("v1", "window_attention_flat_bwd_v1")):
         run, batches, gen, counts, times, peak, vals = steps(gen_name)
         add(counts)
+        check_optimizer(f"swin train {gen_name}", run.opt)
         ms = statistics.median(times[1:]) * 1e3
         print(f"swin train {gen_name} (MVULD_ATTN_BWD={gen_name}): batch {n}, "
               f"{TRAIN_STEPS} steps after a warm-up, median {ms:.1f} ms/step "
@@ -3650,6 +3816,7 @@ def swin_family_phase(dev, counters):
                 dropped.append(sum((~k).sum() for k in keep)
                                / sum(k.numel() for k in keep))
         torch.cuda.synchronize()
+        check_optimizer(f"family {label}", opt)
         counts = _counts(counters)
         for k, v in counts.items():
             total[k] += v
@@ -4041,7 +4208,7 @@ def _tp_swin(rank, dev):
         if tp:
             opt.norm = tp_global_norm(mesh, sharded, model)
         got, update = {}, opt.update
-        opt.update = lambda g: (got.setdefault("g", g), update(g))
+        opt.update = lambda g: (got.setdefault("g", g), update(g))[1]
         m = train_step(model, opt, batch, None, 0.1, image_inputs)
         names = [n for n, _ in model.named_parameters()]
         return (model, float(m["loss"]), float(m["grad_norm"]),
@@ -4503,6 +4670,10 @@ KERNELS = {
                                  "mvuld_tpu/ops/window_attention.py:440"),
     "window_attention_map_bwd": ("mvuld_tpu_torch/csrc/window_attention.cu",
                                  "mvuld_tpu/ops/window_attention.py:627"),
+    "fused_adamw": ("mvuld_tpu_torch/csrc/fused_adamw.cu",
+                    "none: optax's update, fused by XLA on the TPU"),
+    "sumsq": ("mvuld_tpu_torch/csrc/fused_adamw.cu",
+              "none: optax.global_norm, fused by XLA on the TPU"),
 }
 
 
@@ -4512,7 +4683,8 @@ SUMMARY_PATH = {"window_attention_flat_bwd_v1": "swin",
                 "dense_fwd": "blockbench", "dense_bwd": "blockbench",
                 "window_attention_fwd": "ops", "window_attention_bwd": "ops",
                 "window_attention_map_fwd": "ops",
-                "window_attention_map_bwd": "ops"}
+                "window_attention_map_bwd": "ops",
+                "fused_adamw": "optim e2e", "sumsq": "optim e2e"}
 
 
 def summarise(rows, launches):
@@ -4565,7 +4737,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.time()
-    _build.build_all(["window_attention", "mlp_ln", "fused_dense"])
+    _build.build_all(["window_attention", "mlp_ln", "fused_dense",
+                      "fused_adamw"])
     print(f"build: {time.time() - t0:.1f}s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         entry = ""
@@ -4598,9 +4771,12 @@ def main() -> int:
     check_mlp_bwd(dev, gen, rows, "mlp_ln_res_bwd", K4_SHAPES[:1], "fp32",
                   fp32=True)
     check_dense(dev, gen, rows, fp32=True)
+    optimizer_phase(dev, rows)
     bad = []
     per = lambda r: {"blockbench": "blockbench iteration",  # noqa: E731
                      "ops": "entry-point pass", "fp32": "launch (fp32 x)",
+                     "optim moe": "Swin-MoE update", "optim e2e": "e2e update",
+                     "optim swin": "SwinV2 update",
                      "ragged": "launch (ragged M)",
                      "fp32 ragged": "launch (fp32 x, ragged M)",
                      "swin": f"batch-{SWIN_BATCH} fine-tune step"}.get(
@@ -4632,6 +4808,8 @@ def main() -> int:
                                             fd.dense_fwd, fd.dense_bwd)]
     layouts = [wa.window_attention_fwd, wa.window_attention_bwd,
                wa.window_attention_map_fwd, wa.window_attention_map_bwd]
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+    optim_before = {c: c.launches for c in (fa.fused_adamw, fa.sumsq)}
     work = tempfile.mkdtemp(prefix="mvuld_staged_")
     try:
         for phase in (lambda: serve_phase(dev),
@@ -4653,6 +4831,8 @@ def main() -> int:
         tools_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for c, n in optim_before.items():
+        launches[c.__name__] = c.launches - n
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

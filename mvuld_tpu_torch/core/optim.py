@@ -30,16 +30,28 @@ count, the bias corrections are ``torch.pow`` of fp32 betas on the count
 the update's coefficients on the device: a call that does not emit runs
 the update with b1 = b2 = 1, (1 − b1) = (1 − b2) = lr = 0, which leaves
 the moments and parameters exactly as they are. The eager step runs the
-same code. Each operation is one ``torch._foreach_*`` call over a
-device's parameters (a few launches, not one per tensor).
+same code.
+
+The global norm is ``sumsq`` of ``ops/fused_adamw.py`` per device's
+gradients, and an AdamW step is its ``fused_adamw``: on the card their
+kernels (the norm in a fixed order, so a replay equals an eager step to
+the bit; the clip and the step in one read of p, g, m, v and one write of
+p, m, v, in the ``_foreach`` chain's fp32 roundings), on the CPU their
+plain versions (the fp32 loop of optax.global_norm; ``adamw_plain``, one
+``torch._foreach_*`` call per operation over a device's parameters).
+SGD's step is such ``_foreach`` calls on every device.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from mvuld_tpu_torch.ops.fused_adamw import (Plan, fused_adamw, sumsq,
+                                             sumsq_plain)
 
 NO_DECAY_KEYWORDS = ("cpb_fc", "logit_scale", "relative_position_bias_table",
                      "bn", "norm", "scale", "bias", "embedding")
@@ -62,9 +74,7 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """√Σ‖t‖² in fp32 (optax.global_norm), on the first tensor's device
     (a pipeline's stages may hold theirs on others)."""
-    dev = tensors[0].device
-    return torch.sqrt(sum((t.float() * t.float()).sum().to(dev)
-                          for t in tensors))
+    return torch.sqrt(sumsq_plain(tensors))
 
 
 def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
@@ -81,9 +91,13 @@ class Optimizer:
     changes the parameters in place; ``count_t`` is optax's step count of
     the inner optimizer (the schedule's argument) and ``mini_step_t``
     MultiSteps' micro-step, both device int64 scalars (``count`` and
-    ``mini_step`` read them on the host). ``norm`` computes the
-    global norm that the clip reads (``parallel.mesh.tp_global_norm``
-    under tensor parallelism)."""
+    ``mini_step`` read them on the host). ``grad_norm`` computes the
+    global norm that the clip reads; ``norm``, when set, computes it in
+    its place (``parallel.mesh.tp_global_norm`` under tensor
+    parallelism).
+    ``fused_updates`` and ``foreach_updates`` count the devices' updates
+    that ran the kernel and the ``_foreach`` calls (a graph replay counts
+    only its capture)."""
 
     def __init__(self, params: List[Tuple[str, torch.Tensor]],
                  decay: Dict[str, bool], schedule: Callable[[int], float],
@@ -102,8 +116,10 @@ class Optimizer:
         self.eps, self.momentum = eps, momentum
         self.weight_decay, self.clip = weight_decay, clip
         self.k = accumulation_steps
-        self.norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = \
-            global_norm
+        self.norm: Optional[Callable[[Sequence[torch.Tensor]],
+                                     torch.Tensor]] = None
+        self.fused_updates = self.foreach_updates = 0
+        self._plans: Dict[torch.device, Plan] = {}
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mu = zeros()
         self.nu = zeros() if name == "adamw" else []
@@ -137,20 +153,53 @@ class Optimizer:
             for key in ("lrs", "betas_t", "count_t", "mini_step_t"):
                 setattr(self, key, getattr(self, key).to(dev))
             self.consts = {k: t.to(dev) for k, t in self.consts.items()}
+            self._plans.clear()
 
     def _groups(self) -> List[Tuple[torch.device, List[int]]]:
         """The parameters' indices by device (a pipeline's stages hold
-        theirs on several): each group's lists go through one ``_foreach``
-        call per operation."""
+        theirs on several): each group's lists go through the kernels
+        together (AdamW on the card) or one ``_foreach`` call per
+        operation."""
         by_dev: Dict[torch.device, List[int]] = {}
         for i, p in enumerate(self.params):
             by_dev.setdefault(p.device, []).append(i)
         return list(by_dev.items())
 
+    def _plan(self, dev: torch.device, idx: List[int]) -> Optional[Plan]:
+        """The device's launch tables (with the moments' under AdamW),
+        built at its first use; None on the CPU, whose plain versions
+        need none."""
+        if dev.type != "cuda":
+            return None
+        if dev not in self._plans:
+            ps = [self.params[i] for i in idx]
+            self._plans[dev] = (
+                Plan(ps, [self.mu[i] for i in idx], [self.nu[i] for i in idx],
+                     [self.decay[i] for i in idx])
+                if self.name == "adamw" else Plan(ps))
+        return self._plans[dev]
+
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> None:
+    def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """‖grads‖ in fp32 (optax.global_norm): ``norm`` where set; else
+        each device's Σg² (``sumsq``), the devices' sums added on the
+        first in order."""
+        if self.norm is not None:
+            return self.norm(grads)
+        groups = self._groups()
+        first = groups[0][0]
+        parts = [sumsq([grads[i].float().contiguous() for i in idx],
+                       self._plan(dev, idx)).to(first) for dev, idx in groups]
+        return torch.sqrt(functools.reduce(torch.add, parts))
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]
+               ) -> Optional[torch.Tensor]:
+        """One call (a MultiSteps micro-step) on ``grads``, one per
+        parameter. Returns the global norm the clip read (of the
+        accumulated gradient under MultiSteps), None without a clip."""
         self._follow_params()
-        grads = [g.float() for g in grads]
+        grads = [g.float().contiguous() for g in grads]
         c = self.consts
         scal = _Scalars()
         groups = self._groups()
@@ -166,8 +215,10 @@ class Optimizer:
                 torch._foreach_mul_(d, scal.on(dev)["inv"])
                 torch._foreach_add_(acc, d)
             grads = self.acc
+        norm = None
         if self.clip is not None:
-            scal.add(clip=_clip_scale(self.clip, self.norm(grads)))
+            norm = self.grad_norm(grads)
+            scal.add(clip=_clip_scale(self.clip, norm))
         lr = torch.take(self.lrs, self.count_t.clamp(max=len(self.lrs) - 1))
         self.count_t.add_(1 if emit is None else emit.long())
         # the bias corrections at count ≥ 1: a MultiSteps call before the
@@ -192,51 +243,42 @@ class Optimizer:
             if emit is not None:
                 torch._foreach_mul_([self.acc[i] for i in idx],
                                     scal.on(dev)["keep"])
+        return norm
 
     def _update_group(self, dev, idx: List[int], grads: List[torch.Tensor],
                       s: Dict[str, torch.Tensor]) -> None:
         """The clip and the inner step on one device's parameters, in
         optax's arithmetic: m = b1·m + (1−b1)·g, v = b2·v + (1−b2)·g²,
-        p += −lr·(m/c1 / (√(v/c2) + eps) + wd·p) (AdamW); t = μ·t + g,
-        p += −lr·(g + μ·t) with g += wd·p first (SGD). The coefficients are
-        device scalars (gated under MultiSteps)."""
+        p += −lr·(m/c1 / (√(v/c2) + eps) + wd·p) (AdamW: ``fused_adamw``,
+        the kernel on the card); t = μ·t + g, p += −lr·(g + μ·t) with
+        g += wd·p first (SGD). The coefficients are device scalars (gated
+        under MultiSteps)."""
         ps = [self.params[i] for i in idx]
         gs = [grads[i] for i in idx]
+        wd = self.weight_decay
+        if self.name == "adamw":
+            if fused_adamw(ps, gs, [self.mu[i] for i in idx],
+                           [self.nu[i] for i in idx],
+                           [self.decay[i] for i in idx], s, self.eps, wd,
+                           self._plan(dev, idx)):
+                self.fused_updates += 1
+            else:
+                self.foreach_updates += 1
+            return
+        self.foreach_updates += 1
         if "clip" in s:
             gs = torch._foreach_mul(gs, s["clip"])
         dec = [j for j, i in enumerate(idx) if self.decay[i]]
-        wd = self.weight_decay
-        if self.name == "adamw":
-            ms = [self.mu[i] for i in idx]
-            vs = [self.nu[i] for i in idx]
-            torch._foreach_mul_(ms, s["b1"])
-            torch._foreach_add_(ms, torch._foreach_mul(gs, s["omb1"]))
-            sq = torch._foreach_mul(gs, gs)
-            torch._foreach_mul_(sq, s["omb2"])
-            torch._foreach_mul_(vs, s["b2"])
-            torch._foreach_add_(vs, sq)
-            del sq
-            den = torch._foreach_div(vs, s["c2"])
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            upd = torch._foreach_div(ms, s["c1"])
-            torch._foreach_div_(upd, den)
-            del den
-            if dec:
-                torch._foreach_add_([upd[j] for j in dec],
-                                    [ps[j] for j in dec], alpha=wd)
-        else:
-            ts = [self.mu[i] for i in idx]
-            if dec:
-                gs = list(gs)
-                for j, g in zip(dec, torch._foreach_add(
-                        [gs[j] for j in dec], [ps[j] for j in dec],
-                        alpha=wd)):
-                    gs[j] = g
-            torch._foreach_mul_(ts, s["mu"])
-            torch._foreach_add_(ts, torch._foreach_mul(gs, s["g"]))
-            upd = torch._foreach_mul(ts, self.momentum)
-            torch._foreach_add_(upd, gs)
+        ts = [self.mu[i] for i in idx]
+        if dec:
+            gs = list(gs)
+            for j, g in zip(dec, torch._foreach_add(
+                    [gs[j] for j in dec], [ps[j] for j in dec], alpha=wd)):
+                gs[j] = g
+        torch._foreach_mul_(ts, s["mu"])
+        torch._foreach_add_(ts, torch._foreach_mul(gs, s["g"]))
+        upd = torch._foreach_mul(ts, self.momentum)
+        torch._foreach_add_(upd, gs)
         torch._foreach_mul_(upd, s["neg_lr"])
         torch._foreach_add_(ps, upd)
 

@@ -90,7 +90,9 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
     present). ``aux_loss``: the model returns (logits, aux) and aux joins
     the loss (Swin-MoE's load-balancing loss). Returns the metrics loss,
     grad_norm (before clipping) and acc as device scalars, so the caller
-    decides when to synchronise. ``mesh`` (``parallel/mesh.py``): the batch
+    decides when to synchronise; grad_norm is the norm the clip read
+    (computed once), or under MultiSteps or without a clip
+    ``opt.grad_norm`` of this batch's gradients. ``mesh`` (``parallel/mesh.py``): the batch
     is this rank's block of the global batch; the gradients are averaged
     over dp before the clip, and loss and acc are the global batch's.
     Spans (``core/tracing.py``): ``step.forward``, ``step.backward`` (the
@@ -114,8 +116,10 @@ def train_step(model: nn.Module, opt: Optimizer, batch: Dict[str, torch.Tensor],
             grads = reduce_gradients(mesh, grads)
             loss, acc = mean_over_dp(mesh, loss), mean_over_dp(mesh, acc)
     with span("step.optimizer"):
-        norm = opt.norm(grads)
-        opt.update(grads)
+        norm = opt.update(grads)
+        if norm is None or opt.k > 1:
+            # the clip read no norm, or the accumulated gradient's
+            norm = opt.grad_norm(grads)
     return {"loss": loss, "grad_norm": norm, "acc": acc}
 
 

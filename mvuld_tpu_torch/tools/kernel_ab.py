@@ -1,7 +1,8 @@
 """Same-card A/B of the kernels' times between source trees.
 
   python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...]
-      [--phase mlp dense attention layouts k2] [--sass window_attention ...]
+      [--phase mlp dense attention layouts k2 optim]
+      [--sass window_attention ...]
       [--sass-dir DIR]
 
 For each TREE in the order given (parent, change, change, parent, say),
@@ -26,6 +27,10 @@ its plain version, then timed on CUDA events):
              kernel ``K2:<pass>``; and each shape's
              ``window_attention_flat_bwd.fused_launches`` per launch
              ("absent" in a tree without the counter)
+  optim      clip + AdamW over the three training configurations'
+             parameter lists: ``fused_adamw`` and ``sumsq`` against the
+             path they replace, the two norm loops and the ``_foreach``
+             chain (``optimizer_phase``; a tree without it fails)
 
 and prints one line per kernel shape, one line per kernel and path with
 the sum over its shapes of launches × ms (per bucket-16 forward, training
@@ -98,6 +103,8 @@ if "attention" in phases:
     cs.check_attention(dev, gen, rows, cs.SWIN_K1_SHAPES, "swin")
 if "layouts" in phases:
     cs.check_layouts(dev, gen, rows)
+if "optim" in phases:
+    cs.optimizer_phase(dev, rows)
 if "k2" in phases:
     from torch.profiler import ProfilerActivity, profile
     from mvuld_tpu_torch.ops import window_attention as wa
@@ -170,7 +177,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="source trees, in run order")
     ap.add_argument("--phase", nargs="+", default=["mlp", "dense"],
-                    choices=["mlp", "dense", "attention", "layouts", "k2"])
+                    choices=["mlp", "dense", "attention", "layouts", "k2",
+                             "optim"])
     ap.add_argument("--sass", nargs="*", default=[],
                     help="libraries (csrc/<name>.cu) to digest")
     ap.add_argument("--sass-dir", default="",

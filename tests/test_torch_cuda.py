@@ -14,7 +14,9 @@ the model's windows, twice to the bit, on misaligned views, with
 shapes, ragged rows, misaligned views, a backward that repeats to the
 bit), K6/K6b (dense with its epilogue, bf16 and fp32, at the GEMM core's
 tile edges, blockbench's shapes and a 3072-wide LayerNorm; a backward that
-repeats to the bit), and ``make_multi_train_step``'s CUDA graph: K replayed steps of a
+repeats to the bit), clip + AdamW (``fused_adamw`` to the bit against
+the ``_foreach`` chain, ``sumsq`` against an fp64 sum, ``Optimizer`` on the
+card through the kernels only, and within 1e-6 of optax's recorded steps), and ``make_multi_train_step``'s CUDA graph: K replayed steps of a
 tiny SwinV2 through K1/K2/K3/K3b (DropPath and, in one case, dropout in
 a checkpointed stage), of a tiny fusion head (BatchNorm statistics,
 dropout; direct and indexed) and of a tiny e2e model (packed lines, K1-K4b,
@@ -26,7 +28,9 @@ and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
 at the largest value (both round one fp32 result to bf16).
 """
 
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -1078,6 +1082,163 @@ def test_flat_backward_from_the_forward_kernel(dev, ws, H, dtype):
             assert float((a - b).abs().max()) <= t
     else:
         assert max(_rel_l2(a, b) for a, b in zip(got, want)) <= 2e-2
+
+
+# ------------------------------------------ clip + AdamW (fused_adamw.cu)
+
+ADAMW_SIZES = (1, 3, 4097, 65537, 2 ** 24 + 5)
+
+
+def _adamw_lists(dev, seed, sizes=ADAMW_SIZES, offset=0):
+    """p, g, m, v lists (v ≥ 0, a few exact zeros in g); ``offset`` > 0
+    takes every tensor as a view that starts ``offset`` floats into its
+    storage (off 16 bytes: the kernels' scalar path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def one(n, scale=1.0, pos=False):
+        t = scale * torch.randn(n + offset, device=dev, generator=g)
+        return (t.abs() if pos else t)[offset:]
+
+    ps = [one(n) for n in sizes]
+    gs = [one(n, 3.0) for n in sizes]
+    for t in gs:
+        t[::7] = 0.0
+    ms = [one(n, 0.1) for n in sizes]
+    vs = [one(n, 0.01, pos=True) for n in sizes]
+    return ps, gs, ms, vs
+
+
+def _adamw_coefs(dev, clip, gated=False):
+    """The device scalars ``Optimizer.update`` hands ``fused_adamw``: step
+    3's bias corrections at lr 1e-3; ``gated``, a MultiSteps micro-step
+    that does not emit (b1 = b2 = 1, omb1 = omb2 = lr = 0)."""
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    betas = f([0.9, 0.999])
+    corr = 1 - torch.pow(betas, f(3.0))
+    s = {"neg_lr": f(0.0 if gated else -1e-3), "c1": corr[0], "c2": corr[1],
+         "b1": f(1.0 if gated else 0.9), "omb1": f(0.0 if gated else 0.1),
+         "b2": f(1.0 if gated else 0.999),
+         "omb2": f(0.0 if gated else 1 - 0.999)}
+    if clip is not None:
+        s["clip"] = f(clip)
+    return s
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+@pytest.mark.parametrize("clip,gated", [(0.37, False), (1.0, False),
+                                        (None, False), (0.37, True)],
+                         ids=["clip_engaged", "clip_off", "no_clip",
+                              "multisteps_gated"])
+def test_fused_adamw_equals_the_foreach_chain_to_the_bit(dev, clip, gated,
+                                                         offset):
+    """For a given clip factor, one ``fused_adamw`` call leaves p, m and v
+    equal to the bit to those of the ``_foreach`` chain (``adamw_plain``)
+    over sizes 1, 3, 4097, 65537 and 2²⁴ + 5, decayed and undecayed
+    alternately (wd 0.05), aligned and on views off 16 bytes; a gated
+    micro-step leaves all three as they were."""
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+    ps, gs, ms, vs = _adamw_lists(dev, 50, offset=offset)
+    decay = [i % 2 == 1 for i in range(len(ps))]
+    s = _adamw_coefs(dev, clip, gated)
+    want = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    start = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    fa.adamw_plain(*want[:1], gs, *want[1:], decay, s, 1e-8, 0.05)
+    before = fa.fused_adamw.launches
+    fa.fused_adamw(ps, gs, ms, vs, decay, s, 1e-8, 0.05)
+    torch.cuda.synchronize()
+    assert fa.fused_adamw.launches == before + 1
+    for got, exp, old in zip((ps, ms, vs), want, start):
+        for a, b, c in zip(got, exp, old):
+            assert torch.equal(a, b)
+            assert torch.equal(a, c) == gated
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+def test_sumsq_matches_fp64_and_repeats_to_the_bit(dev, offset):
+    """``sumsq`` over the mixed list is within 2e-6 relative of an fp64 sum
+    of the squares, and a second call gives the same bits."""
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+    _, gs, _, _ = _adamw_lists(dev, 51, offset=offset)
+    want = sum(float((g.double() ** 2).sum()) for g in gs)
+    before = fa.sumsq.launches
+    a, b = fa.sumsq(gs), fa.sumsq(gs)
+    assert fa.sumsq.launches == before + 2
+    assert a.dtype == torch.float32 and a.shape == ()
+    assert abs(float(a) - want) <= 2e-6 * want
+    assert torch.equal(a, b)
+
+
+def test_optimizer_on_the_card_runs_the_kernels_only(dev):
+    """``Optimizer.update`` of AdamW on the card: every update through
+    ``fused_adamw`` (the ``_foreach`` count stays 0), its returned norm the
+    clip's (``sumsq``, 2e-6 of fp64); a replaced ``norm`` feeds the clip and
+    ``sumsq`` then does not run; and a step equals the ``_foreach`` chain
+    given the same clip factor."""
+    from mvuld_tpu_torch.core.optim import Optimizer, _clip_scale
+    from mvuld_tpu_torch.ops import fused_adamw as fa
+    ps, gs, _, _ = _adamw_lists(dev, 52, sizes=(4097, 3, 65537))
+    names = ["w", "norm_scale", "kernel"]
+    opt = Optimizer(list(zip(names, ps)), {"w": True, "norm_scale": False,
+                                           "kernel": True},
+                    lambda count: 1e-3, weight_decay=0.05, clip=5.0)
+    launches = fa.fused_adamw.launches
+    for scale in (1.0, 1e-4):
+        grads = [scale * g for g in gs]
+        want = [p.clone() for p in ps], [m.clone() for m in opt.mu], \
+            [v.clone() for v in opt.nu]
+        norm = opt.update(grads)
+        ref = sum(float((g.double() ** 2).sum()) for g in grads) ** 0.5
+        assert abs(float(norm) - ref) <= 2e-6 * ref
+        s = _adamw_coefs(dev, None)
+        corr = 1 - torch.pow(opt.betas_t, opt.count_t.float())
+        s.update(c1=corr[0], c2=corr[1], clip=_clip_scale(5.0, norm),
+                 neg_lr=torch.full((), -1e-3, device=dev))
+        fa.adamw_plain(want[0], grads, want[1], want[2],
+                       [True, False, True], s, opt.eps, 0.05)
+        for got, exp in zip((ps, opt.mu, opt.nu), want):
+            assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    assert opt.foreach_updates == 0 and opt.fused_updates == 2
+    assert fa.fused_adamw.launches == launches + 2
+    sums = fa.sumsq.launches
+    opt.norm = lambda grads: torch.full((), 50.0, device=dev)
+    assert float(opt.update(gs)) == 50.0
+    assert fa.sumsq.launches == sums and opt.foreach_updates == 0
+
+
+OPTAX_STEPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "optax_steps.json")
+
+
+@pytest.mark.parametrize("case", ["adamw_clip", "sgd_nesterov_clip",
+                                  "adamw_multisteps2"])
+def test_optimizer_on_the_card_matches_optax(dev, case):
+    """``Optimizer.update`` on the card (AdamW: ``sumsq``, the clip and
+    MultiSteps' gates through ``fused_adamw``) over the inputs of
+    ``tests/test_torch_train.py::test_optimizer_steps_match_optax``:
+    parameters within 1e-6 of optax's after each step, as recorded in
+    ``tests/fixtures/optax_steps.json`` (held to optax on the CPU by
+    ``test_optax_steps_fixture_is_optax``)."""
+    from mvuld_tpu_torch.core.optim import Optimizer
+    from mvuld_tpu_torch.core.schedule import cosine_schedule
+    with open(OPTAX_STEPS) as f:
+        fx = json.load(f)
+    c = fx["cases"][case]
+    tensor = lambda vals, n: torch.tensor(  # noqa: E731
+        vals, dtype=torch.float32, device=dev).reshape(fx["shapes"][n])
+    tp = {n: tensor(v, n) for n, v in fx["params"].items()}
+    opt = Optimizer(list(tp.items()), fx["mask"],
+                    cosine_schedule(*fx["schedule"]), name=c["name"],
+                    weight_decay=fx["weight_decay"], clip=fx["clip"],
+                    accumulation_steps=c["k"])
+    for grads, want in zip(fx["grads"], c["steps"]):
+        opt.update([tensor(grads[n], n) for n in tp])
+        for n in tp:
+            np.testing.assert_allclose(
+                tp[n].cpu().numpy().ravel(), np.float32(want[n]),
+                atol=1e-6, rtol=1e-6, err_msg=n)
+    if c["name"] == "adamw":
+        assert opt.foreach_updates == 0
+        assert opt.fused_updates == len(fx["grads"])
 
 
 # ------------------------------------------ K steps per call (CUDA graph)

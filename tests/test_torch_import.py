@@ -116,7 +116,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 PHASES = ("serve_phase", "train_phase", "swin_phase", "fused_steps_phase",
           "blockbench_phase", "ops_phase", "staged_phase", "zoo_phase", "ocr_phase",
           "baselines_phase", "swin_family_phase", "causal_phase",
-          "parallel_phase", "tools_phase")
+          "parallel_phase", "tools_phase", "optimizer_phase")
 
 
 @pytest.mark.parametrize("phase", PHASES)

@@ -171,43 +171,132 @@ def _tree(seed, scale=1.0):
             "kernel": (scale * rng.randn(4, 3, 2)).astype(np.float32)}
 
 
-@pytest.mark.parametrize("name,k", [("adamw", 1), ("sgd", 1), ("adamw", 2)],
-                         ids=["adamw_clip", "sgd_nesterov_clip",
-                              "adamw_multisteps2"])
-def test_optimizer_steps_match_optax(name, k):
-    """Three updates (the gradient norms straddle the clip at 5) with a
-    warmup schedule and decay masked off one parameter: parameters within
-    1e-6 of optax."""
-    from mvuld_tpu.core.schedule import cosine_schedule as jcosine
-    from mvuld_tpu_torch.core.optim import Optimizer
-    from mvuld_tpu_torch.core.schedule import cosine_schedule
+OPTAX_CASES = {"adamw_clip": ("adamw", 1), "sgd_nesterov_clip": ("sgd", 1),
+               "adamw_multisteps2": ("adamw", 2)}
+OPTAX_SCHEDULE = (1e-2, 1e-4, 1e-5, 2, 10)    # cosine_schedule's arguments
+OPTAX_MASK = {"w": True, "norm_scale": False, "kernel": True}
+OPTAX_SCALES = (3.0, 0.1, 2.0, 0.5)           # the gradients' scales, by step
+OPTAX_STEPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "optax_steps.json")
 
-    sched = cosine_schedule(1e-2, 1e-4, 1e-5, 2, 10)
-    jsched = jcosine(1e-2, 1e-4, 1e-5, 2, 10)      # traceable, for optax
-    mask = {"w": True, "norm_scale": False, "kernel": True}
+
+def _optax_steps(name, k):
+    """optax's parameters after each of four updates: clip at 5 (the
+    gradient norms straddle it), a warmup cosine schedule, decay masked
+    off one parameter; ``k`` > 1 inside MultiSteps."""
+    from mvuld_tpu.core.schedule import cosine_schedule as jcosine
+
+    jsched = jcosine(*OPTAX_SCHEDULE)      # traceable, for optax
     if name == "adamw":
         inner = optax.adamw(jsched, b1=0.9, b2=0.999, eps=1e-8,
-                            weight_decay=0.05, mask=mask)
+                            weight_decay=0.05, mask=OPTAX_MASK)
     else:
-        inner = optax.chain(optax.add_decayed_weights(0.05, mask=mask),
+        inner = optax.chain(optax.add_decayed_weights(0.05, mask=OPTAX_MASK),
                             optax.sgd(jsched, momentum=0.9, nesterov=True))
     tx = optax.chain(optax.clip_by_global_norm(5.0), inner)
     if k > 1:
         tx = optax.MultiSteps(tx, every_k_schedule=k)
     params = {n: jnp.asarray(a) for n, a in _tree(0).items()}
     state = tx.init(params)
-    tp = {n: torch.tensor(a) for n, a in _tree(0).items()}
-    opt = Optimizer(list(tp.items()), mask, sched, name=name,
-                    weight_decay=0.05, clip=5.0, accumulation_steps=k)
-    for step, scale in enumerate([3.0, 0.1, 2.0, 0.5]):
+    out = []
+    for step, scale in enumerate(OPTAX_SCALES):
         g = _tree(10 + step, scale)
         upd, state = tx.update({n: jnp.asarray(a) for n, a in g.items()},
                                state, params)
         params = optax.apply_updates(params, upd)
+        out.append({n: np.asarray(a) for n, a in params.items()})
+    return out
+
+
+def optax_steps_fixture():
+    """``tests/fixtures/optax_steps.json``: the inputs of
+    ``test_optimizer_steps_match_optax`` and optax's parameters after each
+    step in each case, flat fp32 values, so that a machine without JAX
+    (``tests/test_torch_cuda.py`` on the card) holds the optimizer to
+    optax. Write it anew with ``json.dump(optax_steps_fixture(), f)``."""
+    flat = lambda tree: {n: a.astype(np.float32).ravel().tolist()  # noqa: E731
+                         for n, a in tree.items()}
+    return {"schedule": list(OPTAX_SCHEDULE), "mask": OPTAX_MASK,
+            "weight_decay": 0.05, "clip": 5.0,
+            "shapes": {n: list(a.shape) for n, a in _tree(0).items()},
+            "params": flat(_tree(0)),
+            "grads": [flat(_tree(10 + i, sc))
+                      for i, sc in enumerate(OPTAX_SCALES)],
+            "cases": {case: {"name": name, "k": k,
+                             "steps": [flat(t) for t in _optax_steps(name, k)]}
+                      for case, (name, k) in OPTAX_CASES.items()}}
+
+
+@pytest.mark.parametrize("name,k", list(OPTAX_CASES.values()),
+                         ids=list(OPTAX_CASES))
+def test_optimizer_steps_match_optax(name, k):
+    """Three updates (the gradient norms straddle the clip at 5) with a
+    warmup schedule and decay masked off one parameter: parameters within
+    1e-6 of optax."""
+    from mvuld_tpu_torch.core.optim import Optimizer
+    from mvuld_tpu_torch.core.schedule import cosine_schedule
+
+    sched = cosine_schedule(*OPTAX_SCHEDULE)
+    tp = {n: torch.tensor(a) for n, a in _tree(0).items()}
+    opt = Optimizer(list(tp.items()), OPTAX_MASK, sched, name=name,
+                    weight_decay=0.05, clip=5.0, accumulation_steps=k)
+    for step, (scale, params) in enumerate(zip(OPTAX_SCALES,
+                                               _optax_steps(name, k))):
+        g = _tree(10 + step, scale)
         opt.update([torch.as_tensor(g[n]) for n in tp])
         for n in tp:
-            np.testing.assert_allclose(tp[n].numpy(), np.asarray(params[n]),
+            np.testing.assert_allclose(tp[n].numpy(), params[n],
                                        atol=1e-6, rtol=1e-6, err_msg=n)
+
+
+def test_optax_steps_fixture_is_optax():
+    """The recorded fixture that the card's optimizer test reads holds
+    these inputs and optax's parameters to the bit."""
+    with open(OPTAX_STEPS) as f:
+        assert json.load(f) == optax_steps_fixture()
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["single", "multisteps2"])
+def test_train_step_grad_norm_is_the_raw_gradients_norm(k):
+    """``train_step`` takes its grad_norm from the clip's norm at k = 1
+    and computes it apart under MultiSteps (where the clip reads the
+    accumulated gradient): either way it equals ``global_norm`` of the
+    batch's raw gradients, on both sides of the clip at 5."""
+    from mvuld_tpu_torch.core.optim import Optimizer, global_norm
+    from mvuld_tpu_torch.core.train_state import train_step
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.tensor(_tree(0)["w"]))
+            self.norm_scale = torch.nn.Parameter(torch.ones(5))
+
+        def forward(self, x, train, gen):
+            return (x @ self.w) * self.norm_scale
+
+    model = Tiny()
+    params = list(model.named_parameters())
+    opt = Optimizer(params, {n: n == "w" for n, _ in params},
+                    lambda count: 1e-2, weight_decay=0.05, clip=5.0,
+                    accumulation_steps=k)
+    seen, update = [], opt.update
+
+    def record(grads):
+        seen.append([g.clone() for g in grads])
+        return update(grads)
+
+    opt.update = record
+    rng = np.random.RandomState(1)
+    norms = []
+    for scale in (30.0, 0.1, 30.0, 0.1):
+        batch = {"x": torch.tensor(scale * rng.randn(4, 6), dtype=torch.float32),
+                 "label": torch.tensor(rng.randint(0, 5, 4))}
+        m = train_step(model, opt, batch, None, 0.1,
+                       inputs=lambda b: {"x": b["x"]})
+        assert torch.equal(m["grad_norm"], global_norm(seen[-1]))
+        norms.append(float(m["grad_norm"]))
+    assert min(norms) < 5.0 < max(norms)
+    assert opt.count == 4 // k
 
 
 @pytest.mark.parametrize("name", ["cosine", "linear", "step"])
