@@ -3,6 +3,14 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+It runs what only a whole run on the card shows: the trainers, serving
+and the CLIs through the kernels, with their launch counts and their
+numbers against the plain layers, and the subsystems no cell of
+``benchmark/`` measures. Each kernel against its plain version at any
+shape or mode is a card test (``tests/test_torch_cuda.py``); a kernel's
+time, parent against change, is ``kernel_ab.py``'s; the rate, peak memory
+and profile of a cell's path are ``benchmark/``'s.
+
 Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit; build the CUDA kernels of
      ``mvuld_tpu_torch/csrc`` with nvcc (all sources at once) and print the
@@ -17,32 +25,29 @@ Phases, in order; any failure exits non-zero:
      K5 (also against K2), K3 and K3b at the shapes one batch-64 SwinV2
      fine-tune step gives them (the plain attention versions over chunks
      of windows there), with a profile of one K1, one K2 and one K5
-     launch by pass; K1, K2 and K5 on fp32 inputs, with bf16 product operands
-     (``mxu_bf16``) and on a row whose row sum underflows, and K2's time
-     with ``mxu_bf16``; K6/K6b at blockbench's stage-3 shapes; K3/K3b,
+     launch by pass; K6/K6b at blockbench's stage-3 shapes; K3/K3b,
      K4/K4b and K6/K6b also on fp32 x (one shape each), with a profile of
      one K4b launch at the ``lines`` shape by pass; and the
      head-layout K8/K8b (mask operand) and map-layout K7/K7b (mask
-     synthesised, fp32 outputs) at the bucket-16 geometry of every stage,
-     plus one fp32 case and K7/K7b with bf16 product operands; clip +
-     AdamW (``fused_adamw``, ``sumsq``) over the parameter lists of the
-     three training configurations, ``fused_adamw`` against the
+     synthesised, fp32 outputs) at the bucket-16 geometry of every stage;
+     clip + AdamW (``fused_adamw``, ``sumsq``) over the parameter lists of
+     the three training configurations, ``fused_adamw`` against the
      ``_foreach`` chain (to the bit for one clip factor) and ``sumsq``
      against an fp64 sum, timed beside the two norm loops and the chain
      they replace (``optimizer_phase``);
   3. serve 37 seeded requests at full width (SwinV2-Base-448 window 28,
      UniXcoder-base, the multi_defect_new_gcn head) through the kernels,
-     counting each kernel's launches, then again through the plain layers,
-     and compare P(vul); profile one forward of each path;
+     counting each kernel's launches, then again through the plain layers
+     (which launch none), and compare P(vul);
   4. train: one epoch of three batch-16 AdamW steps through the trainer
      CLI (``train_e2e.main``, kernels on, Swin stage 2 checkpointed) from a
      seeded synthetic cache, counting every kernel's launches; then, with
      one seeded generator per path, the first step's loss and gradients
      through the kernels against the plain layers, both held against the
      plain layers in fp32 (the bf16 plain path's own error sets the bound
-     of the tensors whose exact gradient cancels), timed steps of both
-     paths (ms/step, functions/s, peak memory) and a profile of one
-     kernel-path step;
+     of the tensors whose exact gradient cancels), timed steps of the
+     kernel path (ms/step, functions/s, peak memory) and a profile of one
+     of them, whose trace phase 16 reads;
   5. the SwinV2 fine-tune (``train_swin``) alone at the published 448
      config, batch 64 (an out-of-memory error fails the run):
      ``--throughput`` through the kernels; a warm-up and
@@ -52,26 +57,23 @@ Phases, in order; any failure exits non-zero:
      stage); the first step's gradients of both generations and of the
      plain layers against the plain layers in fp32 at batch 16, and v1
      against v2;
-     a profile of one step of each generation;
   6. TRAIN.FUSED_STEPS as a CUDA graph (``make_multi_train_step``) on the
      same fine-tune, K 8 at batch 64: 8 replayed steps against 8 eager
      steps from one saved state (losses, the update, the DropPath masks),
-     the capture's seconds, ms/step eager and by replay, images/s, peak
-     memory, a profile of one replay beside one eager step;
-     ``train_swin.main --opts TRAIN.FUSED_STEPS 4`` in a world-1 NCCL
-     group (the Prefetcher, BEST_FETCH async, a remainder of single steps)
-     against the unfused run; a capture with dropout in the checkpointed
-     stage at reduced depth; the kernels counted as captured launches ×
-     replays; then the same graphs on the BatchNorm models at
-     ``bench.py``'s two cells (``fused_models``): the production fusion
-     head at batch 256 × 8 steps (direct, and indexed over resident
-     columns) and the e2e model at batch 16 × 4 steps with 512 packed line
-     rows through K1-K4b, each replay against its eager steps from one
-     saved state (losses, update, BatchNorm running statistics, every
-     keep-mask to the bit), ms/step eager and by replay, functions/s, peak
-     memory, a profiled replay beside an eager step, launches captured ×
-     replays; and the packed lines' slot-layout mask draws (F20) timed
-     alone against draws over the packed rows;
+     the capture's seconds; a capture with dropout in the checkpointed
+     stage at reduced depth; ``train_swin.main --opts TRAIN.FUSED_STEPS 4``
+     in a world-1 NCCL group (the Prefetcher, BEST_FETCH async, a
+     remainder of single steps) against the unfused run; the kernels
+     counted as captured launches × replays; then the same graphs on the
+     BatchNorm models at ``bench.py``'s two cells (``fused_models``): the
+     production fusion head at batch 256 × 8 steps (direct, and indexed
+     over resident columns) and the e2e model at batch 16 × 4 steps with
+     512 packed line rows through K1-K4b, each replay against its eager
+     steps from one saved state (losses, update, BatchNorm running
+     statistics, every keep-mask to the bit), ms/step eager and by replay,
+     functions/s, peak memory, a profiled replay beside an eager step,
+     launches captured × replays; and the packed lines' slot-layout mask
+     draws (F20) timed alone against draws over the packed rows;
   7. the block microbenchmark (``tools/blockbench.py``): its five variants
      of the stage-3 MLP half, fwd_bwd at batch 64, one JSON line each, the
      K6/K6b launches counted in v3's run;
@@ -158,19 +160,13 @@ import tempfile
 import time
 from types import SimpleNamespace
 
-# Published H100 SXM peaks (dense): device memory 3.35 TB/s, bf16 tensor
-# cores 989 TFLOP/s, and the special-function units' exp rate: 16 per SM
-# per clock × 132 SMs × 1.98 GHz boost.
-HBM_BYTES_S = 3.35e12
-BF16_TC_FLOP_S = 989e12
-SFU_EXP_S = 16 * 132 * 1.98e9
+from benchmark.lib.common import PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_SFU_EXPS
 
 BATCH = 16          # serving bucket
 N_REQUESTS = 37     # → buckets 16, 16 and 8
 NODE_CAPACITY = 512
 VOCAB = 4096        # train_e2e's tokenizer size
 P_TOL = 1e-2        # |Δp| between the kernel and the plain serving paths
-REPEATS = 3         # timed serves of the 37 requests, per path
 
 # (stage, Bn, N, C, H, shift, nWh, launches per forward) at bucket 16
 K1_SHAPES = [(1, 256, 784, 128, 4, 0, 4, 1), (1, 256, 784, 128, 4, 14, 4, 1),
@@ -573,13 +569,13 @@ def check_attention(dev, gen, rows, shapes, path):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=1.0), 5)
         nbytes = Bn * N * 3 * C * 2 + H * N * N * 4 + Bn * N * C * 2
-        t_bytes = nbytes / HBM_BYTES_S
+        t_bytes = nbytes / PEAK_HBM_BYTES
         # K1 runs its products on the tensor cores (as every attention
         # kernel): the least time the card needs for the work whatever
         # implements it, 4·Bn·H·N²·hd flops at the bf16 tensor-core rate or
         # one exp per logit at the special-function rate ("operations")
-        t_ops = max(4 * Bn * H * N * N * hd / BF16_TC_FLOP_S,
-                    Bn * H * N * N / SFU_EXP_S)
+        t_ops = max(4 * Bn * H * N * N * hd / PEAK_BF16_FLOPS,
+                    Bn * H * N * N / PEAK_SFU_EXPS)
         shape = f"stage{stage} Bn={Bn} N={N} C={C} H={H} shift={shift}"
         rows.append(dict(kernel="window_attention_flat", shape=shape,
                          path=path, per_fwd=per_fwd, err=err, tol=tol, ms=ms,
@@ -646,8 +642,8 @@ def check_attention(dev, gen, rows, shapes, path):
         # least time the card needs for the work whatever implements it,
         # 10·Bn·H·N²·hd flops at the bf16 tensor-core rate or one exp per
         # logit at the special-function rate ("operations")
-        t_ops = max(10 * Bn * H * N * N * hd / BF16_TC_FLOP_S,
-                    Bn * H * N * N / SFU_EXP_S)
+        t_ops = max(10 * Bn * H * N * N * hd / PEAK_BF16_FLOPS,
+                    Bn * H * N * N / PEAK_SFU_EXPS)
         rows.append(dict(kernel="window_attention_flat_bwd", shape=shape,
                          path=path, per_fwd=per_fwd, err=max(errs),
                          tol=tols[errs.index(max(errs))],
@@ -656,7 +652,7 @@ def check_attention(dev, gen, rows, shapes, path):
                                 f"{errs[1]:.2e}/{tols[1]:.2e} dscale "
                                 f"{errs[2]:.2e}/{tols[2]:.2e}",
                          ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_bytes=nbytes / PEAK_HBM_BYTES * 1e3,
                          t_ops=t_ops * 1e3))
         if path != "swin":
             if stage == 1 and shift:      # where a K2 launch spends its time
@@ -701,110 +697,12 @@ def check_attention(dev, gen, rows, shapes, path):
                                 f"rel L2 {vs_k2[0]:.2e} {vs_k2[1]:.2e} "
                                 f"{vs_k2[2]:.2e} (tol 1e-2)",
                          ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_bytes=nbytes / PEAK_HBM_BYTES * 1e3,
                          t_ops=t_ops * 1e3))
         if stage == 1 and shift:          # where a K5 launch spends its time
             profile_run(f"K5 {shape}",
                         lambda: window_attention_flat_bwd_v1(*vargs))
         del got, out, r
-
-
-def check_attention_variants(dev, gen):
-    """K1, K2 and K5 beyond the main path's bf16 inputs, against their plain
-    versions: (a) fp32 qkv at stage 2 shift 14 (outputs and dq, dk, dv
-    within 1e-4 of their largest value, dbias 1e-4, dscale 1e-3); (b)
-    ``mxu_bf16`` at stage 3 (the kernels and the plain versions round the
-    same operands to bf16 and a value on a rounding boundary may go either
-    way: two bf16 ulps of the largest value, dbias 1e-3, dscale 1e-2, as
-    K7b's); (c) a query row whose logits all sit 90-110 below the fixed
-    shift m_h at stage 3 (scale 10, bias in [0, 1) but −90 on row 3: its
-    row sum under the 1e-30 clamp, its exps subnormal, which the kernels
-    flush), K2 and K5 within the usual tolerances and finite; (d) K2's time
-    with split operands against ``mxu_bf16`` at stage 1 shift 14."""
-    import torch
-
-    from mvuld_tpu_torch.ops import window_attention as wa
-
-    big = lambda t: float(t.float().abs().max())  # noqa: E731
-
-    def inputs(row, dtype):
-        stage, Bn, N, C, H, shift, nW1, _ = row
-        qkv = torch.randn(Bn, N, 3 * C, device=dev, generator=gen).to(dtype)
-        bias = 16 * torch.sigmoid(torch.randn(H, N, N, device=dev,
-                                              generator=gen))
-        ls = math.log(10.0) + 0.1 * torch.randn(H, device=dev, generator=gen)
-        g = torch.randn(Bn, N, C, device=dev, generator=gen).to(dtype)
-        return qkv, bias, ls, g, (shift, nW1, nW1)
-
-    def grads(kind, qkv, bias, ls, g, geom, plain=False, **kw):
-        if kind == "K5":
-            fn = (wa.window_attention_flat_bwd_v1_plain if plain
-                  else wa.window_attention_flat_bwd_v1)
-            out = fn(qkv, bias, ls, g, *geom, **kw)
-        else:
-            o, r = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
-                                                  return_rowsum=True, **kw)
-            fn = (wa.window_attention_flat_bwd_plain if plain
-                  else wa.window_attention_flat_bwd)
-            out = fn(qkv, bias, ls, o, r, g, *geom, **kw)
-        C = g.shape[-1]
-        return [out[0][..., i * C:(i + 1) * C] for i in range(3)] + [
-            out[1], out[2]]
-
-    def report(label, got, want, rels):
-        errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip(got, want)]
-        tols = [r * big(w) for r, w in zip(rels, want)]
-        print(f"{label}: " + " ".join(f"{e:.2e}/{t:.2e}"
-                                      for e, t in zip(errs, tols)),
-              flush=True)
-        if not (all(e <= t for e, t in zip(errs, tols))
-                and all(bool(torch.isfinite(a).all()) for a in got)):
-            raise AssertionError(f"{label} disagrees with its plain version")
-
-    qkv, bias, ls, g, geom = inputs(K1_SHAPES[3], torch.float32)
-    report("K1 fp32 stage2 shift=14",
-           [wa.window_attention_flat(qkv, bias, ls, *geom)],
-           [wa.window_attention_flat_plain(qkv, bias, ls, *geom)], [1e-4])
-    for kind in ("K2", "K5"):
-        report(f"{kind} fp32 stage2 shift=14 (dq dk dv dbias dscale)",
-               grads(kind, qkv, bias, ls, g, geom),
-               grads(kind, qkv, bias, ls, g, geom, plain=True),
-               [1e-4] * 4 + [1e-3])
-    del qkv, g
-
-    qkv, bias, ls, g, geom = inputs(K1_SHAPES[4], torch.bfloat16)
-    ulps = 2.0 ** -6
-    report("K1 mxu_bf16 stage3",
-           [wa.window_attention_flat(qkv, bias, ls, *geom, mxu_bf16=True)],
-           [wa.window_attention_flat_plain(qkv, bias, ls, *geom,
-                                           mxu_bf16=True)], [ulps])
-    for kind in ("K2", "K5"):
-        report(f"{kind} mxu_bf16 stage3 (dq dk dv dbias dscale)",
-               grads(kind, qkv, bias, ls, g, geom, mxu_bf16=True),
-               grads(kind, qkv, bias, ls, g, geom, plain=True, mxu_bf16=True),
-               [ulps] * 3 + [1e-3, 1e-2])
-    bias = torch.rand(bias.shape, device=dev, generator=gen)
-    bias[:, 3, :] = -90.0
-    ls = torch.full_like(ls, 10.0)
-    _, r = wa.window_attention_flat_plain(qkv, bias, ls, *geom,
-                                          return_rowsum=True)
-    if not bool((r[:, :, 3] == 1e30).all()):
-        raise AssertionError("the underflowing row's sum is not clamped")
-    for kind in ("K2", "K5"):
-        want = grads(kind, qkv, bias, ls, g, geom, plain=True)
-        report(f"{kind} underflowing row stage3 (dq dk dv dbias dscale)",
-               grads(kind, qkv, bias, ls, g, geom), want,
-               [ulps] * 3 + [1e-4, 1e-3])
-    del qkv, g, want
-
-    # what the split operands cost against one bf16 product per term
-    qkv, bias, ls, g, geom = inputs(K1_SHAPES[1], torch.bfloat16)
-    o, r = wa.window_attention_flat(qkv, bias, ls, *geom, return_rowsum=True)
-    ms = [time_ms(lambda m=m: wa.window_attention_flat_bwd(
-        qkv, bias, ls, o, r, g, *geom, mxu_bf16=m), 5) for m in (False, True)]
-    print(f"K2 stage1 shift=14: split operands {ms[0]:.3f} ms, mxu_bf16 "
-          f"{ms[1]:.3f} ms [{card_line()}]", flush=True)
 
 
 def _layout_inputs(dev, gen, Bn, N, C, H, nW1, dtype):
@@ -897,15 +795,16 @@ def check_layouts(dev, gen, rows):
         # it: 4·Bn·H·N²·hd flops forward, 10·Bn·H·N²·hd backward at the bf16
         # tensor-core rate, or one exp per logit at the special-function
         # rate (both "operations")
-        ops_f = max(4 * elems * N / BF16_TC_FLOP_S, Bn * H * N * N / SFU_EXP_S)
-        ops_b = max(10 * elems * N / BF16_TC_FLOP_S, Bn * H * N * N / SFU_EXP_S)
+        exps = Bn * H * N * N / PEAK_SFU_EXPS
+        ops_f = max(4 * elems * N / PEAK_BF16_FLOPS, exps)
+        ops_b = max(10 * elems * N / PEAK_BF16_FLOPS, exps)
         mask_bytes = 0 if mask is None else mask.numel() * 4
 
         def row(kernel, err, tol, ok, detail, ms, plain_ms, lib, nbytes, ops):
             rows.append(dict(kernel=kernel, shape=shape, path="ops",
                              per_fwd=per_fwd, err=err, tol=tol, ok=ok,
                              detail=detail, ms=ms, plain_ms=plain_ms,
-                             lib_ms=lib, t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                             lib_ms=lib, t_bytes=nbytes / PEAK_HBM_BYTES * 1e3,
                              t_ops=ops * 1e3))
 
         # K8: q, k, v and the mask as operands
@@ -985,68 +884,6 @@ def check_layouts(dev, gen, rows):
         del got, want, qkv, q, k, v, g, gh
 
 
-def check_layouts_variants(dev, gen):
-    """The four kernels on fp32 inputs (stage 2, shift 14; everything within
-    1e-4 of the largest value, dscale 1e-3), and K7/K7b with bf16 product
-    operands (``mxu_bf16``, stage 3): kernel and plain version round the
-    same operands to bf16, and a value on a rounding boundary may go either
-    way, so outputs within two bf16 ulps of the largest value."""
-    import torch
-
-    from mvuld_tpu_torch.ops import window_attention as wa
-
-    big = lambda t: float(t.float().abs().max())  # noqa: E731
-
-    def report(label, got, want, rels):
-        errs = _abs_errs(got, want)
-        tols = [r * big(w) for r, w in zip(rels, want)]
-        print(f"{label}: " + " ".join(f"{e:.2e}/{t:.2e}"
-                                      for e, t in zip(errs, tols)),
-              flush=True)
-        if not all(e <= t for e, t in zip(errs, tols)):
-            raise AssertionError(f"{label} disagrees with its plain version")
-
-    stage, Bn, N, C, H, shift, nW1, _ = K1_SHAPES[3]
-    qkv, bias, ls, g, ws, hd, nW = _layout_inputs(dev, gen, Bn, N, C, H, nW1,
-                                                  torch.float32)
-    q, k, v = (t.contiguous() for t in wa._map_to_windows(qkv, ws))
-    gh = wa._heads_map_to_windows(g, ws)
-    mask = wa.window_region_mask(ws, shift, nW1, nW1)
-    report("K8 fp32 stage2 shift=14",
-           [wa.window_attention_fwd(q, k, v, bias, ls, mask)],
-           [wa.window_attention_plain(q, k, v, bias, ls, mask)], [1e-4])
-    report("K8b fp32 stage2 shift=14 (dq dk dv dbias dscale)",
-           wa.window_attention_bwd(q, k, v, bias, ls, gh, mask),
-           wa.window_attention_bwd_plain(q, k, v, bias, ls, gh, mask),
-           [1e-4] * 4 + [1e-3])
-    report("K7 fp32 stage2 shift=14",
-           [wa.window_attention_map_fwd(qkv, bias, ls, shift)],
-           [wa.window_attention_map_plain(qkv, bias, ls, shift)], [1e-4])
-    report("K7b fp32 stage2 shift=14 (dqkv dbias dscale)",
-           wa.window_attention_map_bwd(qkv, bias, ls, g, shift),
-           wa.window_attention_map_bwd_plain(qkv, bias, ls, g, shift),
-           [1e-4, 1e-4, 1e-3])
-    del qkv, q, k, v, g, gh
-
-    stage, Bn, N, C, H, shift, nW1, _ = K1_SHAPES[4]
-    qkv, bias, ls, g, ws, hd, nW = _layout_inputs(dev, gen, Bn, N, C, H, nW1,
-                                                  torch.bfloat16)
-    ulps = 2.0 ** -6
-    report("K7 mxu_bf16 stage3",
-           [wa.window_attention_map_fwd(qkv, bias, ls, 0, True)],
-           [wa.window_attention_map_plain(qkv, bias, ls, 0, True)], [ulps])
-    report("K7b mxu_bf16 stage3 (dqkv dbias dscale)",
-           wa.window_attention_map_bwd(qkv, bias, ls, g, 0, True),
-           wa.window_attention_map_bwd_plain(qkv, bias, ls, g, 0, True),
-           [ulps, 1e-3, 1e-2])
-    # what the split operands cost against one bf16 product per term
-    ms = [time_ms(lambda m=m: wa.window_attention_map_bwd(qkv, bias, ls, g, 0,
-                                                          m), 5)
-          for m in (False, True)]
-    print(f"K7b stage3: split operands {ms[0]:.3f} ms, mxu_bf16 {ms[1]:.3f} ms "
-          f"[{card_line()}]", flush=True)
-
-
 def check_mlp(dev, gen, rows, name, shapes, path="e2e", fp32=False):
     """K3 / K4 (K4 also with a keep-mask at 0.9) against the plain version:
     bf16 y within two ulps of its largest value; with ``fp32`` x (the
@@ -1084,9 +921,9 @@ def check_mlp(dev, gen, rows, name, shapes, path="e2e", fp32=False):
                          path=path, per_fwd=per_fwd, err=err,
                          tol=tol_of(want.float()),
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
-                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_bytes=nbytes / PEAK_HBM_BYTES * 1e3,
                          t_ops=4 * M * C * Hd * (3 if fp32 else 1)
-                         / BF16_TC_FLOP_S * 1e3))
+                         / PEAK_BF16_FLOPS * 1e3))
         if residual:   # the training form: the dropout keep-mask
             mask = (torch.rand(M, C, device=dev, generator=gen) < KEEP
                     ).to(dtype)
@@ -1157,9 +994,9 @@ def check_mlp_bwd(dev, gen, rows, name, shapes, path="e2e", fp32=False):
                                  ("dx", "dW1", "db1", "dW2", "db2", "dγ",
                                   "dβ"), l2)) + f" (tol {lim:g})",
                          ms=ms, plain_ms=plain_ms, lib_ms=None,
-                         t_bytes=nbytes / HBM_BYTES_S * 1e3,
+                         t_bytes=nbytes / PEAK_HBM_BYTES * 1e3,
                          t_ops=12 * M * C * Hd * (3 if fp32 else 1)
-                         / BF16_TC_FLOP_S * 1e3))
+                         / PEAK_BF16_FLOPS * 1e3))
         if residual and label == "lines" and not fp32:
             profile_run(f"K4b {label} launch", lambda: wrapper(
                 x, dy, *params, *extra), category=traceparse.mlp_pass)
@@ -1201,7 +1038,7 @@ def check_dense(dev, gen, rows, fp32=False):
         lib_ms = time_ms(lambda: torch.addmm(bb, x, wb), 10)
         shape = f"{label} M={M} K={K} N={N}" + (" fp32" if fp32 else "")
         size = x.element_size()
-        t_ops = 2 * M * K * N * (3 if fp32 else 1) / BF16_TC_FLOP_S * 1e3
+        t_ops = 2 * M * K * N * (3 if fp32 else 1) / PEAK_BF16_FLOPS * 1e3
         err = float((got.float() - want.float()).abs().max())
         rows.append(dict(kernel="dense_fwd", shape=shape, path=path,
                          per_fwd=1, err=err,
@@ -1211,7 +1048,7 @@ def check_dense(dev, gen, rows, fp32=False):
                                           5),
                          lib_ms=lib_ms,
                          t_bytes=(M * K + K * N + M * N) * size
-                         / HBM_BYTES_S * 1e3,
+                         / PEAK_HBM_BYTES * 1e3,
                          t_ops=t_ops))
         err = float((dz.float() - dz_p.float()).abs().max())
         tol = tol_of(dz_p.float())
@@ -1228,7 +1065,7 @@ def check_dense(dev, gen, rows, fp32=False):
                                           5),
                          lib_ms=lib_ms,
                          t_bytes=((M * K + K * N + 2 * M * N) * size
-                                  + len(vecs) * N * 4) / HBM_BYTES_S * 1e3,
+                                  + len(vecs) * N * 4) / PEAK_HBM_BYTES * 1e3,
                          t_ops=t_ops))
         if path == "blockbench":
             profile_run(f"K6 {label} launch", lambda: fd.dense_fwd(*fargs),
@@ -1363,8 +1200,8 @@ def optimizer_phase(dev, rows):
         plain_chain = time_ms(chain, OPTIM_REPS)
         old_mem = transient(lambda: (global_norm(gs), global_norm(gs),
                                      chain()))
-        b_norm = SUMSQ_BYTES * P / HBM_BYTES_S * 1e3
-        b_adamw = ADAMW_BYTES * P / HBM_BYTES_S * 1e3
+        b_norm = SUMSQ_BYTES * P / PEAK_HBM_BYTES * 1e3
+        b_adamw = ADAMW_BYTES * P / PEAK_HBM_BYTES * 1e3
         print(f"optim {path}: kernels {ms_norm + ms_adamw:.3f} ms (sumsq "
               f"{ms_norm:.3f}, fused_adamw {ms_adamw:.3f}), update "
               f"{ms_update:.3f} ms, transient {mem:.3f} GiB; replaced: "
@@ -1456,38 +1293,18 @@ def serve_phase(dev):
     print(f"serve: model built ({n_params / 1e6:.1f}M params) in "
           f"{time.time() - t0:.1f}s", flush=True)
 
-    def timed(m):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p = serve(m, arrs, BATCH, dev)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, p
-
     plain = model(False)
     plain.load_state_dict(fast.state_dict())
     plain.to(dev).eval()
-    serve(fast, arrs, BATCH, dev)                 # warm-ups
-    serve(plain, arrs, BATCH, dev)
 
     counters = [wa.window_attention_flat, fd.mlp_ln, fd.mlp_ln_res]
     for c in counters:
         c.launches = 0
-    t, p_fast = timed(fast)                       # the main path, counted
+    p_fast = serve(fast, arrs, BATCH, dev)        # the main path, counted
     launches = {c.__name__: c.launches for c in counters}
-    # then in turns: plain, kernels, plain, kernels, plain
-    t_fast, t_plain = [t], []
-    for r in range(REPEATS):
-        t, p_plain = timed(plain)
-        t_plain.append(t)
-        if r < REPEATS - 1:
-            t_fast.append(timed(fast)[0])
-    if any(c.launches != REPEATS * launches[c.__name__] for c in counters):
+    p_plain = serve(plain, arrs, BATCH, dev)
+    if any(c.launches != launches[c.__name__] for c in counters):
         raise AssertionError("the plain serving path launched a kernel")
-
-    one = {k: v[:BATCH] for k, v in arrs.items()}
-    for label, m in (("kernels", fast), ("plain", plain)):
-        profile_run(f"{label} forward (bucket {BATCH})",
-                    lambda: serve(m, one, BATCH, dev))
 
     forwards = math.ceil(N_REQUESTS / BATCH)
     per_fwd = {"window_attention_flat": 24, "mlp_ln": 22, "mlp_ln_res": 24}
@@ -1505,12 +1322,6 @@ def serve_phase(dev):
           f"max |Δp| kernels vs plain {dp:.3e} (tol {P_TOL})", flush=True)
     if not dp <= P_TOL:
         raise AssertionError(f"kernel and plain serving disagree: {dp}")
-    for label, ts in (("kernels", t_fast), ("plain", t_plain)):
-        med = statistics.median(ts)
-        print(f"serve {label}: {N_REQUESTS} functions, median of {REPEATS} "
-              f"runs {med:.4f}s = {N_REQUESTS / med:.2f} functions/s "
-              f"(runs {', '.join(f'{t:.4f}' for t in ts)} s) "
-              f"[{card_line()}]", flush=True)
     return launches
 
 
@@ -1536,8 +1347,9 @@ def write_cache(out_dir: str, cfg, n_train: int, n_val: int) -> None:
 def train_phase(dev, counters, trace_dir=None):
     """(a) The main path: one epoch through ``train_e2e.main`` with the
     kernels, launches counted. (b) Kernels against plain layers: first-step
-    loss and per-tensor gradients, then timed steps and peak memory; the
-    kernel path's profiled step's Chrome trace goes to ``trace_dir``."""
+    loss and per-tensor gradients; then timed steps and peak memory of the
+    kernel path and one profiled step, whose Chrome trace goes to
+    ``trace_dir``."""
     import numpy as np
     import torch
 
@@ -1702,9 +1514,6 @@ def train_phase(dev, counters, trace_dir=None):
                                    cfg.MODEL.LABEL_SMOOTHING),
                 trace_path=(os.path.join(trace_dir, "e2e_train_step.json")
                             if trace_dir else None))
-    del opt, b, fast
-    torch.cuda.empty_cache()
-    timed_steps("plain", plain, B_plain)
     return launches
 
 
@@ -1728,8 +1537,7 @@ def swin_phase(dev, counters):
     warm-up and TRAIN_STEPS timed AdamW steps with mixup soft targets at
     SWIN_BATCH, launches counted; (c) the first step's gradients of v2, v1
     and the plain layers (bf16) against the plain layers in fp32 at BATCH,
-    where the plain layers fit; (d) a profile of one step of each
-    generation. Returns the launches of the counted runs."""
+    where the plain layers fit. Returns the launches of the counted runs."""
     import numpy as np
     import torch
 
@@ -1826,8 +1634,6 @@ def swin_phase(dev, counters):
             raise AssertionError(f"swin {gen_name} launches: {counts} (want "
                                  f"K1 and {bwd} {SWIN_BLOCKS} per step: K1 "
                                  f"never rerun in the checkpointed stage)")
-        profile_run(f"swin {gen_name} train step (batch {n})",
-                    lambda: run.step(batches[-1], gen))
         del run, batches
         torch.cuda.empty_cache()
     os.environ["MVULD_ATTN_BWD"] = "v2"
@@ -2079,12 +1885,11 @@ class _GraphLaunches:
 
 
 def _fused_times(label, multi, plain, host, gen, k, B, unit, first_s,
-                 first_eager_s, data=None, pageable=None) -> float:
+                 first_eager_s, data=None) -> float:
     """Eager and replayed calls (FUSED_REPLAYS each, their median) on the
     page-locked host superbatch ``host`` (its copy to the card inside each
-    call), one replay from the pageable ``pageable`` where given; prints
-    ms/step, ``unit``/s and the peak memory since the last reset. Returns
-    the replay's ms/step."""
+    call); prints ms/step, ``unit``/s and the peak memory since the last
+    reset. Returns the replay's ms/step."""
     import torch
 
     def timed(step, sb, n):
@@ -2099,10 +1904,6 @@ def _fused_times(label, multi, plain, host, gen, k, B, unit, first_s,
 
     e_times = timed(plain, host, FUSED_REPLAYS)
     times = timed(multi, host, FUSED_REPLAYS)
-    numpy_line = ""
-    if pageable is not None:
-        numpy_line = (f"; one replay from pageable numpy "
-                      f"{timed(multi, pageable, 1)[0] / k * 1e3:.1f} ms/step")
     eager_s = statistics.median(e_times) / k
     replay_ms = statistics.median(times) / k * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2114,8 +1915,8 @@ def _fused_times(label, multi, plain, host, gen, k, B, unit, first_s,
           f"{', '.join(f'{t * 1e3:.1f}' for t in e_times)} ms; the "
           f"comparison's {first_eager_s * 1e3:.1f} ms/step); replay "
           f"{replay_ms:.1f} ms/step = {B / replay_ms * 1e3:.2f} {unit}/s "
-          f"(calls {', '.join(f'{t * 1e3:.1f}' for t in times)} ms)"
-          f"{numpy_line}; peak memory {peak:.2f} GiB (eager and graph pools) "
+          f"(calls {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); "
+          f"peak memory {peak:.2f} GiB (eager and graph pools) "
           f"[{card_line()}]", flush=True)
     return replay_ms
 
@@ -2141,21 +1942,17 @@ def fused_steps_phase(dev, counters):
     """TRAIN.FUSED_STEPS as a CUDA graph (``make_multi_train_step``) on the
     SwinV2 fine-tune at full width (SWIN_OPTS: bf16, the fused MLP, stage 2
     checkpointed, DropPath 0.2), batch SWIN_BATCH: (a) FUSED_K replayed
-    steps against FUSED_K eager ``train_step``s from one saved state; (b)
-    the capture's seconds, ms/step eager and by replay (median of
-    FUSED_REPLAYS calls each), images/s, peak memory: both take the host
-    superbatch as ``fit`` hands it over (page-locked by the Prefetcher's
-    ``pin_batch``) and copy it to the card inside the timed call, and one
-    replay takes it from pageable numpy; (c) a profile of one replay call
-    (the copy included) beside one eager step; (d)
-    ``train_swin.main --opts TRAIN.FUSED_STEPS FUSED_CLI_K`` (Prefetcher,
-    BEST_FETCH async) in a world-1 NCCL group (the gradients' all-reduce
-    captured) on a seeded image corpus whose 6 batches leave a remainder,
-    its history.json against the unfused run's; (e) a capture
-    at MODEL.DROP_RATE 0.1 and depths FUSED_DROP_DEPTHS (inside the capture
-    the checkpointed stage's recomputation takes the masks its first run
-    kept: their bytes are printed). Returns the launches: the counted
-    ones, each capture's launches counted × its replays."""
+    steps against FUSED_K eager ``train_step``s from one saved state, the
+    host superbatch as ``fit`` hands it over (page-locked by the
+    Prefetcher's ``pin_batch``); (b) a capture at MODEL.DROP_RATE 0.1 and
+    depths FUSED_DROP_DEPTHS (inside the capture the checkpointed stage's
+    recomputation takes the masks its first run kept: their bytes are
+    printed); (c) ``train_swin.main --opts TRAIN.FUSED_STEPS FUSED_CLI_K``
+    (Prefetcher, BEST_FETCH async) in a world-1 NCCL group (the gradients'
+    all-reduce captured) on a seeded image corpus whose 6 batches leave a
+    remainder, its history.json against the unfused run's. Returns the
+    launches: the counted ones, each capture's launches counted × its
+    replays."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2188,22 +1985,12 @@ def fused_steps_phase(dev, counters):
         del hosts
         sb_pin = pin_batch(sb)       # what fit's Prefetcher hands over
         gen = torch.Generator(device=dev).manual_seed(1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        label = f"SwinV2-B 448 batch {B}"
         # (a)
-        multi, plain, first_eager_s, first_s = _graph_vs_eager(
-            label, run, sb_pin, gen, K)
-        # (b), (c)
-        _fused_times(label, multi, plain, sb_pin, gen, K, B, "images",
-                     first_s, first_eager_s, pageable=sb)
-        batch0 = {key: v[0].to(dev) for key, v in sb_pin.items()}
-        _fused_profile(label, multi, sb_pin, gen, K, B,
-                       lambda: run.step(batch0, gen))
-        del multi, plain, batch0, sb_pin, run
+        _graph_vs_eager(f"SwinV2-B 448 batch {B}", run, sb_pin, gen, K)
+        del sb_pin, run
         graphs.settle()
 
-        # (e) dropout in the checkpointed stage, reduced depth
+        # (b) dropout in the checkpointed stage, reduced depth
         k = FUSED_DROP_K
         drun = build_swin_training(config(B, ["MODEL.SWINV2.DEPTHS",
                                               FUSED_DROP_DEPTHS,
@@ -2240,7 +2027,7 @@ def fused_steps_phase(dev, counters):
         del drun, dsb, sb, rngs, tapes
         graphs.settle()
 
-        # (d) the trainer CLI, fused and unfused, on seeded images
+        # (c) the trainer CLI, fused and unfused, on seeded images
         def split(n, seed):
             rs = np.random.RandomState(seed)
             return ArrayDataset({
@@ -4119,13 +3906,13 @@ def _sp_attention(rank, dev, group):
             plain_ms = time_ms(lambda: run(True), 1)
         torch.cuda.empty_cache()        # the plain versions' score blocks
         n, hd = Bn // 2, C // H            # this rank's windows
-        exps = n * H * N * N / SFU_EXP_S
-        k1 = max(4 * n * H * N * N * hd / BF16_TC_FLOP_S, exps,
+        exps = n * H * N * N / PEAK_SFU_EXPS
+        k1 = max(4 * n * H * N * N * hd / PEAK_BF16_FLOPS, exps,
                  (n * N * 3 * C * 2 + H * N * N * 4 + n * N * C * 2)
-                 / HBM_BYTES_S)
-        k2 = max(10 * n * H * N * N * hd / BF16_TC_FLOP_S, exps,
+                 / PEAK_HBM_BYTES)
+        k2 = max(10 * n * H * N * N * hd / PEAK_BF16_FLOPS, exps,
                  (2 * n * N * 3 * C * 2 + 2 * n * N * C * 2 + n * H * N * 4
-                  + 2 * H * N * N * 4) / HBM_BYTES_S)
+                  + 2 * H * N * N * 4) / PEAK_HBM_BYTES)
         bound_ms = (k1 + k2) * 1e3
         rows.append((stage, shift, Bn, errs, time_ms(lambda: run(True), 3),
                      time_ms(lambda: run(False), 3), plain_ms, bound_ms))
@@ -4753,9 +4540,7 @@ def main() -> int:
     rows = []
     check_attention(dev, gen, rows, K1_SHAPES, "e2e")
     check_attention(dev, gen, rows, SWIN_K1_SHAPES, "swin")
-    check_attention_variants(dev, gen)
     check_layouts(dev, gen, rows)
-    check_layouts_variants(dev, gen)
     check_mlp(dev, gen, rows, "mlp_ln", K3_SHAPES)
     check_mlp(dev, gen, rows, "mlp_ln", SWIN_K3_SHAPES, "swin")
     check_mlp(dev, gen, rows, "mlp_ln_res", K4_SHAPES)

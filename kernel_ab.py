@@ -1,6 +1,8 @@
 """Same-card A/B of the kernels' times between source trees.
 
-  python -m mvuld_tpu_torch.tools.kernel_ab TREE [TREE ...]
+Run from the root of a checkout, beside the ``chip_smoke.py`` it drives:
+
+  python3 kernel_ab.py TREE [TREE ...]
       [--phase mlp dense attention layouts k2 optim]
       [--sass window_attention ...]
       [--sass-dir DIR]

@@ -1432,6 +1432,10 @@ Plan plan_rows(int N) {
   return Plan{(strips + tiles - 1) / tiles, tiles};
 }
 
+// K2 forms dq, dk and dv in its fused key-outer pass where a window side's
+// blocks fit in one cluster (N <= 1024), else in its dq and dk/dv passes.
+bool flat_bwd_fused(int N) { return plan_rows(N).tiles <= MAXC; }
+
 struct FwdArgs {
   const void *q, *k, *v, *bias, *scale, *mask, *shiftm;
   void *out, *lr, *r, *ops;
@@ -1500,8 +1504,7 @@ int launch_bwd(const BwdArgs& A, int Bn, int nchunk, const Geo& G,
   auto sums_smem = [&](int r) {
     return (size_t)2 * ((PX + PG) * r + (PX + PV) * TJ) * LDB * 2 + MAXW * 4 + N16;
   };
-  // K2's fused pass where a window side's blocks fit in one cluster
-  const bool fused = ROWS == FORWARD_ROWS && P.tiles <= MAXC;
+  const bool fused = ROWS == FORWARD_ROWS && flat_bwd_fused(G.N);
   auto fused_smem = [&](int r) {
     return (size_t)((PX + PV) * r * LDB + 2 * (PX + PG) * TQ * LDB + 2 * r * LDS) * 2 +
            (size_t)2 * TQ * HD * 4 + (size_t)4 * TQ * 4 + N16;
@@ -1729,3 +1732,7 @@ extern "C" int window_attention_flat_bwd(
              ? launch_bwd<__nv_bfloat16, __nv_bfloat16, FIXED_ROWS>(A, Bn, nchunk, G, s)
              : launch_bwd<float, float, FIXED_ROWS>(A, Bn, nchunk, G, s);
 }
+
+// 1 where K2 (window_attention_flat_bwd with o and r) at window size N runs
+// its fused pass, 0 where it runs the dq and dk/dv passes.
+extern "C" int window_attention_flat_bwd_fused(int N) { return flat_bwd_fused(N); }

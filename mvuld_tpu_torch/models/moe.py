@@ -67,8 +67,6 @@ USE_BPR, IS_GSHARD_LOSS, MLP_FC2_BIAS and MOE_DROP. With x a token:
   AUX_LOSS_WEIGHT · Σ_layers l to the cross-entropy). It needs
   gate_noise > 0.
 
-Spans (``core/tracing.py``, eager runs only): ``moe.route`` (gate, loss,
-choice and slots), ``moe.dispatch``, ``moe.experts``, ``moe.combine``.
 Device counters, int64 buffers incremented inside the forward so that a
 CUDA graph replay counts too: ``routed`` assignments (T·k), ``kept``
 assignments and capacity ``slots`` (E·C), once per forward the step takes
@@ -104,7 +102,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvuld_tpu_torch.core.tracing import span
 from mvuld_tpu_torch.models.dropout import draw_rows, dropout
 from mvuld_tpu_torch.ops.fused_dense import gelu
 from mvuld_tpu_torch.parallel import collectives as cc
@@ -245,59 +242,54 @@ class MoEFFN(nn.Module):
         g, nr, me = self.ep, cc.size(self.ep), cc.rank(self.ep)
         C = self.capacity(T * nr)                 # the global token count
 
-        with span("moe.route"):
-            logits = tokens.to(acc) @ self.gate.to(acc)          # [T, E]
-            noisy = logits
-            if gen is not None and self.gate_noise > 0:
-                # the global tokens' noise (rank-major under expert or
-                # data parallelism), this rank's rows kept
-                noise = draw_rows(torch.randn, (nr * T, E), gen,
-                                  logits.device,
-                                  dtype=acc)[me * T:(me + 1) * T]
-                noisy = logits + noise * self.gate_noise / E
-            probs = torch.softmax(noisy, dim=-1)
-            topk_p, topk_e = top_k_lowest(probs, K)              # [T, K]
-            aux = self._aux(logits, noisy, probs, topk_e, T)
-            rows_t, keeps_t = self._slots(topk_p, topk_e, C)     # [K, T]
-            self.routing = (topk_e.t().detach(), keeps_t.detach())
-            if not _recomputing():
-                self.routed.add_(T * K)
-                self.kept.add_(keeps_t.sum())
-                self.slots.add_(E * C)
+        logits = tokens.to(acc) @ self.gate.to(acc)          # [T, E]
+        noisy = logits
+        if gen is not None and self.gate_noise > 0:
+            # the global tokens' noise (rank-major under expert or
+            # data parallelism), this rank's rows kept
+            noise = draw_rows(torch.randn, (nr * T, E), gen, logits.device,
+                              dtype=acc)[me * T:(me + 1) * T]
+            noisy = logits + noise * self.gate_noise / E
+        probs = torch.softmax(noisy, dim=-1)
+        topk_p, topk_e = top_k_lowest(probs, K)              # [T, K]
+        aux = self._aux(logits, noisy, probs, topk_e, T)
+        rows_t, keeps_t = self._slots(topk_p, topk_e, C)     # [K, T]
+        self.routing = (topk_e.t().detach(), keeps_t.detach())
+        if not _recomputing():
+            self.routed.add_(T * K)
+            self.kept.add_(keeps_t.sum())
+            self.slots.add_(E * C)
 
-        with span("moe.dispatch"):
-            # expert inputs [E, C, D]: every row takes at most one token
-            xe = tokens.new_zeros(E * C + K * T, D).index_add(
-                0, rows_t.reshape(-1), tokens.repeat(K, 1))
-            xe = xe[:E * C].reshape(E, C, D).to(dt)
-            if g is not None:     # to the owners: [nr, E/nr, C, D] summed
-                xe = cc.all_to_all_fn(xe, g).reshape(nr, E // nr, C,
-                                                     D).sum(0)
-        with span("moe.experts"):
-            h = torch.baddbmm(self.b1.to(dt), xe, self.w1.to(dt))
-            h = dropout(gelu(h), self.drop, gen)
-            ye = (torch.bmm(h, self.w2.to(dt)) if self.b2 is None
-                  else torch.baddbmm(self.b2.to(dt), h, self.w2.to(dt)))
-            if g is not None:     # every owner's outputs to every rank
-                ye = cc.all_to_all_fn(ye.repeat(nr, 1, 1), g)
+        # expert inputs [E, C, D]: every row takes at most one token
+        xe = tokens.new_zeros(E * C + K * T, D).index_add(
+            0, rows_t.reshape(-1), tokens.repeat(K, 1))
+        xe = xe[:E * C].reshape(E, C, D).to(dt)
+        if g is not None:     # to the owners: [nr, E/nr, C, D] summed
+            xe = cc.all_to_all_fn(xe, g).reshape(nr, E // nr, C, D).sum(0)
 
-        with span("moe.combine"):
-            # Σ_k topk_p·keep · ye[e_k, slot_k], the weights rounded to
-            # ye's dtype (JAX's combine.astype), the sum in fp32. Each
-            # pass's slots go back to their tokens by a scatter whose rows
-            # are distinct (an empty slot to a spare row of its own), so
-            # the backward gathers and sums nothing
-            ye = ye.reshape(E * C, -1).to(acc)
-            w = (topk_p * keeps_t.t().to(acc)).t().to(dt).to(acc)   # [K, T]
-            tok = torch.arange(T, device=x.device)
-            spare = T + torch.arange(E * C + K * T, device=x.device)
-            y = None
-            for k in range(K):
-                src = spare.scatter(0, rows_t[k], tok)[:E * C]
-                out = ye.new_zeros(T + E * C, ye.shape[-1]).index_add(
-                    0, src, ye)[:T]
-                y = w[k][:, None] * out if y is None else (
-                    y + w[k][:, None] * out)
+        h = torch.baddbmm(self.b1.to(dt), xe, self.w1.to(dt))
+        h = dropout(gelu(h), self.drop, gen)
+        ye = (torch.bmm(h, self.w2.to(dt)) if self.b2 is None
+              else torch.baddbmm(self.b2.to(dt), h, self.w2.to(dt)))
+        if g is not None:     # every owner's outputs to every rank
+            ye = cc.all_to_all_fn(ye.repeat(nr, 1, 1), g)
+
+        # Σ_k topk_p·keep · ye[e_k, slot_k], the weights rounded to ye's
+        # dtype (JAX's combine.astype), the sum in fp32. Each pass's slots go
+        # back to their tokens by a scatter whose rows are distinct (an empty
+        # slot to a spare row of its own), so the backward gathers and sums
+        # nothing
+        ye = ye.reshape(E * C, -1).to(acc)
+        w = (topk_p * keeps_t.t().to(acc)).t().to(dt).to(acc)   # [K, T]
+        tok = torch.arange(T, device=x.device)
+        spare = T + torch.arange(E * C + K * T, device=x.device)
+        y = None
+        for k in range(K):
+            src = spare.scatter(0, rows_t[k], tok)[:E * C]
+            out = ye.new_zeros(T + E * C, ye.shape[-1]).index_add(
+                0, src, ye)[:T]
+            y = w[k][:, None] * out if y is None else (
+                y + w[k][:, None] * out)
         return y.to(dt).reshape(*lead, -1), aux
 
 

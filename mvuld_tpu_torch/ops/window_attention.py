@@ -275,6 +275,7 @@ _ENTRIES = {
                              [_PTR] * 9 + [_INT] * 3 + [_GEO, _PTR]),
     "window_attention_bwd": ("window_attention",
                              [_PTR] * 18 + [_INT] * 4 + [_GEO, _PTR]),
+    "window_attention_flat_bwd_fused": ("window_attention", [_INT]),
 }
 
 
@@ -432,13 +433,11 @@ def _flat_bwd_kernels(what, qkv, bias, logit_scale, o, r, g, shift, nWh, nWw,
 
 
 def _k2_fused(N: int) -> bool:
-    """Whether K2 forms dq, dk and dv in its fused key-outer pass, as
-    ``launch_bwd`` of ``csrc/window_attention.cu`` decides: the blocks of a
-    window side (``plan_rows``: ceil(ceil(N / 16) / 8)) fit in one
-    thread-block cluster of at most 8, N ≤ 1024; above that its separate
-    dq and dk/dv passes."""
-    strips = -(-N // 16)
-    return -(-strips // 8) <= 8
+    """Whether K2 forms dq, dk and dv in its fused key-outer pass (N ≤
+    1024) or in its separate dq and dk/dv passes: the decision
+    ``launch_bwd`` of ``csrc/window_attention.cu`` takes, asked of the
+    library."""
+    return bool(_lib("window_attention_flat_bwd_fused")(N))
 
 
 def window_attention_flat_bwd(qkv, bias, logit_scale, o, r, g,

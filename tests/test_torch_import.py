@@ -1,7 +1,8 @@
 """The port stands alone: it imports no JAX and nothing of ``mvuld_tpu``,
 and needs none of the host extras (PIL, yaml, pandas, cv2, tokenizers,
-matplotlib, sklearn) to import. ``chip_smoke.py`` refuses to run without a
-CUDA device, and its ``main`` drives every phase."""
+matplotlib, sklearn) to import. ``chip_smoke.py`` and ``kernel_ab.py``
+import no JAX either. ``chip_smoke.py`` refuses to run without a CUDA
+device, and its ``main`` drives every phase."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "orbax", "optax"}
 
 def _sources():
     files = sorted((ROOT / "mvuld_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def _imported_modules(path):
@@ -111,6 +112,18 @@ def test_chip_smoke_fails_alone(tmp_path):
                        capture_output=True, text=True, timeout=240, env=env)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_kernel_ab_stops_on_a_tree_it_cannot_run(tmp_path):
+    """A tree without ``chip_smoke.py``: the A/B exits non-zero with the
+    child's error and prints no result line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, str(ROOT / "kernel_ab.py"),
+                        str(tmp_path), "--phase", "mlp"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=240, env=env)
+    assert r.returncode != 0
+    assert "No module named 'chip_smoke'" in r.stderr
+    assert '{"ab"' not in r.stdout
 
 
 PHASES = ("serve_phase", "train_phase", "swin_phase", "fused_steps_phase",

@@ -274,24 +274,3 @@ def test_train_swin_fits_swin_moe_with_fused_steps():
     # 5 training forwards of 2 images and the validation's 10 images
     per_image = 16 * 16 + 2 * 4 * 4
     assert routing_counters(run.model)["routed"] == 20 * per_image
-
-
-def test_moe_spans_record_each_phase_under_the_profiler():
-    from mvuld_tpu_torch.core import tracing
-    port, _ = _pair(_moe())
-    x, _ = _images()
-    tracing.reset()
-    with torch.no_grad():
-        port(x)                         # no profiler: nothing recorded
-    assert tracing.snapshot() == {}
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with torch.no_grad():
-            port(x)
-    snap = tracing.snapshot()
-    tracing.reset()
-    phases = [f"moe.{k}" for k in ("route", "dispatch", "experts",
-                                   "combine")]
-    assert {k: snap[k]["n"] for k in phases} == {k: 3 for k in phases}
-    names = {e.name for e in prof.events()}
-    assert {f"mvuld.{k}" for k in phases} <= names
