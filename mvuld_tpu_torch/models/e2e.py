@@ -31,7 +31,9 @@ class EndToEndMVulD(nn.Module):
     lines (node_mask > 0) are stable-sorted to the front — original order
     preserved — into a [node_capacity, Tn] batch, encoded once, and
     scattered back to [B, N, H]. Lines beyond capacity get a zero embedding.
-    ``None`` encodes every slot (the parity reference path). A packed
+    ``None`` encodes every slot (the parity reference path), unless the
+    forward is given ``line_rows``: the capacity of that call alone, which
+    the serving loop counts from each chunk's mask. A packed
     line's dropout masks are its slot's rows of masks drawn over all B·N
     slots (``models/dropout.SlotRows``), as an unpacked run draws them, so
     they do not depend on the line's place in the pack (one rank and dp
@@ -58,10 +60,21 @@ class EndToEndMVulD(nn.Module):
             num_rs_gcn=num_rs_gcn, num_hidden=num_hidden,
             max_nodes=max_nodes, pos_dim=pos_dim)
 
+    def line_batch(self, slots: int, line_rows: Optional[int] = None) -> int:
+        """Rows the per-line encoder runs over ``slots`` line slots: the
+        model's ``node_capacity``, else ``line_rows``, else every slot."""
+        cap = self.node_capacity
+        if cap is None:
+            cap = line_rows
+        return slots if cap is None else min(cap, slots)
+
     def forward(self, func_ids, node_ids, image, pos, adj, node_mask,
-                train: bool = False, gen: Optional[torch.Generator] = None):
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                line_rows: Optional[int] = None):
         """``train``: dropout/DropPath masks from ``gen`` (none without
-        one) and batch statistics in the fusion head's BatchNorms."""
+        one) and batch statistics in the fusion head's BatchNorms.
+        ``line_rows``: the packed line capacity of this call where the
+        model has no ``node_capacity``; it must hold every valid line."""
         pad = self.text_config.pad_token_id
         encoder = self.text_encoder
         gen = gen if train else None
@@ -74,8 +87,8 @@ class EndToEndMVulD(nn.Module):
         B, N, Tn = node_ids.shape
         flat = node_ids.reshape(B * N, Tn)
         valid = node_mask.reshape(B * N) > 0
-        if self.node_capacity is not None and self.node_capacity < B * N:
-            P = self.node_capacity
+        P = self.line_batch(B * N, line_rows)
+        if P < B * N:
             # stable sort brings valid lines to the front in original order
             order = torch.argsort((~valid).to(torch.int32), stable=True)
             sel = order[:P]

@@ -165,13 +165,44 @@ def build_request(sources: List[Tuple[str, str]], cfg, tok, workdir: str,
     return arrs, rows
 
 
+# the per-line encoder's capacity of a chunk is its valid lines rounded up
+# to this many, so a bucket sees at most ⌈bucket · max_nodes / 16⌉ shapes
+LINE_GRANULE = 16
+
+_LINES = {"slots": 0, "lines": 0, "encoded": 0}
+
+
+def line_counters() -> Dict[str, int]:
+    """Sums over every chunk ``serve`` ran since the last reset: ``slots``
+    (bucket × max_nodes), ``lines`` (valid lines of the chunks' own rows,
+    not of the tail's padding copies) and ``encoded`` (rows the per-line
+    encoder ran)."""
+    return dict(_LINES)
+
+
+def reset_line_counters() -> None:
+    for k in _LINES:
+        _LINES[k] = 0
+
+
+def line_rows(valid: int, slots: int) -> int:
+    """The per-line encoder's capacity for a chunk of ``slots`` line slots
+    holding ``valid`` valid lines: the count rounded up to
+    ``LINE_GRANULE`` (one granule where there is none), at most ``slots``."""
+    granules = max(-(-valid // LINE_GRANULE), 1)
+    return min(granules * LINE_GRANULE, slots)
+
+
 def serve(model, arrs: Dict[str, np.ndarray], batch_size: int, device
           ) -> np.ndarray:
     """P(vul) for every row of ``arrs``: chunks of ``batch_size`` rows, the
     tail chunk padded (with copies of its first row) up to its power-of-two
-    bucket, one eval forward each. ``model`` must already be on ``device``.
-    Spans per chunk (``core/tracing.py``): ``serve.input`` (slicing,
-    padding, the copies), ``serve.forward``, ``serve.fetch``."""
+    bucket, one eval forward each, whose line encoder runs over the
+    chunk's valid lines only (``line_rows``, counted on the host; a model
+    built with a ``node_capacity`` keeps it). ``model`` must already be on
+    ``device``. Spans per chunk (``core/tracing.py``): ``serve.input``
+    (slicing, padding, the copies), ``serve.forward``, ``serve.fetch``;
+    counts in ``line_counters``."""
     import torch
 
     from mvuld_tpu_torch.core.tracing import span
@@ -191,11 +222,22 @@ def serve(model, arrs: Dict[str, np.ndarray], batch_size: int, device
                         c = np.concatenate([c, np.repeat(c[:1], bucket - k,
                                                          0)], 0)
                     chunk[key] = torch.as_tensor(c).to(device)
+                # valid lines as the model gets them: the tail's padding
+                # copies its first row
+                mask = arrs["node_mask"][lo:lo + k] > 0
+                lines = int(np.count_nonzero(mask))
+                slots = bucket * mask.shape[1]
+                rows = line_rows(
+                    lines + (bucket - k) * int(np.count_nonzero(mask[0])),
+                    slots)
+                _LINES["slots"] += slots
+                _LINES["lines"] += lines
+                _LINES["encoded"] += model.line_batch(slots, rows)
             with span("serve.forward"):
                 logits = model(chunk["func_ids"].long(),
                                chunk["node_ids"].long(), chunk["image"],
                                chunk["pos"], chunk["adj"] > 0,
-                               chunk["node_mask"])
+                               chunk["node_mask"], line_rows=rows)
                 # P(vul): softmax prob of class 1, the reference's decision
                 # rule (mvuld/main_bigvul.py:447)
                 p = torch.softmax(logits.float(), dim=-1)[:, 1]
@@ -231,7 +273,8 @@ def main(argv=None) -> List[Dict]:
                              "up to this)")
     parser.add_argument("--node-capacity", type=int, default=0,
                         help="packed per-line encoder capacity (0 = encode "
-                             "every slot; params are identical either way)")
+                             "each chunk's valid lines; params are identical "
+                             "either way)")
     parser.add_argument("--workdir", default=None,
                         help="where rendered PNGs/positions go (default: "
                              "RUN_DIR/predict_cache)")

@@ -27,7 +27,8 @@ tiny SwinV2 through K1/K2/K3/K3b (DropPath and, in one case, dropout in
 a checkpointed stage), of a tiny fusion head (BatchNorm statistics,
 dropout; direct and indexed) and of a tiny e2e model (packed lines, K1-K4b,
 dropout 0.1, the text layers checkpointed or not) against K eager steps
-from the same state, of a tiny Swin-MoE (BPR, gate noise, MOE_DROP) to the
+from the same state, serving's packed lines of that e2e model against
+every slot encoded, of a tiny Swin-MoE (BPR, gate noise, MOE_DROP) to the
 bit, and its refusal under a gloo group. Tolerances: fp32
 outputs 1e-4 (both compute in fp32, another summation order; the fp32 MLP
 and dense kernels from two-term bf16 products); bf16 outputs two bf16 ulps
@@ -1549,6 +1550,71 @@ def test_multi_step_graph_e2e_equals_eager_steps(dev, text_remat):
         kernels=(wa.window_attention_flat, wa.window_attention_flat_bwd,
                  fd.mlp_ln, fd.mlp_ln_bwd, fd.mlp_ln_res, fd.mlp_ln_res_bwd))
 
+
+
+@pytest.mark.parametrize("bucket", [1, 4, 16])
+def test_serve_packed_lines_match_every_slot(dev, bucket, monkeypatch):
+    """``predict.serve`` of a tiny bf16 e2e model built without a
+    ``node_capacity`` (K1/K3 in SwinV2, K4 in the text encoder): each
+    chunk's valid lines packed at the host-counted capacity give the P(vul)
+    of every line slot encoded within 2e-3, at buckets 1, 4 and 16."""
+    from types import SimpleNamespace
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.ops import fused_dense as fd
+    from mvuld_tpu_torch.train import predict
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+
+    M, T, Tn, S = 40, 24, 8, 32
+    opts = ["DATA.IMG_SIZE", S, "MODEL.SWINV2.EMBED_DIM", 64,
+            "MODEL.SWINV2.DEPTHS", [2, 2], "MODEL.SWINV2.NUM_HEADS", [2, 4],
+            "MODEL.SWINV2.WINDOW_SIZE", 4,
+            "MODEL.SWINV2.PRETRAINED_WINDOW_SIZES", [0, 0],
+            "MODEL.UNIXCODER.LAYERS", 2, "MODEL.UNIXCODER.HIDDEN", 64,
+            "MODEL.UNIXCODER.HEADS", 2, "MODEL.UNIXCODER.INTERMEDIATE", 256,
+            "DATA.FUNC_TOKENS", T, "DATA.NODE_TOKENS", Tn,
+            "DATA.MAX_NODES", M, "MODEL.MULTI.HIDDEN", 64,
+            "MODEL.MULTI.NUM_RS_GCN", 1, "MODEL.MULTI.NUM_HIDDEN_FC", 1,
+            "PARALLEL.DTYPE", "bfloat16", "TRAIN.FUSED_MLP", True]
+    cfg = get_config(SimpleNamespace(cfg=None, opts=opts, output="unused"))
+    model = build_e2e_model(cfg, 64, use_pallas=True, use_pallas_mlp=True,
+                            roberta_pallas_mlp=True)[0]
+    gen = torch.Generator().manual_seed(0)
+    init_jax_like(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.dtype))
+    model.to(dev).eval()
+
+    rng = np.random.RandomState(bucket)
+    n = 2 * bucket
+    counts = [17, 9] if bucket == 1 else rng.randint(5, M + 1, n)
+    node_mask = (np.arange(M)[None] < np.asarray(counts)[:, None]).astype(
+        np.float32)
+    node_ids = rng.randint(3, 64, (n, M, Tn)).astype(np.int32)
+    node_ids[..., 6:] = 1
+    node_ids[node_mask == 0] = 1
+    func_ids = rng.randint(3, 64, (n, T)).astype(np.int32)
+    func_ids[:, T // 2:] = 1
+    both = node_mask[:, :, None] * node_mask[:, None, :] > 0
+    adj = ((rng.rand(n, M, M) < 0.3) & both) | (np.eye(M, dtype=bool) & both)
+    arrs = {"func_ids": func_ids, "node_ids": node_ids,
+            "image": rng.randn(n, S, S, 3).astype(np.float32),
+            "pos": (rng.rand(n, M, 4) * node_mask[..., None]).astype(
+                np.float32),
+            "adj": adj.astype(np.uint8), "node_mask": node_mask}
+
+    predict.reset_line_counters()
+    before = fd.mlp_ln_res.launches
+    got = predict.serve(model, arrs, bucket, dev)
+    assert fd.mlp_ln_res.launches > before
+    c = predict.line_counters()
+    assert c["lines"] <= c["encoded"] < c["slots"], c
+    monkeypatch.setattr(predict, "line_rows", lambda valid, slots: slots)
+    want = predict.serve(model, arrs, bucket, dev)
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 2e-3
 
 def test_multi_step_graph_swin_moe_replay_equals_eager_to_the_bit(dev):
     """A captured K = 8 replay of a tiny Swin-MoE as its yaml configures

@@ -294,3 +294,146 @@ def test_predict_serves_a_port_training_run(tmp_path):
     np.testing.assert_array_equal(
         [r["p_vul"] for r in got],
         [round(float(want[r["_slot"]]), 6) for r in rows])
+
+
+# ------------------------------------------- serving's packed line encoder
+
+def _toy_e2e(capacity=None):
+    """A tiny fp32 ``EndToEndMVulD`` (plain layers) with seeded weights, all
+    of them moved off their initial values so every tower reaches P(vul)."""
+    import torch
+
+    from mvuld_tpu_torch.config import get_config
+    from mvuld_tpu_torch.models.convert import init_jax_like
+    from mvuld_tpu_torch.train.train_e2e import build_e2e_model
+
+    cfg = get_config(SimpleNamespace(cfg=None, opts=TOY_OPTS,
+                                     output="unused"))
+    model = build_e2e_model(cfg, 50, node_capacity=capacity)[0]
+    gen = torch.Generator().manual_seed(0)
+    init_jax_like(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return cfg, model.eval()
+
+
+def _serve_rows(cfg, counts, seed=3):
+    """Featurised rows with ``counts[i]`` valid lines in row i."""
+    rng = np.random.RandomState(seed)
+    n = len(counts)
+    M, T, Tn, S = (cfg.DATA.MAX_NODES, cfg.DATA.FUNC_TOKENS,
+                   cfg.DATA.NODE_TOKENS, cfg.DATA.IMG_SIZE)
+    node_mask = (np.arange(M)[None] < np.asarray(counts)[:, None]).astype(
+        np.float32)
+    func_ids = rng.randint(3, 50, (n, T)).astype(np.int32)
+    func_ids[:, T // 2:] = 1
+    node_ids = rng.randint(3, 50, (n, M, Tn)).astype(np.int32)
+    node_ids[..., 6:] = 1
+    node_ids[node_mask == 0] = 1
+    both = node_mask[:, :, None] * node_mask[:, None, :] > 0
+    adj = ((rng.rand(n, M, M) < 0.3) & both) | (np.eye(M, dtype=bool) & both)
+    return {"func_ids": func_ids, "node_ids": node_ids,
+            "image": rng.randn(n, S, S, 3).astype(np.float32),
+            "pos": (rng.rand(n, M, 4) * node_mask[..., None]).astype(
+                np.float32),
+            "adj": adj.astype(np.uint8), "node_mask": node_mask}
+
+
+@pytest.mark.parametrize("valid,slots,want", [
+    (0, 64, 16), (1, 64, 16), (16, 64, 16), (17, 64, 32), (63, 64, 64),
+    (64, 64, 64), (5, 8, 8), (0, 8, 8)])
+def test_line_rows_rounds_up_to_the_granule(valid, slots, want):
+    from mvuld_tpu_torch.train.predict import LINE_GRANULE, line_rows
+    assert LINE_GRANULE == 16
+    assert line_rows(valid, slots) == want
+
+
+# counts of valid lines a row (MAX_NODES 16), served at batch 4 (64 slots)
+SERVE_CASES = {
+    "padded_tail": [3, 9, 0, 12, 7, 2, 5],   # 4 + 3 rows, tail 21 → 32
+    "on_granule": [4, 4, 4, 4],              # 16 → 16
+    "granule_plus_one": [4, 4, 4, 5],        # 17 → 32
+    "no_lines": [0, 0, 0, 0],                # one granule, nothing taken
+}
+ENCODED = {"padded_tail": 32 + 32, "on_granule": 16, "granule_plus_one": 32,
+           "no_lines": 16}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_serve_packed_lines_equal_every_slot(case, monkeypatch):
+    """``serve`` with ``node_capacity`` None encodes each chunk's valid
+    lines only and gives the P(vul) of encoding every slot within 1e-5."""
+    import torch
+
+    from mvuld_tpu_torch.train import predict
+
+    cfg, model = _toy_e2e()
+    arrs = _serve_rows(cfg, SERVE_CASES[case])
+    predict.reset_line_counters()
+    got = predict.serve(model, arrs, 4, torch.device("cpu"))
+    assert predict.line_counters()["encoded"] == ENCODED[case]
+    monkeypatch.setattr(predict, "line_rows", lambda valid, slots: slots)
+    want = predict.serve(model, arrs, 4, torch.device("cpu"))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_line_counters_count_a_known_request():
+    """7 rows at batch 4: a chunk of 4 and a tail of 3 padded to 4 with a
+    copy of its first row; a model built with a capacity keeps it."""
+    import torch
+
+    from mvuld_tpu_torch.train import predict
+
+    counts = [3, 4, 5, 6, 7, 2, 1]
+    cfg, model = _toy_e2e()
+    arrs = _serve_rows(cfg, counts)
+    predict.reset_line_counters()
+    predict.serve(model, arrs, 4, torch.device("cpu"))
+    # 18 lines → 32 rows; the tail's 10 + the copy's 7 = 17 → 32 rows
+    assert predict.line_counters() == {"slots": 128, "lines": 28,
+                                       "encoded": 64}
+    predict.reset_line_counters()
+    assert predict.line_counters() == {"slots": 0, "lines": 0, "encoded": 0}
+    _, fixed = _toy_e2e(capacity=8)
+    predict.serve(fixed, arrs, 4, torch.device("cpu"))
+    assert predict.line_counters() == {"slots": 128, "lines": 28,
+                                       "encoded": 16}
+
+
+def test_forward_without_line_rows_is_unchanged():
+    """Training's forward passes no ``line_rows``: a packed training batch
+    (dropout, DropPath, masks drawn over the slots) gives the same logits
+    to the bit whatever ``line_rows`` would say, since the model's
+    ``node_capacity`` wins, and runs the same operators on the same
+    shapes."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append((str(func), tuple(
+                tuple(a.shape) for a in args if isinstance(a, torch.Tensor))))
+            return func(*args, **(kwargs or {}))
+
+    cfg, model = _toy_e2e(capacity=24)
+    model.train()
+    inp = {k: torch.as_tensor(v) for k, v in
+           _serve_rows(cfg, [3, 9, 0, 12]).items()}
+    out, ops = [], []
+    for extra in ({}, {"line_rows": 64}, {"line_rows": 16}):
+        with Ops() as rec:
+            out.append(model(inp["func_ids"].long(), inp["node_ids"].long(),
+                             inp["image"], inp["pos"], inp["adj"] > 0,
+                             inp["node_mask"], train=True,
+                             gen=torch.Generator().manual_seed(5), **extra))
+        ops.append(rec.seen)
+    assert model.line_batch(64) == model.line_batch(64, 16) == 24
+    for o, seen in zip(out[1:], ops[1:]):
+        assert torch.equal(o, out[0])
+        assert seen == ops[0]
